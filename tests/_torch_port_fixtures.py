@@ -1,0 +1,113 @@
+"""Shared inputs for the PyTorch port's parity tests (``test_torch_port_*``).
+
+Both packages get the same numpy inputs and the same weights: a random
+numpy tree shaped like the JAX ``ImVoxelNet``'s variables, which the port
+loads through ``from_jax_variables``.
+"""
+
+import numpy as np
+
+H, W = 96, 320                       # tiny_kitti_test image size
+RATIO = 4.0                          # ori_h / (img_h / stride), ori == img
+# KITTI camera 2 scaled to 320x96, cx/cy nudged off the pixel grid
+K_TINY = np.array([[180.38, 0.0, 160.37], [0.0, 180.38, 43.21],
+                   [0.0, 0.0, 1.0]], np.float32)
+LIDAR_TO_CAM = np.array([[0, -1, 0, 0.0], [0, 0, -1, -0.08],
+                         [1, 0, 0, -0.27], [0, 0, 0, 1]], np.float32)
+# tiny grid is 25.6 x 25.6 x 3.84 m; its center sits off the voxel grid
+ORIGIN = (12.8 - 0.0341, -0.039, -1.0 + 0.0156)
+
+
+def tiny_batch_np(b, seed=0):
+    rng = np.random.RandomState(seed)
+    return dict(
+        images=rng.randn(b, 1, H, W, 3).astype(np.float32),
+        intrinsics=np.stack([K_TINY] * b),
+        extrinsics=np.stack([LIDAR_TO_CAM[None]] * b),
+        origins=np.asarray([ORIGIN] * b, np.float32),
+        img_shape=np.asarray([[H, W]] * b, np.int32),
+        ratios=np.full((b,), RATIO, np.float32),
+    )
+
+
+def projection_margin(n_voxels, voxel_size, batch_np, stride=4):
+    """Smallest distance, in float64, of any in-front voxel's projected
+    pixel coordinate from a round-half boundary.  Float32 paths that
+    evaluate the projection in different orders pick the same pixel when
+    this is well above float32 noise (~1e-5)."""
+    n = np.asarray(n_voxels, np.float64)
+    vs = np.asarray(voxel_size, np.float64)
+    idx = np.stack(np.meshgrid(*[np.arange(c) for c in n_voxels],
+                               indexing='ij'), -1).reshape(-1, 3)
+    margin = np.inf
+    for i in range(batch_np['origins'].shape[0]):
+        o = batch_np['origins'][i].astype(np.float64)
+        pts = idx * vs + (o - n / 2.0 * vs)
+        k = batch_np['intrinsics'][i].astype(np.float64).copy()
+        k[:2] /= batch_np['ratios'][i]
+        for e in batch_np['extrinsics'][i]:
+            uvw = (k @ e[:3].astype(np.float64) @ np.c_[
+                pts, np.ones(len(pts))].T).T
+            front = uvw[:, 2] > 0
+            for a in (uvw[front, 0] / uvw[front, 2],
+                      uvw[front, 1] / uvw[front, 2]):
+                margin = min(margin, np.abs((a - np.floor(a)) - 0.5).min())
+    return margin
+
+
+def _random_tree(shapes, rng, path=()):
+    """Numpy weights for a tree of shapes: lecun-normal conv kernels
+    (normal(0.01) for the head's cls/reg convs, as the JAX init), random
+    biases and batch-norm statistics."""
+    out = {}
+    for key, val in shapes.items():
+        if hasattr(val, 'items'):
+            out[key] = _random_tree(val, rng, path + (key,))
+            continue
+        shape = val.shape
+        if key == 'kernel':
+            std = (0.01 if path[-1] in ('conv_cls', 'conv_reg')
+                   else np.prod(shape[:-1]) ** -0.5)
+            val = rng.randn(*shape) * std
+        elif key in ('scale', 'var'):
+            val = rng.uniform(0.5, 1.5, shape)
+        else:                                   # bias, mean
+            val = rng.randn(*shape) * 0.1
+        out[key] = val.astype(np.float32)
+    return out
+
+
+def jax_variables(cfg, batch_np, seed=0, cls_bias=None):
+    """Random ``{'params', 'batch_stats'}`` (numpy) for the JAX
+    ``ImVoxelNet(cfg)``, shaped by an abstract ``init``; ``cls_bias``
+    overrides the head's cls bias."""
+    import jax
+    import jax.numpy as jnp
+
+    from imvoxelnet_tpu.models.detector import ImVoxelNet
+
+    batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
+    shapes = jax.eval_shape(
+        lambda b: ImVoxelNet(cfg).init(jax.random.PRNGKey(0), b,
+                                       train=False), batch)
+    variables = _random_tree(shapes, np.random.RandomState(seed))
+    if cls_bias is not None:
+        head = variables['params']['bbox_head']['conv_cls']
+        head['bias'] = np.full_like(head['bias'], cls_bias)
+    return variables
+
+
+def to_torch(batch_np, device='cpu'):
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch_np.items()}
+
+
+def port_model(cfg, variables, device='cpu'):
+    """The port's ``ImVoxelNet`` for the same config and weights, eval."""
+    from imvoxelnet_tpu_torch.models.detector import ImVoxelNet
+    from imvoxelnet_tpu_torch.utils.checkpoint import from_jax_variables
+
+    model = ImVoxelNet(cfg)
+    model.load_state_dict(from_jax_variables(variables, cfg), strict=True)
+    return model.to(device).eval()

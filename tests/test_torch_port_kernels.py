@@ -1,0 +1,332 @@
+"""The plain versions of the port's three kernels against the JAX package.
+
+Each CUDA kernel is held against its plain PyTorch version on the card
+(``chip_smoke.py``, ``tests/test_torch_port_cuda.py``); here on the CPU the
+plain versions are held against the JAX functions the kernels replace: the
+production XLA path and the Pallas kernel in interpret mode.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from imvoxelnet_tpu.ops import backproject as jax_bp
+from imvoxelnet_tpu.ops import backproject_pallas as jax_bpp
+from imvoxelnet_tpu.ops import boxes as jax_boxes
+from imvoxelnet_tpu.ops import iou as jax_iou
+from imvoxelnet_tpu.ops.conv3z_pallas import conv3z_lanepack
+from imvoxelnet_tpu.ops.iou_pallas import rect_intersection_area_pallas
+
+from imvoxelnet_tpu_torch import kernels
+from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
+from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
+from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
+from imvoxelnet_tpu_torch.models import necks3d
+from imvoxelnet_tpu_torch.ops import backproject as bp
+from imvoxelnet_tpu_torch.ops import boxes as box_ops
+from imvoxelnet_tpu_torch.ops import conv3z
+from imvoxelnet_tpu_torch.ops import iou as iou_ops
+
+
+# --------------------------------------------------------------------------
+# B1: backprojection
+# --------------------------------------------------------------------------
+
+def _bp_setup(b=2, v=3, hf=12, wf=16, c=8, seed=0):
+    """Per-view cameras looking down +z at a grid ~2 m away; the off-grid
+    origin keeps every projected coordinate off the round-half boundary."""
+    rng = np.random.RandomState(seed)
+    features = rng.randn(b, v, hf, wf, c).astype(np.float32)
+    k = np.array([[20.0, 0, wf / 2 + 0.0371], [0, 20.0, hf / 2 - 0.0293],
+                  [0, 0, 1]], np.float32)
+    proj = np.zeros((b, v, 3, 4), np.float32)
+    for s in range(b):
+        for i in range(v):
+            e = np.eye(4, dtype=np.float32)[:3]
+            e[0, 3] = 0.2 * i + 0.05 * s
+            proj[s, i] = k @ e
+    origins = np.array([[0.0137, -0.0213, 2.0071]] * b, np.float32)
+    points = np.asarray(bp.get_points(
+        (6, 6, 4), (0.3, 0.3, 0.3), torch.from_numpy(origins))).reshape(
+            b, -1, 3)
+    # margin of the float64 projection from a .5 pixel boundary
+    uvw = np.einsum('bvij,bpj->bvpi', proj.astype(np.float64),
+                    np.concatenate([points, np.ones_like(points[..., :1])],
+                                   -1).astype(np.float64))
+    uv = uvw[..., :2] / uvw[..., 2:]
+    assert np.abs(uv - np.floor(uv) - 0.5).min() > 1e-4
+    return features, points, proj
+
+
+@pytest.mark.parametrize('valid_hw', [None, (8, 10)], ids=['full', 'valid_hw'])
+def test_backproject_plain_matches_jax_backproject_batch(valid_hw):
+    features, points, proj = _bp_setup()
+    b, _, hf, wf, _ = features.shape
+    hw = np.array([valid_hw or (hf, wf)] * b, np.int32)
+    ref_acc, ref_cnt = jax_bp.backproject_batch(
+        jnp.asarray(features), jnp.asarray(points), jnp.asarray(proj),
+        jnp.asarray(hw))
+    acc, cnt = bp.backproject_batch_plain(
+        torch.from_numpy(features), torch.from_numpy(points),
+        torch.from_numpy(proj), torch.from_numpy(hw))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref_cnt))
+    assert 0 < (cnt.numpy() > 0).mean() < 1
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ref_acc), atol=1e-6)
+    # and the dispatcher takes the plain version for CPU tensors
+    acc2, cnt2 = bp.backproject_batch(
+        torch.from_numpy(features), torch.from_numpy(points),
+        torch.from_numpy(proj), torch.from_numpy(hw))
+    assert torch.equal(acc2, acc) and torch.equal(cnt2, cnt)
+
+
+@pytest.mark.parametrize('v,valid_hw', [(3, None), (1, (8, 8))],
+                         ids=['3views', 'valid_hw'])
+def test_backproject_plain_bf16_matches_pallas_interpret(v, valid_hw):
+    """The Pallas kernel works in bfloat16; so does the port here."""
+    features, points, proj = _bp_setup(b=1, v=v)
+    hf, wf = features.shape[2:4]
+    hw = np.array([valid_hw or (hf, wf)], np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref_vol, ref_seen = jax_bpp.backproject_pallas(
+            jnp.asarray(features[0]), jnp.asarray(points[0]),
+            jnp.asarray(proj[0]), valid_hw=jnp.asarray(hw[0]))
+    acc, cnt = bp.backproject_batch_plain(
+        torch.from_numpy(features).to(torch.bfloat16),
+        torch.from_numpy(points), torch.from_numpy(proj),
+        torch.from_numpy(hw))
+    vol, seen = bp.mean_pool_from_sums(acc.float(), cnt.float())
+    np.testing.assert_array_equal(seen[:, 0].numpy(), np.asarray(ref_seen))
+    np.testing.assert_allclose(vol[:, 0].numpy(), np.asarray(ref_vol),
+                               atol=2e-2)
+
+
+def test_project_points_matches_jax():
+    features, points, proj = _bp_setup(b=1, v=2)
+    for i in range(2):
+        jx, jy, jz = jax_bp.project_points(jnp.asarray(points[0]),
+                                           jnp.asarray(proj[0, i]))
+        x, y, z = bp.project_points(torch.from_numpy(points[0]),
+                                    torch.from_numpy(proj[0, i]))
+        np.testing.assert_array_equal(x.numpy().astype(np.int32),
+                                      np.asarray(jx))
+        np.testing.assert_array_equal(y.numpy().astype(np.int32),
+                                      np.asarray(jy))
+        np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-6)
+
+
+def test_mean_pool_single_view_shortcut():
+    acc = torch.randn(10, 2, 4)
+    cnt = (torch.rand(10, 2) > 0.5).float()
+    acc = acc * cnt[..., None]
+    vol1, seen1 = bp.mean_pool_from_sums(acc, cnt, n_views=1)
+    vol, seen = bp.mean_pool_from_sums(acc, cnt)
+    assert torch.equal(seen1, seen) and torch.equal(vol1, vol)
+
+
+def test_get_points_and_projection_match_jax():
+    origins = np.array([[34.57, -0.02, -0.99], [1.0, 2.0, 3.0]], np.float32)
+    pts = bp.get_points((5, 6, 3), (0.32, 0.32, 0.32),
+                        torch.from_numpy(origins)).numpy()
+    for i in range(2):
+        ref = np.asarray(jax_bp.get_points((5, 6, 3), (0.32, 0.32, 0.32),
+                                           jnp.asarray(origins[i])))
+        np.testing.assert_array_equal(pts[i], ref)
+    rng = np.random.RandomState(1)
+    k = rng.rand(2, 3, 3).astype(np.float32)
+    e = rng.rand(2, 3, 4, 4).astype(np.float32)
+    r = np.array([4.0, 2.5], np.float32)
+    got = bp.compute_projection(torch.from_numpy(k), torch.from_numpy(e),
+                                torch.from_numpy(r)).numpy()
+    ref = np.asarray(jax.vmap(jax_bp.compute_projection)(
+        jnp.asarray(k), jnp.asarray(e), jnp.asarray(r)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# B2: rotated-rect clip
+# --------------------------------------------------------------------------
+
+def _random_rects(rng, n):
+    xy = rng.uniform(-4, 4, (n, 2))
+    wh = rng.uniform(0.3, 3.0, (n, 2))
+    r = rng.uniform(-np.pi, np.pi, (n, 1))
+    return np.concatenate([xy, wh, r], axis=1).astype(np.float32)
+
+
+def _degenerate_rects():
+    """Identical, disjoint, edge-touching and contained pairs."""
+    b1 = np.array([[0., 0., 2., 2., 0.3], [0., 0., 2., 2., 0.0],
+                   [0., 0., 2., 2., 0.0], [0., 0., 4., 4., 0.0]], np.float32)
+    b2 = np.array([[0., 0., 2., 2., 0.3], [10., 10., 2., 2., 0.0],
+                   [2., 0., 2., 2., 0.0], [0., 0., 1., 1., 1.0]], np.float32)
+    return b1, b2
+
+
+def _pairwise_corners(n1, n2, seed):
+    rng = np.random.RandomState(seed)
+    c1 = np.asarray(jax_boxes.bev_corners(jnp.asarray(_random_rects(rng, n1))))
+    c2 = np.asarray(jax_boxes.bev_corners(jnp.asarray(_random_rects(rng, n2))))
+    return c1[:, None], c2[None, :]
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize('n1,n2,seed', [(60, 40, 0), (7, 11, 1), (48, 48, 7)])
+def test_rect_clip_plain_bit_identical_to_jnp(n1, n2, seed):
+    c1, c2 = _pairwise_corners(n1, n2, seed)
+    ref = jax_iou._rect_intersection_area_jnp(jnp.asarray(c1),
+                                              jnp.asarray(c2))
+    got = iou_ops.rect_intersection_area_plain(torch.from_numpy(c1),
+                                               torch.from_numpy(c2))
+    assert got.shape == (n1, n2)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+    assert (got.numpy() > 0).any() and (got.numpy() == 0).any()
+
+
+# The JAX package's two clips are not bit-identical to each other on the
+# CPU: the Pallas kernel in interpret mode differs from
+# _rect_intersection_area_jnp by up to 1.4e-6 in 312 of these 2400 pairs.
+# The port (plain version and CUDA kernel) keeps the jnp clip's bits, and is
+# held to the Pallas kernel at the JAX package's own tolerance for that pair
+# (tests/test_iou_pallas.py: rtol/atol 1e-5).
+PALLAS_TOL = 1e-5
+
+
+@pytest.mark.parametrize('compaction', ['scatter', 'shift'])
+def test_rect_clip_plain_matches_pallas_interpret(compaction):
+    c1, c2 = _pairwise_corners(60, 40, 0)
+    ref = rect_intersection_area_pallas(jnp.asarray(c1), jnp.asarray(c2),
+                                        compaction=compaction)
+    got = iou_ops.rect_intersection_area_plain(torch.from_numpy(c1),
+                                               torch.from_numpy(c2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=PALLAS_TOL, atol=PALLAS_TOL)
+
+
+def test_rect_clip_plain_nonmultiple_tile_padding():
+    """The Pallas kernel pads 77 pairs to a 256-pair tile."""
+    c1, c2 = _pairwise_corners(7, 11, 1)
+    ref = rect_intersection_area_pallas(jnp.asarray(c1), jnp.asarray(c2),
+                                        tile=256)
+    got = iou_ops.rect_intersection_area_plain(torch.from_numpy(c1),
+                                               torch.from_numpy(c2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=PALLAS_TOL, atol=PALLAS_TOL)
+
+
+def test_rect_clip_plain_degenerate_cases():
+    b1, b2 = _degenerate_rects()
+    c1 = box_ops.bev_corners(torch.from_numpy(b1))
+    c2 = box_ops.bev_corners(torch.from_numpy(b2))
+    got = iou_ops.rect_intersection_area_plain(c1, c2).numpy()
+    np.testing.assert_allclose(got, [4.0, 0.0, 0.0, 1.0], atol=1e-5)
+    jc1 = jax_boxes.bev_corners(jnp.asarray(b1))
+    jc2 = jax_boxes.bev_corners(jnp.asarray(b2))
+    ref = jax_iou._rect_intersection_area_jnp(jc1, jc2)
+    np.testing.assert_array_equal(
+        _bits(iou_ops.rect_intersection_area_plain(
+            torch.from_numpy(np.asarray(jc1)),
+            torch.from_numpy(np.asarray(jc2))).numpy()), _bits(ref))
+    np.testing.assert_allclose(
+        got, np.asarray(rect_intersection_area_pallas(jc1, jc2)),
+        rtol=PALLAS_TOL, atol=PALLAS_TOL)
+
+
+def test_bev_corners_and_rotated_iou_match_jax():
+    rng = np.random.RandomState(3)
+    b1, b2 = _random_rects(rng, 9), _random_rects(rng, 7)
+    np.testing.assert_allclose(
+        box_ops.bev_corners(torch.from_numpy(b1)).numpy(),
+        np.asarray(jax_boxes.bev_corners(jnp.asarray(b1))),
+        rtol=1e-6, atol=1e-6)
+    got = iou_ops.rotated_iou_bev(torch.from_numpy(b1), torch.from_numpy(b2))
+    ref = jax_iou.rotated_iou_bev(jnp.asarray(b1), jnp.asarray(b2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# B3: 3x3x3 conv
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize('shape,tile', [
+    # (B, nx, ny, nz, cin, cout), (tx, ty) of the Pallas kernel
+    ((2, 8, 8, 5, 8, 8), (4, 4)),
+    ((1, 6, 7, 4, 8, 16), (4, 4)),   # ragged nx and ny
+    ((1, 9, 5, 12, 16, 8), (4, 4)),  # kitti-like nz
+])
+def test_conv3x3x3_plain_matches_conv3z_lanepack(shape, tile):
+    b, nx, ny, nz, cin, cout = shape
+    rng = np.random.RandomState(0)
+    x = rng.randn(b, nx, ny, nz, cin).astype(np.float32)
+    w = (rng.randn(3, 3, 3, cin, cout) * 0.1).astype(np.float32)
+    ref = conv3z_lanepack(jnp.asarray(x), jnp.asarray(w), *tile)
+    got = conv3z.conv3x3x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    # the dispatcher takes the plain version for CPU tensors
+    assert torch.equal(conv3z.conv3x3x3(torch.from_numpy(x),
+                                        torch.from_numpy(w)), got)
+
+
+def test_conv3x3x3_plain_bf16_matches_conv3z_lanepack_bf16():
+    rng = np.random.RandomState(1)
+    x = rng.randn(1, 8, 9, 6, 8).astype(np.float32)
+    w = (rng.randn(3, 3, 3, 8, 8) * 0.1).astype(np.float32)
+    ref = conv3z_lanepack(jnp.asarray(x, jnp.bfloat16),
+                          jnp.asarray(w, jnp.bfloat16), 4, 4)
+    got = conv3z.conv3x3x3_plain(torch.from_numpy(x).to(torch.bfloat16),
+                                 torch.from_numpy(w).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    # both accumulate in float32 and round once: bfloat16 tolerance
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref).astype(np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_conv_gate_routes_only_kitti_block0():
+    """The JAX gate's shape test: stride 1, pad 1, 64 -> 64, 6 <= nz <= 16
+    and nx*ny >= 16384 (KITTI block0's 216x248x12 volume)."""
+    conv = necks3d.Conv3x3x3(64, 64)
+    kitti = torch.empty((1, 64, 216, 248, 12), device='meta')
+    assert conv.takes_kernel(kitti)
+    assert not conv.takes_kernel(torch.empty((1, 64, 216, 248, 6),
+                                             device='meta')[..., :3])
+    assert not conv.takes_kernel(torch.empty((1, 64, 32, 40, 12),
+                                             device='meta'))
+    assert not necks3d.Conv3x3x3(128, 128).takes_kernel(
+        torch.empty((1, 128, 216, 248, 6), device='meta'))
+    assert not necks3d.Conv3x3x3(64, 64, stride=(1, 1, 2)).takes_kernel(
+        kitti)
+
+
+# --------------------------------------------------------------------------
+# The wrappers launch kernels only: CPU tensors are refused, not run
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize('call', [
+    lambda: bp_kernel.backproject_batch(
+        torch.zeros(1, 1, 4, 4, 2), torch.zeros(1, 3, 3),
+        torch.zeros(1, 1, 3, 4), torch.zeros(1, 2, dtype=torch.int32)),
+    lambda: clip_kernel.rect_intersection_area(torch.zeros(3, 4, 2),
+                                               torch.zeros(3, 4, 2)),
+    lambda: conv_kernel.conv3x3x3(torch.zeros(1, 2, 2, 2, 64),
+                                  torch.zeros(3, 3, 3, 64, 64)),
+], ids=['backproject', 'rect_clip', 'conv3x3x3'])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        call()
+    assert kernels.launch_counts() == before
+
+
+def test_rect_clip_wrapper_refuses_gradients():
+    c = torch.zeros(3, 4, 2, requires_grad=True)
+    with pytest.raises(RuntimeError, match='no backward'):
+        clip_kernel.rect_intersection_area(c, c)

@@ -4,7 +4,8 @@
 
 Phases, each failing the run on its own error:
   1. build   -- nvcc builds the three kernels from the sources in
-                imvoxelnet_tpu_torch/kernels/csrc, in parallel;
+                imvoxelnet_tpu_torch/kernels/csrc, in parallel; the conv
+                library's SASS must hold tensor-core (HGMMA) instructions;
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 the shapes the KITTI main path gives it, with times;
   3. slice   -- the full-width imvoxelnet_kitti forward + decode/NMS through
@@ -186,13 +187,14 @@ def check_conv3x3x3(b, dtype, tol, rng):
     w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
     n_flops = 2 * b * nx * ny * nz * 27 * c * c
     t_bound, by = bound(nbytes(x, w, got), n_flops, dtype)
-    reps = 2 if b > 1 else 5
+    reps = 10
+    ms = time_ms(lambda: conv_kernel.conv3x3x3(x, w), reps)
     return dict(
         name='conv3x3x3', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/conv3x3x3.cu',
         replaces='imvoxelnet_tpu/ops/conv3z_pallas.py:91',
         shape=f'b={b} {str(dtype)[6:]} x {tuple(x.shape)}', max_abs_err=err,
-        ms=time_ms(lambda: conv_kernel.conv3x3x3(x, w), reps),
+        ms=ms, tflops=n_flops / (ms * 1e-3) / 1e12,
         plain_ms=time_ms(lambda: conv3z.conv3x3x3_plain(x, w), reps),
         bound_ms=t_bound, bound_by=by,
         library_ms=time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1),
@@ -321,6 +323,11 @@ def main():
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'ptxas {name}: {line.strip()}')
+    n_hgmma = build.sass_count('conv3x3x3', 'HGMMA')
+    log(f'conv3x3x3 library: {n_hgmma} HGMMA (tensor-core warpgroup MMA) '
+        f'instructions in its SASS')
+    if n_hgmma == 0:
+        raise AssertionError('conv3x3x3: no tensor-core instruction built')
 
     log(f'HBM: 1 GiB device copy at {copy_rate_tb_s():.4g} TB/s read+write '
         f'(published peak {PEAK_BYTES / 1e12:.3g} TB/s)')

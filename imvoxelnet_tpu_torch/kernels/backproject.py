@@ -35,8 +35,8 @@ def backproject_batch(features, points, projections, valid_hw):
     same_device(features, points, projections, valid_hw)
     b, v, hf, wf, c = features.shape
     p = points.shape[1]
-    if c % 2:
-        raise ValueError(f'channel count must be even, got {c}')
+    if c % 2 or c < 2:
+        raise ValueError(f'channel count must be even and positive, got {c}')
     if (points.shape != (b, p, 3) or projections.shape != (b, v, 3, 4)
             or valid_hw.shape != (b, 2)):
         raise ValueError('shape mismatch: features '

@@ -38,7 +38,8 @@ SIGNATURES = {
     'backproject': ('imvx_backproject',
                     [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]),
     'rect_clip': ('imvx_rect_clip', [_P, _P, _P, _L, _P]),
-    'conv3x3x3': ('imvx_conv3x3x3', [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    'conv3x3x3': ('imvx_conv3x3x3',
+                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -66,6 +67,16 @@ def _so_path(name: str) -> str:
         digest = hashlib.sha256(f.read())
     digest.update(' '.join(_ARCH + _FLAGS + _EXTRA[name]).encode())
     return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:12]}.so')
+
+
+def sass_count(name: str, pattern: str) -> int:
+    """How many lines of the built library's SASS (``cuobjdump -sass``)
+    contain ``pattern``, e.g. ``HGMMA`` for tensor-core warpgroup MMAs."""
+    kernel(name)
+    tool = os.path.join(os.path.dirname(nvcc_path()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', _so_path(name)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(pattern in line for line in sass.splitlines())
 
 
 def _start(name: str):

@@ -22,7 +22,8 @@ def conv3x3x3_plain(x, kernel):
 
 def conv3x3x3(x, kernel):
     """3x3x3 SAME stride-1 conv with float32 accumulation; ``x`` and
-    ``kernel`` share a dtype.  The CUDA path takes 64 -> 64 channels only."""
+    ``kernel`` share a dtype.  The CUDA path (tensor cores, both dtypes)
+    takes 64 -> 64 channels only."""
     if x.is_cuda:
         return conv_kernel.conv3x3x3(x.contiguous(), kernel.contiguous())
     return conv3x3x3_plain(x, kernel)

@@ -13,6 +13,7 @@ import torch
 
 from imvoxelnet_tpu_torch import kernels
 from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
+from imvoxelnet_tpu_torch.kernels import build
 from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
 from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.ops import backproject as bp
@@ -36,6 +37,15 @@ def cuda():
     (1, 1, 64, torch.float32, None),
     (3, 2, 8, torch.float32, (9, 13)),
     (2, 3, 130, torch.bfloat16, None),     # C not a multiple of 64
+    # the 16-bytes-a-lane path (rows of 1, 2, 8, 16 and 65 chunks) and the
+    # one-warp-a-row path (rows that are not whole chunks), both dtypes;
+    # P = 210 voxels is no multiple of the 8 or 16 rows a warp walks
+    (3, 2, 8, torch.bfloat16, (9, 13)),
+    (2, 2, 64, torch.bfloat16, None),
+    (1, 3, 64, torch.float32, (9, 13)),
+    (2, 3, 130, torch.float32, None),
+    (1, 2, 260, torch.float32, None),
+    (1, 1, 132, torch.bfloat16, (9, 13)),
 ])
 def test_backproject_kernel_matches_plain(cuda, b, v, c, dtype, valid_hw):
     rng = np.random.RandomState(0)
@@ -63,6 +73,8 @@ def test_backproject_kernel_matches_plain(cuda, b, v, c, dtype, valid_hw):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(acc.float(), ref_acc.float(), rtol=tol,
                                atol=tol)
+    # same pixels, same order of the views: the sums are the same bits
+    assert torch.equal(acc, ref_acc)
 
 
 def test_rect_clip_kernel_bit_identical_to_plain(cuda):
@@ -85,20 +97,45 @@ def test_rect_clip_kernel_bit_identical_to_plain(cuda):
     assert torch.equal(pairs.reshape(-1), got)
 
 
-@pytest.mark.parametrize('shape,dtype', [
-    ((2, 7, 9, 6, 64), torch.float32),     # M = 756: a ragged last tile
-    ((1, 5, 130, 13, 64), torch.bfloat16),
+@pytest.mark.parametrize('shape,dtype,tile', [
+    ((2, 7, 9, 6, 64), torch.float32, None),     # M = 756
+    ((1, 5, 130, 13, 64), torch.bfloat16, None),
+    # every edge of the tiling: nz = 6, 12, 13, 16; nx, ny no multiples of
+    # the tile; B = 1 and 3; a volume smaller than one tile; one and two
+    # warpgroups of rows; both dtypes
+    ((1, 5, 130, 13, 64), torch.float32, None),
+    ((3, 9, 10, 12, 64), torch.bfloat16, (2, 3)),
+    ((3, 9, 10, 12, 64), torch.float32, (4, 8)),
+    ((1, 6, 20, 16, 64), torch.bfloat16, None),
+    ((1, 6, 20, 16, 64), torch.float32, (1, 1)),
+    ((1, 4, 4, 6, 64), torch.bfloat16, (4, 8)),
+    ((1, 1, 1, 7, 64), torch.float32, None),
+    ((2, 7, 9, 6, 64), torch.bfloat16, (1, 1)),
+    ((1, 11, 37, 12, 64), torch.bfloat16, (2, 18)),   # the KITTI tile
 ])
-def test_conv3x3x3_kernel_matches_plain(cuda, shape, dtype):
+def test_conv3x3x3_kernel_matches_plain(cuda, shape, dtype, tile):
     rng = np.random.RandomState(2)
     x = torch.tensor(rng.randn(*shape), dtype=torch.float32,
                      device=cuda).to(dtype)
     w = torch.tensor(rng.randn(3, 3, 3, 64, 64) / np.sqrt(27 * 64),
                      dtype=torch.float32, device=cuda).to(dtype)
-    got = conv_kernel.conv3x3x3(x, w)
+    got = conv_kernel.conv3x3x3(x, w, tile)
     ref = conv3z.conv3x3x3_plain(x, w)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_conv3x3x3_kernel_refuses_a_tile_that_does_not_fit(cuda):
+    x = torch.zeros((1, 32, 32, 12, 64), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 64, 64), dtype=torch.bfloat16, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match='no tiling'):
+        conv_kernel.conv3x3x3(x, w, (16, 16))
+    assert kernels.launch_counts()['conv3x3x3'] == 0
+
+
+def test_conv3x3x3_library_holds_tensor_core_instructions(cuda):
+    assert build.sass_count('conv3x3x3', 'HGMMA') > 0
 
 
 def test_wrappers_count_launches(cuda):

@@ -11,6 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from imvoxelnet_tpu.ops import backproject as jax_bp
@@ -304,6 +306,138 @@ def test_conv_gate_routes_only_kitti_block0():
         torch.empty((1, 128, 216, 248, 6), device='meta'))
     assert not necks3d.Conv3x3x3(64, 64, stride=(1, 1, 2)).takes_kernel(
         kitti)
+
+
+# What the conv kernel's wrapper does on the host: weight pack, tiling plan,
+# the kernel's row algorithm in plain PyTorch, and the float32 split.
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['float32', 'bfloat16'])
+def test_conv_pack_weights_and_inverse(dtype):
+    rng = np.random.RandomState(3)
+    w = torch.from_numpy(rng.randn(3, 3, 3, 6, 10).astype(np.float32)).to(
+        dtype)
+    packed = conv_kernel.pack_weights(w)
+    assert packed.shape == (27, 10, 6) and packed.is_contiguous()
+    assert packed.dtype == dtype
+    for dx, dy, dz in [(0, 0, 0), (2, 1, 0), (1, 2, 2)]:
+        assert torch.equal(packed[(dx * 3 + dy) * 3 + dz], w[dx, dy, dz].T)
+    assert torch.equal(conv_kernel.unpack_weights(packed), w)
+
+
+def _plan_sites(plan, nx, ny, nz):
+    """How often each site of the volume is stored, walking the plan's
+    blocks and rows as the kernel does."""
+    zp, cols = nz + 1, plan.ty + 2
+    r = plan.first_row + np.arange(plan.rows)
+    xh, yh, zh = r // (cols * zp), (r % (cols * zp)) // zp, r % zp
+    count = np.zeros((nx, ny, nz), np.int64)
+    for ix in range(plan.grid[0]):
+        for iy in range(plan.grid[1]):
+            gx, gy = ix * plan.tx + xh - 1, iy * plan.ty + yh - 1
+            keep = ((xh >= 1) & (xh <= plan.tx) & (yh >= 1) & (yh <= plan.ty)
+                    & (zh >= 1) & (gx < nx) & (gy < ny))
+            np.add.at(count, (gx[keep], gy[keep], zh[keep] - 1), 1)
+    return count
+
+
+@settings(max_examples=40, deadline=None)
+@given(nx=st.integers(1, 40), ny=st.integers(1, 70), nz=st.integers(6, 16))
+def test_conv_tile_plan_covers_every_site_once(nx, ny, nz):
+    plan = conv_kernel.tile_plan(nx, ny, nz)
+    assert plan.rows % 64 == 0 and plan.rows == 256 * plan.n_groups
+    assert plan.n_groups <= conv_kernel.MAX_GROUPS
+    assert plan.smem_bytes <= conv_kernel.SMEM_LIMIT
+    assert plan.grid == (-(-nx // plan.tx), -(-ny // plan.ty))
+    assert plan.halo_rows == (plan.tx + 2) * (plan.ty + 2) * (nz + 1)
+    # every tap of every computed row stays inside the buffer, and the row
+    # after the halo (the z = nz neighbour of its last column) is in it
+    lo = plan.first_row + plan.tap_offset(-1, -1, -1, nz)
+    hi = plan.first_row + plan.rows - 1 + plan.tap_offset(1, 1, 1, nz)
+    assert lo >= 0 and hi < plan.alloc_rows > plan.halo_rows
+    assert (_plan_sites(plan, nx, ny, nz) == 1).all()
+
+
+@pytest.mark.parametrize('shape,tile', [
+    ((216, 248, 12), None),          # KITTI block0
+    ((216, 248, 12), (4, 8)),
+    ((7, 9, 6), (2, 3)),
+    ((5, 130, 13), None),
+    ((3, 4, 16), (1, 1)),
+])
+def test_conv_tile_plan_shapes(shape, tile):
+    plan = conv_kernel.tile_plan(*shape, tile)
+    if tile is not None:
+        assert (plan.tx, plan.ty) == tile
+    assert (_plan_sites(plan, *shape) == 1).all()
+    assert plan.n_groups <= conv_kernel.MAX_GROUPS
+
+
+def test_conv_tile_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match='no tiling'):
+        conv_kernel.tile_plan(64, 64, 12, (16, 16))   # 4000 rows a block
+    with pytest.raises(ValueError, match='no tiling'):
+        conv_kernel.tile_plan(8, 8, 300)
+
+
+@pytest.mark.parametrize('shape,tile', [
+    ((2, 7, 9, 6, 8), None),
+    ((1, 5, 13, 13, 8), (2, 3)),     # ragged nx and ny, odd nz
+    ((1, 9, 5, 12, 16), (1, 1)),     # kitti-like nz, one column a block
+    ((1, 3, 4, 16, 8), None),
+])
+def test_conv_rows_plain_matches_plain_and_lanepack(shape, tile):
+    """The kernel's algorithm (27 shifted row-block matmuls over the packed
+    weights, in its tap order, on its tiles) against ``F.conv3d`` and the
+    JAX package's lane-packed Pallas conv in interpret mode."""
+    b, nx, ny, nz, c = shape
+    rng = np.random.RandomState(4)
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(3, 3, 3, c, c) * 0.1).astype(np.float32)
+    plan = conv_kernel.tile_plan(nx, ny, nz, tile)
+    got = conv_kernel.conv3x3x3_rows_plain(
+        torch.from_numpy(x), conv_kernel.pack_weights(torch.from_numpy(w)),
+        plan)
+    ref = conv3z.conv3x3x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    jax_ref = conv3z_lanepack(jnp.asarray(x), jnp.asarray(w), 4, 4,
+                              interpret=True)
+    # float32 sums in another order
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_ref), rtol=2e-3,
+                               atol=2e-3)
+
+
+def _tf32(t):
+    """float32 with the mantissa cut to TF32's 10 bits."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize('split', ['bf16x3', 'tf32x3'])
+def test_conv_float32_split_keeps_float32_accuracy(split):
+    """Why float32 is held to 1e-4: at the conv's K = 27 * 64 = 1728, the
+    split products summed in float32 stay within 1e-4 of the float32 matmul
+    (and of float64).  ``bf16x3`` is the split the kernel uses (six products
+    of three bfloat16 parts); ``tf32x3`` the three-product TF32 split."""
+    rng = np.random.RandomState(5)
+    k = 27 * 64
+    a = torch.from_numpy(rng.randn(512, k).astype(np.float32))
+    b = torch.from_numpy((rng.randn(k, 64) / np.sqrt(k)).astype(np.float32))
+    if split == 'bf16x3':
+        a_p = conv_kernel.split3_bf16(a)
+        b_p = conv_kernel.split3_bf16(b)
+        assert a_p.dtype == torch.bfloat16 and a_p.shape == (3, 512, k)
+        assert torch.equal(a_p.float().sum(0), a)        # 24 bits kept
+        terms = [(2, 0), (1, 0), (1, 1), (0, 0), (0, 1), (0, 2)]
+        got = sum(a_p[i].float() @ b_p[j].float() for i, j in terms)
+    else:
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        got = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+        one_pass = (a_hi @ b_hi - a @ b).abs().max().item()
+        assert one_pass > 1e-4                   # plain TF32 would not do
+    ref64 = a.double() @ b.double()
+    assert (got - a @ b).abs().max().item() < 1e-4
+    assert (got.double() - ref64).abs().max().item() < 1e-4
 
 
 # --------------------------------------------------------------------------

@@ -3,15 +3,18 @@
     python3 chip_smoke.py
 
 Phases, each failing the run on its own error:
-  1. build   -- nvcc builds the three kernels from the sources in
-                imvoxelnet_tpu_torch/kernels/csrc, in parallel; the conv
-                library's SASS must hold tensor-core (HGMMA) instructions;
+  1. build   -- nvcc builds the kernel libraries from the sources in
+                imvoxelnet_tpu_torch/kernels/csrc, in parallel; the clip
+                library must need no stack frame and spill nothing, and the
+                conv library's SASS must hold tensor-core (HGMMA)
+                instructions;
   2. kernels -- each kernel against its plain PyTorch version on the card at
                 the shapes the KITTI main path gives it, with times;
   3. slice   -- the full-width imvoxelnet_kitti forward + decode/NMS through
                 the port's entry points: b=1 float32 (held against the same
                 model's plain path on the card) and b=8 bfloat16 (throughput),
-                with the launch counts that show the kernels ran.
+                with the launch counts that show the kernels ran, and with
+                decode + NMS forbidden to wait for the device.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 Weights are random from a seed.  Needs a CUDA device; imports no JAX.
 """
@@ -52,12 +55,21 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps, warmup=1):
+def time_ms(fn, reps, warmup=1, queue_us=0):
+    """Milliseconds per call of ``fn`` between two CUDA events.
+
+    A kernel of a few microseconds runs faster than the host can launch it,
+    and the events then time the host.  ``queue_us`` (the host's cost per
+    call, generously) holds the device in a spin kernel while the host
+    queues all ``reps`` launches, so that the events time the device alone.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_us:
+        torch.cuda._sleep(int(reps * queue_us * 2000))   # ~2 cycles a ns
     start.record()
     for _ in range(reps):
         fn()
@@ -127,49 +139,149 @@ def check_backproject(b, dtype, tol, rng):
         bound_ms=t_bound, bound_by=by, library_ms=None)
 
 
-def check_rect_clip(rng):
-    # KITTI NMS: 1 class x nms_pre=100 candidates -> 100 x 100 pairs; cars
-    # clustered so that boxes overlap, touch and nest
-    k = 100
-    xy = rng.uniform(0, 8, (k, 2))
-    wl = np.stack([rng.uniform(1.4, 1.8, k), rng.uniform(3.4, 4.4, k)], 1)
-    yaw = rng.uniform(-np.pi, np.pi, (k, 1))
-    boxes = torch.tensor(np.concatenate([xy, wl, yaw], 1).astype(np.float32),
+CLIP_REPLACES = 'imvoxelnet_tpu/ops/iou_pallas.py:189'
+CLIP_SOURCE = 'imvoxelnet_tpu_torch/kernels/csrc/rect_clip.cu'
+# per clipped pair ~ 4 edges x 8 slots x 14 flops + the 8-term shoelace
+CLIP_FLOPS = 4 * 8 * 14 + 8 * 4
+# The clip and scan kernels take microseconds: `ms` is their time on the
+# device with the launches queued ahead, `launch_bound_ms` the time per call
+# when the host launches them back to back (what a caller in a loop sees).
+SMALL_REPS = 200
+QUEUE_US = 60
+
+
+def car_boxes(rng, g, n):
+    """``(g, n, 5)`` BEV boxes of car size, clustered so that they overlap,
+    touch and nest; boxes 0 and 1 of every group are identical."""
+    xy = rng.uniform(0, 0.8 * np.sqrt(n), (g, n, 2))
+    wl = np.stack([rng.uniform(1.4, 1.8, (g, n)),
+                   rng.uniform(3.4, 4.4, (g, n))], -1)
+    yaw = rng.uniform(-np.pi, np.pi, (g, n, 1))
+    boxes = torch.tensor(np.concatenate([xy, wl, yaw], -1).astype(np.float32),
                          device='cuda')
-    boxes[1] = boxes[0]                         # identical pair
-    corners = box_ops.bev_corners(boxes)
+    boxes[:, 1] = boxes[:, 0]
+    return boxes
+
+
+def assert_same_bits(name, got, ref):
+    n_diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    if n_diff:
+        raise AssertionError(f'{name}: {n_diff} of {got.numel()} values not '
+                             f'bit-identical to the plain version')
+
+
+def clip_row(name, replaces, shape, ms, plain_ms, n_bytes, n_flops, **extra):
+    t_bound, by = bound(n_bytes, n_flops, torch.float32)
+    return dict(name=name, route='cuda', source=CLIP_SOURCE,
+                replaces=replaces, shape=shape, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                library_ms=None, **extra)
+
+
+def check_rect_clip_paired(rng):
+    """The paired entry at the 100 x 100 pairs of one KITTI sample's NMS."""
+    corners = box_ops.bev_corners(car_boxes(rng, 1, 100)[0])
+    k = corners.shape[0]
     c1 = corners[:, None].expand(k, k, 4, 2).reshape(-1, 4, 2).contiguous()
     c2 = corners[None, :].expand(k, k, 4, 2).reshape(-1, 4, 2).contiguous()
     got = clip_kernel.rect_intersection_area(c1, c2)
     ref = iou_ops.rect_intersection_area_plain(c1, c2)
     torch.cuda.synchronize()
-    n_diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-    if n_diff:
-        raise AssertionError(f'rect_clip: {n_diff} areas not bit-identical')
-    area = boxes[:, 2] * boxes[:, 3]
-
-    def keep(inter):
-        inter = inter.view(k, k)
-        iou = inter / (area[:, None] + area[None, :] - inter).clamp(min=1e-8)
-        scores = torch.linspace(1.0, 0.1, k, device='cuda')
-        return nms_ops.greedy_nms_from_iou_batched(
-            iou, scores, torch.ones(k, dtype=torch.bool, device='cuda'),
-            0.01, presorted=True)
-    if not torch.equal(keep(got), keep(ref)):
-        raise AssertionError('rect_clip: NMS keep masks differ')
+    assert_same_bits('rect_clip paired', got, ref)
     n = c1.shape[0]
-    # per pair ~ 4 edges x 8 slots x 14 flops + the 8-term shoelace
-    t_bound, by = bound(nbytes(c1, c2, got), n * (4 * 8 * 14 + 8 * 4),
-                        torch.float32)
-    return dict(
-        name='rect_clip', route='cuda',
-        source='imvoxelnet_tpu_torch/kernels/csrc/rect_clip.cu',
-        replaces='imvoxelnet_tpu/ops/iou_pallas.py:189',
-        shape=f'{n} pairs float32', max_abs_err=0.0,
-        ms=time_ms(lambda: clip_kernel.rect_intersection_area(c1, c2), 200),
-        plain_ms=time_ms(
-            lambda: iou_ops.rect_intersection_area_plain(c1, c2), 20),
-        bound_ms=t_bound, bound_by=by, library_ms=None)
+
+    def run():
+        return clip_kernel.rect_intersection_area(c1, c2)
+    return clip_row(
+        'rect_clip', CLIP_REPLACES, f'paired, {n} pairs float32',
+        time_ms(run, SMALL_REPS, queue_us=QUEUE_US),
+        time_ms(lambda: iou_ops.rect_intersection_area_plain(c1, c2), 20),
+        nbytes(c1, c2, got), n * CLIP_FLOPS,
+        launch_bound_ms=time_ms(run, SMALL_REPS))
+
+
+def check_rect_clip_pairwise(g, n, rng):
+    """The pairwise entry: every box of a group against every box of it."""
+    corners = box_ops.bev_corners(car_boxes(rng, g, n)).contiguous()
+    got = clip_kernel.rect_intersection_area_pairwise(corners, corners)
+    ref = iou_ops.rect_intersection_area_pairwise_plain(corners, corners)
+    torch.cuda.synchronize()
+    assert_same_bits(f'rect_clip pairwise G={g} N={n}', got, ref)
+    if not (0 < float((got > 0).float().mean()) < 1):
+        raise AssertionError('rect_clip pairwise: degenerate test boxes')
+    def run():
+        return clip_kernel.rect_intersection_area_pairwise(corners, corners)
+    ms = time_ms(run, SMALL_REPS, queue_us=QUEUE_US)
+    return clip_row(
+        'rect_clip', CLIP_REPLACES,
+        f'pairwise, G={g} N=M={n}, {g * n * n} pairs float32', ms,
+        time_ms(lambda: iou_ops.rect_intersection_area_pairwise_plain(
+            corners, corners), 5),
+        nbytes(corners, corners, got), g * n * n * CLIP_FLOPS,
+        launch_bound_ms=time_ms(run, SMALL_REPS),
+        ns_per_pair=ms * 1e6 / (g * n * n),
+        overlapping_share=float((got > 0).float().mean()))
+
+
+def check_nms_kernels(g, n, iou_thr, rng):
+    """The fused mask entry and the scan kernel at the main path's shape
+    (b=8 KITTI: 8 samples x 1 class, nms_pre = 100), against their plain
+    versions and against the fixpoint NMS on the plain IoU."""
+    boxes = car_boxes(rng, g, n)
+    valid = torch.tensor(rng.uniform(0, 1, (g, n)) > 0.1, device='cuda')
+    corners = box_ops.bev_corners(boxes).contiguous()
+    areas = (boxes[..., 2] * boxes[..., 3]).contiguous()
+    mask = clip_kernel.nms_dominance_mask(corners, areas, iou_thr)
+    keep = clip_kernel.nms_scan(mask, valid)
+    ref_mask = iou_ops.nms_dominance_mask_plain(corners, areas, iou_thr)
+    ref_iou = iou_ops.iou_from_overlaps(
+        iou_ops.rect_intersection_area_pairwise_plain(corners, corners),
+        areas, areas)
+    ref_keep = nms_ops.greedy_nms_from_iou_batched(
+        ref_iou, areas, valid, iou_thr, presorted=True)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, ref_mask):
+        raise AssertionError('nms mask: differs from the plain version')
+    if not torch.equal(keep, nms_ops.nms_scan_plain(mask, valid)):
+        raise AssertionError('nms scan: differs from the plain version')
+    if not torch.equal(keep, ref_keep):
+        raise AssertionError('nms mask + scan: keep differs from the '
+                             'fixpoint NMS on the plain IoU')
+    n_keep = int(keep.sum())
+    if not 0 < n_keep < int(valid.sum()):
+        raise AssertionError('nms: the test boxes suppress nothing')
+
+    def fixpoint():
+        iou = iou_ops.iou_from_overlaps(
+            iou_ops.rect_intersection_area_pairwise_plain(corners, corners),
+            areas, areas)
+        return nms_ops.greedy_nms_from_iou_batched(iou, areas, valid,
+                                                   iou_thr, presorted=True)
+    shape = f'G={g} N={n} float32'
+    # only pairs with i < j are needed
+    def run_mask():
+        return clip_kernel.nms_dominance_mask(corners, areas, iou_thr)
+
+    def run_scan():
+        return clip_kernel.nms_scan(mask, valid)
+    mask_row = clip_row(
+        'rect_clip', CLIP_REPLACES, f'nms mask, {shape}',
+        time_ms(run_mask, SMALL_REPS, queue_us=QUEUE_US),
+        time_ms(lambda: iou_ops.nms_dominance_mask_plain(corners, areas,
+                                                         iou_thr), 20),
+        nbytes(corners, areas, mask),
+        g * n * (n - 1) // 2 * (CLIP_FLOPS + 4),
+        launch_bound_ms=time_ms(run_mask, SMALL_REPS))
+    scan_row = clip_row(
+        'nms_scan', 'imvoxelnet_tpu/ops/nms.py:75', f'nms scan, {shape}',
+        time_ms(run_scan, SMALL_REPS, queue_us=QUEUE_US),
+        time_ms(lambda: nms_ops.nms_scan_plain(mask, valid), 5),
+        nbytes(mask, valid, keep), 0,
+        launch_bound_ms=time_ms(run_scan, SMALL_REPS),
+        note='no Pallas counterpart: the JAX package runs the greedy step '
+             'as a lax.while_loop fixpoint', kept=n_keep,
+        fixpoint_nms_ms=time_ms(fixpoint, 5))
+    return mask_row, scan_row
 
 
 def check_conv3x3x3(b, dtype, tol, rng):
@@ -206,17 +318,22 @@ def check_conv3x3x3(b, dtype, tol, rng):
 # --------------------------------------------------------------------------
 
 class plain_path:
-    """Route the model's three kernel call sites to their plain versions
-    for the duration of the block (a smoke-run comparison device only)."""
+    """Route the model's kernel call sites to their plain versions for the
+    duration of the block (a smoke-run comparison device only)."""
+
+    PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
+             (iou_ops, 'rect_intersection_area',
+              iou_ops.rect_intersection_area_plain),
+             (iou_ops, 'rect_intersection_area_pairwise',
+              iou_ops.rect_intersection_area_pairwise_plain),
+             (nms_ops, 'rotated_nms_presorted',
+              nms_ops.rotated_nms_presorted_plain),
+             (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
 
     def __enter__(self):
-        self._saved = [(bp, 'backproject_batch'),
-                       (iou_ops, 'rect_intersection_area'),
-                       (necks3d, 'conv3x3x3')]
-        self._saved = [(m, a, getattr(m, a)) for m, a in self._saved]
-        bp.backproject_batch = bp.backproject_batch_plain
-        iou_ops.rect_intersection_area = iou_ops.rect_intersection_area_plain
-        necks3d.conv3x3x3 = conv3z.conv3x3x3_plain
+        self._saved = [(m, a, getattr(m, a)) for m, a, _ in self.PLAIN]
+        for mod, attr, plain in self.PLAIN:
+            setattr(mod, attr, plain)
         return self
 
     def __exit__(self, *exc):
@@ -233,10 +350,17 @@ def run_slice():
         model.bbox_head.conv_cls.bias.zero_()
     counts = {}
 
-    def forward(m, c, batch):
+    def forward(m, c, batch, sync_debug='default'):
+        """``sync_debug='error'`` makes PyTorch raise if decode + NMS waits
+        for the device (an ``.item()``, a ``bool(tensor)``, a copy to the
+        host) between the head's output and the result."""
         with torch.no_grad():
             head_outs, valid = m(batch)
-            return imvoxelnet_predict(c, head_outs), valid
+            torch.cuda.set_sync_debug_mode(sync_debug)
+            try:
+                return imvoxelnet_predict(c, head_outs), valid
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
 
     # --- b=1 float32, kernel path vs plain path on the card
     batch1 = kitti_batch(1, 'cuda', seed=SEED)
@@ -276,7 +400,7 @@ def run_slice():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res8, seen8 = forward(model16, cfg16, batch8)
+    res8, seen8 = forward(model16, cfg16, batch8, sync_debug='error')
     torch.cuda.synchronize()
     counts['b8_bf16'] = kernels.launch_counts()
     for key in ('boxes', 'scores'):
@@ -296,8 +420,8 @@ def run_slice():
         f'peak memory {peak_gb:.4g} GB')
 
     for name, c in counts.items():
-        want = {'backproject': 1, 'conv3x3x3': 2,
-                'rect_clip': 1 if name == 'b1_f32' else b}
+        want = {'backproject': 1, 'conv3x3x3': 2, 'rect_clip': 1,
+                'nms_scan': 1}
         if c != want:
             raise AssertionError(f'{name}: launch counts {c} != {want}')
     log(f'launch counts per forward: {json.dumps(counts)}')
@@ -323,6 +447,15 @@ def main():
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'ptxas {name}: {line.strip()}')
+            # the clip's polygon must live in registers
+            if name == 'rect_clip' and 'stack frame' in line and not \
+                    line.strip().startswith(
+                        '0 bytes stack frame, 0 bytes spill stores, '
+                        '0 bytes spill loads'):
+                raise AssertionError(f'rect_clip: {line.strip()}')
+    # (a library found already built has no log)
+    if 'stack frame' not in build.ptxas_log.get('rect_clip', 'stack frame'):
+        raise AssertionError('rect_clip: ptxas reported no stack frame line')
     n_hgmma = build.sass_count('conv3x3x3', 'HGMMA')
     log(f'conv3x3x3 library: {n_hgmma} HGMMA (tensor-core warpgroup MMA) '
         f'instructions in its SASS')
@@ -331,11 +464,15 @@ def main():
 
     log(f'HBM: 1 GiB device copy at {copy_rate_tb_s():.4g} TB/s read+write '
         f'(published peak {PEAK_BYTES / 1e12:.3g} TB/s)')
-    rows = [check_backproject(1, torch.float32, 1e-5, rng),
-            check_backproject(8, torch.bfloat16, 2e-2, rng),
-            check_rect_clip(rng),
-            check_conv3x3x3(1, torch.float32, 1e-4, rng),
-            check_conv3x3x3(8, torch.bfloat16, 2e-2, rng)]
+    iou_thr = get_preset('imvoxelnet_kitti').model.anchor_head.iou_thr
+    mask_row, scan_row = check_nms_kernels(8, 100, iou_thr, rng)
+    serving = [check_backproject(8, torch.bfloat16, 2e-2, rng), mask_row,
+               scan_row, check_conv3x3x3(8, torch.bfloat16, 2e-2, rng)]
+    rows = serving + [check_backproject(1, torch.float32, 1e-5, rng),
+                      check_rect_clip_paired(rng),
+                      check_rect_clip_pairwise(8, 100, rng),
+                      check_rect_clip_pairwise(1, 1024, rng),
+                      check_conv3x3x3(1, torch.float32, 1e-4, rng)]
     for row in rows:
         log(json.dumps(row))
 
@@ -345,10 +482,10 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
-    # the summary line: the serving shapes (b=8 bfloat16; 10k NMS pairs),
-    # with the launches of the b=8 forward
+    # the summary line: the kernels at the serving shapes (b=8 bfloat16; the
+    # NMS of 8 samples x 100 candidates), with the launches of the b=8 forward
     summary = []
-    for row in (rows[1], rows[2], rows[4]):
+    for row in serving:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

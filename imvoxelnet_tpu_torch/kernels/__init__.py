@@ -1,26 +1,31 @@
 """Hand-written CUDA kernels for Hopper and their Python wrappers.
 
-One wrapper per kernel (``backproject``, ``rect_clip``, ``conv3x3x3``).  A
-wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, launches on PyTorch's current stream, raises if the launch
-returned a CUDA error, and adds one to its plain-integer ``launches`` count.
-The plain PyTorch versions live beside the ops that call the wrappers
-(``ops/backproject.py``, ``ops/iou.py``, ``ops/conv3z.py``); those ops take
-the plain version only for CPU tensors.
+One wrapper module per source (``backproject``, ``rect_clip``,
+``conv3x3x3``).  A wrapper takes CUDA tensors only: it checks device, dtype,
+shape and contiguity, launches on PyTorch's current stream, raises if the
+launch returned a CUDA error, and adds one to a plain-integer count of its
+module (``WRAPPERS`` names the count of each kernel; the clip's three entry
+points share one, the NMS scan has its own).  The plain PyTorch versions
+live beside the ops that call the wrappers (``ops/backproject.py``,
+``ops/iou.py``, ``ops/nms.py``, ``ops/conv3z.py``); those ops take the plain
+version only for CPU tensors.
 """
 
 from __future__ import annotations
 
 from . import backproject, conv3x3x3, rect_clip
 
-WRAPPERS = {'backproject': backproject, 'rect_clip': rect_clip,
-            'conv3x3x3': conv3x3x3}
+# kernel -> (wrapper module, name of its launch count there)
+WRAPPERS = {'backproject': (backproject, 'launches'),
+            'rect_clip': (rect_clip, 'launches'),
+            'nms_scan': (rect_clip, 'scan_launches'),
+            'conv3x3x3': (conv3x3x3, 'launches')}
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in WRAPPERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in WRAPPERS.values():
+        setattr(mod, attr, 0)

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Each ``csrc/<name>.cu`` exports a plain C function; it is compiled for
+Each ``csrc/<name>.cu`` exports plain C functions; it is compiled for
 ``sm_90a`` into ``build/lib<name>-<hash>.so`` (the hash is of the source and
 the flags, so an edited source is rebuilt) and opened with ``ctypes.CDLL``.
 Building happens at first CUDA use, never at import, and only from the
@@ -32,14 +32,21 @@ _FLAGS = ['-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
 _EXTRA = {'backproject': ['-fmad=false'], 'rect_clip': ['-fmad=false'],
           'conv3x3x3': []}
 
-# Each function's ctypes signature: (argtypes, restype).
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Each library's functions and their ctypes argument types; every function
+# returns the CUDA error code of its launch as an int.
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES = {
-    'backproject': ('imvx_backproject',
-                    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]),
-    'rect_clip': ('imvx_rect_clip', [_P, _P, _P, _L, _P]),
-    'conv3x3x3': ('imvx_conv3x3x3',
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    'backproject': {
+        'imvx_backproject':
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]},
+    'rect_clip': {
+        'imvx_rect_clip': [_P, _P, _P, _L, _P],
+        'imvx_rect_clip_pairwise': [_P, _P, _P, _I, _I, _I, _P],
+        'imvx_nms_mask': [_P, _P, _F, _P, _I, _I, _P],
+        'imvx_nms_scan': [_P, _P, _P, _I, _I, _P]},
+    'conv3x3x3': {
+        'imvx_conv3x3x3': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -105,13 +112,15 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, so)
 
 
-def _open(name: str):
-    fn_name, argtypes = SIGNATURES[name]
+def _open(name: str) -> dict:
     lib = ctypes.CDLL(_so_path(name))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    fns = {}
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[fn_name] = fn
+    return fns
 
 
 def build_all(names=KERNELS) -> None:
@@ -131,13 +140,14 @@ def build_all(names=KERNELS) -> None:
             _loaded[n] = _open(n)
 
 
-def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, built on first use."""
-    fn = _loaded.get(name)
-    if fn is None:
+def kernel(name: str, fn_name: str | None = None):
+    """The ctypes entry point ``fn_name`` (``imvx_<name>`` unless given) of
+    library ``name``, built on first use."""
+    fns = _loaded.get(name)
+    if fns is None:
         build_all((name,))
-        fn = _loaded[name]
-    return fn
+        fns = _loaded[name]
+    return fns[fn_name or f'imvx_{name}']
 
 
 def check(err: int, name: str) -> None:

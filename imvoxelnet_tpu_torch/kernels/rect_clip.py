@@ -1,7 +1,14 @@
-"""Wrapper of the rotated-rect clip kernel (``csrc/rect_clip.cu``).
+"""Wrappers of the rotated-rect clip kernels (``csrc/rect_clip.cu``).
 
 Replaces ``imvoxelnet_tpu/ops/iou_pallas.py:rect_intersection_area_pallas``.
-The plain version is ``ops/iou.py:rect_intersection_area_plain``.
+One clip serves three entry points, which share the ``launches`` count:
+paired areas, pairwise areas of two box sets per group, and the pairwise NMS
+dominance mask (IoU, threshold and rank order fused, one bit per pair).
+``nms_scan`` walks such a mask greedily; it counts in ``scan_launches``.
+
+Plain versions: ``ops/iou.py`` (``rect_intersection_area_plain``,
+``rect_intersection_area_pairwise_plain``, ``nms_dominance_mask_plain``) and
+``ops/nms.py`` (``nms_scan_plain``).  All forward only.
 """
 
 from __future__ import annotations
@@ -12,30 +19,128 @@ from . import build
 from ._checks import require, same_device, stream_of
 
 launches = 0
+scan_launches = 0
+
+_MAX_GRID_YZ = 65535
+# the scan keeps 33 words per 32 candidates in 48 KB of shared memory
+_MAX_SCAN_N = 32 * (48 * 1024 // (33 * 4))
+
+
+def mask_words(n: int) -> int:
+    """32-bit words per row of an ``n``-candidate dominance mask."""
+    return (n + 31) // 32
+
+
+def _corners(t, name, ndim):
+    if t.requires_grad:
+        raise RuntimeError('the rect clip kernel has no backward yet; '
+                           'call it under torch.no_grad()')
+    require(t, name, (torch.float32,), ndim)
+    if t.shape[-2:] != (4, 2):
+        raise ValueError(f'{name} must end in (4, 2), got {tuple(t.shape)}')
+
+
+def _launch(fn_name, *args):
+    global launches
+    build.check(build.kernel('rect_clip', fn_name)(*args), fn_name)
+    launches += 1
 
 
 def rect_intersection_area(corners1, corners2):
-    """Intersection areas of ``(n, 4, 2)`` float32 rect pairs -> ``(n,)``.
-
-    Forward only: raises if a gradient is required.
-    """
-    global launches
-    if corners1.requires_grad or corners2.requires_grad:
-        raise RuntimeError('the rect clip kernel has no backward yet; '
-                           'call it under torch.no_grad()')
-    require(corners1, 'corners1', (torch.float32,), 3)
-    require(corners2, 'corners2', (torch.float32,), 3)
+    """Intersection areas of ``(n, 4, 2)`` float32 rect pairs -> ``(n,)``."""
+    _corners(corners1, 'corners1', 3)
+    _corners(corners2, 'corners2', 3)
     same_device(corners1, corners2)
     n = corners1.shape[0]
-    if corners1.shape != (n, 4, 2) or corners2.shape != (n, 4, 2):
+    if corners2.shape[0] != n:
         raise ValueError(f'corners must both be (n, 4, 2), got '
                          f'{tuple(corners1.shape)}, {tuple(corners2.shape)}')
     areas = torch.empty((n,), dtype=torch.float32, device=corners1.device)
-    if n == 0:
-        return areas
-    err = build.kernel('rect_clip')(
-        corners1.data_ptr(), corners2.data_ptr(), areas.data_ptr(), n,
-        stream_of(corners1))
-    build.check(err, 'rect_clip')
-    launches += 1
+    if n:
+        _launch('imvx_rect_clip', corners1.data_ptr(), corners2.data_ptr(),
+                areas.data_ptr(), n, stream_of(corners1))
     return areas
+
+
+def _grid_fits(g, n):
+    if g > _MAX_GRID_YZ or (n + 3) // 4 > _MAX_GRID_YZ:
+        raise ValueError(f'{g} groups of {n} rows exceed the launch grid')
+
+
+def rect_intersection_area_pairwise(corners1, corners2):
+    """Intersection areas of every rect of ``corners1 (G, N, 4, 2)`` with
+    every rect of ``corners2 (G, M, 4, 2)`` -> ``(G, N, M)`` float32."""
+    _corners(corners1, 'corners1', 4)
+    _corners(corners2, 'corners2', 4)
+    same_device(corners1, corners2)
+    g, n = corners1.shape[:2]
+    m = corners2.shape[1]
+    if corners2.shape[0] != g:
+        raise ValueError(f'group counts differ: {tuple(corners1.shape)}, '
+                         f'{tuple(corners2.shape)}')
+    _grid_fits(g, n)
+    areas = torch.empty((g, n, m), dtype=torch.float32,
+                        device=corners1.device)
+    if areas.numel():
+        _launch('imvx_rect_clip_pairwise', corners1.data_ptr(),
+                corners2.data_ptr(), areas.data_ptr(), g, n, m,
+                stream_of(corners1))
+    return areas
+
+
+def nms_dominance_mask(corners, box_areas, iou_thr: float):
+    """Which box would suppress which, one bit per pair.
+
+    Args:
+      corners: ``(G, N, 4, 2)`` float32 BEV corners, rows in rank order.
+      box_areas: ``(G, N)`` float32 ``w * h`` of the same boxes.
+    Returns:
+      ``(G, N, ceil(N / 32))`` int32: bit ``j % 32`` of word ``[g, i, j // 32]``
+      is set iff ``i < j`` and ``inter / max(a_i + a_j - inter, 1e-8) >
+      iou_thr``.
+    """
+    _corners(corners, 'corners', 4)
+    require(box_areas, 'box_areas', (torch.float32,), 2)
+    same_device(corners, box_areas)
+    g, n = corners.shape[:2]
+    if box_areas.shape != (g, n):
+        raise ValueError(f'box_areas must be {(g, n)}, got '
+                         f'{tuple(box_areas.shape)}')
+    _grid_fits(g, n)
+    mask = torch.empty((g, n, mask_words(n)), dtype=torch.int32,
+                       device=corners.device)
+    if mask.numel():
+        _launch('imvx_nms_mask', corners.data_ptr(), box_areas.data_ptr(),
+                float(iou_thr), mask.data_ptr(), g, n, stream_of(corners))
+    return mask
+
+
+def nms_scan(mask, valid):
+    """Greedy NMS over a dominance mask: walking the rows in rank order, a
+    row that is valid and not yet suppressed is kept and suppresses the rows
+    its bits name.
+
+    Args:
+      mask: ``(G, N, ceil(N / 32))`` int32 from :func:`nms_dominance_mask`.
+      valid: ``(G, N)`` bool.
+    Returns:
+      keep: ``(G, N)`` bool, in the same (rank) order.
+    """
+    global scan_launches
+    require(mask, 'mask', (torch.int32,), 3)
+    require(valid, 'valid', (torch.bool,), 2)
+    same_device(mask, valid)
+    g, n = valid.shape
+    if mask.shape != (g, n, mask_words(n)):
+        raise ValueError(f'mask must be {(g, n, mask_words(n))}, got '
+                         f'{tuple(mask.shape)}')
+    if n > _MAX_SCAN_N:
+        raise ValueError(f'the scan holds at most {_MAX_SCAN_N} candidates '
+                         f'per group, got {n}')
+    keep = torch.empty((g, n), dtype=torch.bool, device=valid.device)
+    if keep.numel():
+        build.check(build.kernel('rect_clip', 'imvx_nms_scan')(
+            mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), g, n,
+            stream_of(valid)), 'imvx_nms_scan')
+        scan_launches += 1
+    return keep

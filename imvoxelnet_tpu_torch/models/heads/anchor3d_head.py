@@ -9,6 +9,7 @@ flatten anchor-major exactly as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -79,18 +80,27 @@ class Anchor3DHead(nn.Module):
         return nhwc(self.conv_cls(x)), nhwc(self.conv_reg(x)), dir_pred
 
 
-def head_anchors(featmap_size, cfg: Anchor3DHeadConfig, device=None):
-    """Flattened anchors matching the conv-head channel layout."""
+@functools.lru_cache(maxsize=8)
+def _cached_anchors(featmap_size, cfg: Anchor3DHeadConfig, device):
     return anchor_gen.grid_anchors(
         featmap_size, cfg.anchor_ranges, cfg.anchor_sizes,
         cfg.anchor_rotations, cfg.anchor_custom_values, device=device)
 
 
+def head_anchors(featmap_size, cfg: Anchor3DHeadConfig, device=None):
+    """Flattened anchors matching the conv-head channel layout.  Built on
+    the host once per map size, config and device and then shared: callers
+    must not write to them."""
+    return _cached_anchors(tuple(featmap_size), cfg, device)
+
+
 @torch.no_grad()
 def anchor3d_head_get_bboxes(head_outs, cfg: Anchor3DHeadConfig):
     """Fixed-shape inference (``get_bboxes_single``, ``anchor3d_head.py:
-    428-517``) including the direction-bin yaw reconstruction.  Test-time
-    decode: no gradient flows through the top-k and NMS.
+    428-517``) including the direction-bin yaw reconstruction, on all
+    samples at once (the JAX package ``vmap``s the same steps).  Test-time
+    decode: no gradient flows through the top-k and NMS.  On CUDA tensors
+    nothing here waits for the device.
 
     Returns a dict of ``boxes (B, max_out, 7)``, ``scores``, ``labels`` and
     ``valid`` (``(B, max_out)``).
@@ -100,29 +110,27 @@ def anchor3d_head_get_bboxes(head_outs, cfg: Anchor3DHeadConfig):
     cls_score, bbox_pred, dir_pred = head_outs
     b, h, w, _ = cls_score.shape
     anchors = head_anchors((h, w), cfg, device=cls_score.device)
-    outs = []
-    for i in range(b):
-        scores = torch.sigmoid(cls_score[i].reshape(-1, cfg.num_classes))
-        deltas = bbox_pred[i].reshape(-1, cfg.box_code_size)
-        dir_score = torch.argmax(dir_pred[i].reshape(-1, 2), dim=-1)
+    scores = torch.sigmoid(cls_score.reshape(b, -1, cfg.num_classes))
+    deltas = bbox_pred.reshape(b, -1, cfg.box_code_size)
+    dir_score = torch.argmax(dir_pred.reshape(b, -1, 2), dim=-1)
 
-        max_scores = scores.max(dim=1).values
-        k = min(cfg.nms_pre, max_scores.shape[0])
-        _, ids = nms_ops.top_k(max_scores, k)
-        boxes = coder.decode(anchors[ids], deltas[ids])
-        out = nms_ops.multiclass_nms_3d(
-            boxes, box_ops.bev(boxes), scores[ids],
-            torch.ones(k, dtype=torch.bool, device=scores.device),
-            score_thr=cfg.score_thr, max_num=cfg.max_out,
-            iou_thr=cfg.iou_thr, pre_nms_k=k,
-            mlvl_dir_scores=dir_score[ids].to(scores.dtype))
-        boxes_out = out['boxes']
-        dir_rot = box_ops.limit_period(
-            boxes_out[:, 6] - cfg.dir_offset, cfg.dir_limit_offset, math.pi)
-        yaw = dir_rot + cfg.dir_offset + math.pi * out['dir_scores']
-        boxes_out = torch.cat([boxes_out[:, :6], torch.where(
-            out['valid'], yaw, boxes_out[:, 6])[:, None], boxes_out[:, 7:]],
-            dim=1)
-        outs.append((boxes_out, out['scores'], out['labels'], out['valid']))
-    boxes, scores, labels, valid = (torch.stack(t) for t in zip(*outs))
-    return dict(boxes=boxes, scores=scores, labels=labels, valid=valid)
+    max_scores = scores.max(dim=2).values
+    k = min(cfg.nms_pre, max_scores.shape[1])
+    _, ids = nms_ops.top_k(max_scores, k)                        # (B, k)
+    sample = torch.arange(b, device=ids.device)[:, None]
+    boxes = coder.decode(anchors[ids], deltas[sample, ids])
+    out = nms_ops.multiclass_nms_3d(
+        boxes, box_ops.bev(boxes), scores[sample, ids],
+        torch.ones((b, k), dtype=torch.bool, device=scores.device),
+        score_thr=cfg.score_thr, max_num=cfg.max_out,
+        iou_thr=cfg.iou_thr, pre_nms_k=k,
+        mlvl_dir_scores=dir_score[sample, ids].to(scores.dtype))
+    boxes_out = out['boxes']
+    dir_rot = box_ops.limit_period(
+        boxes_out[..., 6] - cfg.dir_offset, cfg.dir_limit_offset, math.pi)
+    yaw = dir_rot + cfg.dir_offset + math.pi * out['dir_scores']
+    boxes_out = torch.cat([boxes_out[..., :6], torch.where(
+        out['valid'], yaw, boxes_out[..., 6])[..., None], boxes_out[..., 7:]],
+        dim=-1)
+    return dict(boxes=boxes_out, scores=out['scores'], labels=out['labels'],
+                valid=out['valid'])

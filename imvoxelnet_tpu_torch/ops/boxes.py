@@ -20,7 +20,10 @@ def limit_period(val, offset: float = 0.5, period: float = PI):
 
 def bev(boxes):
     """Rotated BEV box ``(x, y, dx, dy, yaw)``."""
-    return boxes[..., [0, 1, 3, 4, 6]]
+    # sliced, not indexed by a list: an index list becomes a tensor on the
+    # host and is copied to the device on every call
+    return torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]],
+                     dim=-1)
 
 
 def bev_corners(boxes_xywhr):

@@ -1,9 +1,13 @@
 """Rotated BEV IoU by an exact rect-rect clip.
 
 Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``rect_intersection_area``,
-``rotated_overlaps_bev``, ``rotated_iou_bev``).  ``rect_intersection_area``
-runs the CUDA clip kernel (``kernels/rect_clip.py``) on CUDA tensors, for
-every pair count, and its plain version on CPU tensors.
+``rotated_overlaps_bev``, ``rotated_iou_bev``).  On CUDA tensors, for every
+pair count, ``rect_intersection_area`` runs the paired entry of the clip
+kernel (``kernels/rect_clip.py``) and ``rotated_overlaps_bev`` /
+``rotated_iou_bev`` its pairwise entry, which reads each box once and makes
+no broadcast copy; CPU tensors take the plain versions.  The plain version
+of the kernel's fused NMS entry and the packing of its mask words are here
+too.
 """
 
 from __future__ import annotations
@@ -119,19 +123,78 @@ def rect_intersection_area(corners1, corners2):
         c1.contiguous(), c2.contiguous()).reshape(batch)
 
 
+def rect_intersection_area_pairwise_plain(corners1, corners2):
+    """Plain version of the kernel's pairwise entry: the paired plain clip
+    on broadcast views.  ``(..., N, 4, 2)`` x ``(..., M, 4, 2)`` ->
+    ``(..., N, M)``."""
+    return rect_intersection_area_plain(corners1[..., :, None, :, :],
+                                        corners2[..., None, :, :, :])
+
+
+def rect_intersection_area_pairwise(corners1, corners2):
+    """Intersection area of every rect of ``corners1 (..., N, 4, 2)`` with
+    every rect of ``corners2 (..., M, 4, 2)`` -> ``(..., N, M)`` float32;
+    the leading dims broadcast and are one group axis to the kernel."""
+    if not corners1.is_cuda:
+        return rect_intersection_area_pairwise_plain(corners1, corners2)
+    lead = torch.broadcast_shapes(corners1.shape[:-3], corners2.shape[:-3])
+    n, m = corners1.shape[-3], corners2.shape[-3]
+    c1 = corners1.float().broadcast_to(lead + (n, 4, 2)).reshape(-1, n, 4, 2)
+    c2 = corners2.float().broadcast_to(lead + (m, 4, 2)).reshape(-1, m, 4, 2)
+    return clip_kernel.rect_intersection_area_pairwise(
+        c1.contiguous(), c2.contiguous()).reshape(lead + (n, m))
+
+
 def rotated_overlaps_bev(boxes_xywhr1, boxes_xywhr2):
     """Pairwise rotated BEV intersection areas ``(..., N, M)``; leading batch
     dims (a class axis in multiclass NMS) broadcast."""
-    c1 = box_ops.bev_corners(boxes_xywhr1)
-    c2 = box_ops.bev_corners(boxes_xywhr2)
-    return rect_intersection_area(c1[..., :, None, :, :],
-                                  c2[..., None, :, :, :])
+    return rect_intersection_area_pairwise(
+        box_ops.bev_corners(boxes_xywhr1), box_ops.bev_corners(boxes_xywhr2))
+
+
+def iou_from_overlaps(inter, area1, area2):
+    """``inter (..., N, M)`` over the union of boxes of ``area1 (..., N)``
+    and ``area2 (..., M)``."""
+    return inter / (area1[..., :, None] + area2[..., None, :] - inter).clamp(
+        min=_EPS)
 
 
 def rotated_iou_bev(boxes_xywhr1, boxes_xywhr2):
     """Pairwise rotated BEV IoU ``(..., N, M)``."""
     inter = rotated_overlaps_bev(boxes_xywhr1, boxes_xywhr2)
-    a1 = boxes_xywhr1[..., 2] * boxes_xywhr1[..., 3]
-    a2 = boxes_xywhr2[..., 2] * boxes_xywhr2[..., 3]
-    return inter / (a1[..., :, None] + a2[..., None, :] - inter).clamp(
-        min=_EPS)
+    return iou_from_overlaps(inter,
+                             boxes_xywhr1[..., 2] * boxes_xywhr1[..., 3],
+                             boxes_xywhr2[..., 2] * boxes_xywhr2[..., 3])
+
+
+def pack_mask(bits):
+    """Pack a bool ``(..., N)`` into int32 words ``(..., ceil(N / 32))``:
+    bit ``j % 32`` of word ``j // 32`` is entry ``j``; bits beyond N are 0."""
+    n = bits.shape[-1]
+    pad = -n % 32
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (pad,))],
+                         dim=-1)
+    lanes = torch.arange(32, device=bits.device)
+    words = (bits.reshape(bits.shape[:-1] + (-1, 32)).long() << lanes).sum(-1)
+    # bit 31 is the sign of an int32 word
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_mask(words, n: int):
+    """Inverse of :func:`pack_mask`: int32 ``(..., W)`` -> bool ``(..., n)``."""
+    lanes = torch.arange(32, device=words.device)
+    bits = (words.long()[..., None] >> lanes) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :n].bool()
+
+
+def nms_dominance_mask_plain(corners, box_areas, iou_thr: float):
+    """Plain version of the kernel's fused NMS entry
+    (``kernels/rect_clip.py:nms_dominance_mask``): which box would suppress
+    which, from ``(G, N, 4, 2)`` corners in rank order and their ``(G, N)``
+    areas, packed to ``(G, N, ceil(N / 32))`` int32."""
+    inter = rect_intersection_area_pairwise_plain(corners, corners)
+    iou = iou_from_overlaps(inter, box_areas, box_areas)
+    idx = torch.arange(corners.shape[-3], device=corners.device)
+    return pack_mask((iou > iou_thr) & (idx[:, None] < idx[None, :]))

@@ -4,12 +4,20 @@ Counterpart of ``imvoxelnet_tpu/ops/nms.py`` (``greedy_nms_from_iou_batched``,
 ``multiclass_nms_3d``).  Candidate ranking breaks exact score ties
 lowest-index-first, as ``lax.top_k`` does: ``top_k`` below takes the head of
 a stable descending sort (``torch.topk`` promises no tie order on CUDA).
+
+On CUDA tensors the suppression of ``multiclass_nms_3d`` is two kernel
+launches for all samples and classes (``kernels/rect_clip.py``: the
+dominance mask, then the greedy scan over it) and nothing in it reads a
+value back to the host.  ``greedy_nms_from_iou_batched``, whose fixpoint loop
+asks the device every iteration whether it is done, is their plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import rect_clip as clip_kernel
+from . import boxes as box_ops
 from . import iou as iou_ops
 
 _NEG = -1e10
@@ -67,61 +75,113 @@ def greedy_nms_from_iou_batched(iou_matrix, scores, valid, iou_thr: float,
     return torch.take_along_dim(keep, inv_order, dim=-1)
 
 
+def nms_scan_plain(mask, valid):
+    """Plain version of the scan kernel (``kernels/rect_clip.py:nms_scan``):
+    walk the rows of a packed dominance mask ``(G, N, ceil(N / 32))`` in rank
+    order; a row that is valid and not yet removed is kept and removes the
+    rows its bits name.  Returns ``keep (G, N)`` bool."""
+    n = valid.shape[-1]
+    dominates = iou_ops.unpack_mask(mask, n)
+    removed = ~valid
+    for i in range(n):
+        removed = removed | (~removed[..., i, None] & dominates[..., i, :])
+    return ~removed
+
+
+def rotated_nms_presorted_plain(boxes_xywhr, valid, iou_thr: float):
+    """Plain version of :func:`rotated_nms_presorted`: the pairwise IoU and
+    the fixpoint loop over it."""
+    iou = iou_ops.rotated_iou_bev(boxes_xywhr, boxes_xywhr)
+    return greedy_nms_from_iou_batched(
+        iou, iou.new_zeros(valid.shape), valid, iou_thr, presorted=True)
+
+
+def rotated_nms_presorted(boxes_xywhr, valid, iou_thr: float):
+    """Rotated BEV NMS of ``G`` groups of ``N`` boxes whose rows are already
+    in descending-score order: ``(G, N, 5)``, ``(G, N)`` bool -> keep
+    ``(G, N)`` bool.  On CUDA tensors: the mask kernel, then the scan kernel,
+    with no read back to the host."""
+    if not boxes_xywhr.is_cuda:
+        return rotated_nms_presorted_plain(boxes_xywhr, valid, iou_thr)
+    boxes_xywhr = boxes_xywhr.float()
+    mask = clip_kernel.nms_dominance_mask(
+        box_ops.bev_corners(boxes_xywhr).contiguous(),
+        (boxes_xywhr[..., 2] * boxes_xywhr[..., 3]).contiguous(), iou_thr)
+    return clip_kernel.nms_scan(mask, valid.contiguous())
+
+
+def _take(x, idx):
+    """``x (B, N, ...)`` at ``idx (B, ...)`` along dim 1, per sample."""
+    b = torch.arange(x.shape[0], device=x.device)
+    return x[b.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
 def multiclass_nms_3d(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
                       mlvl_valid, *, score_thr: float, max_num: int,
                       iou_thr: float, pre_nms_k: int = 256,
                       mlvl_dir_scores=None):
     """Per-class rotated NMS with fixed output size (``box3d_nms.py:8-88``).
 
-    All classes at once: one ranking over ``(C, N)``, one clip over all
-    ``C*k*k`` pairs, one shared fixpoint loop.
+    All samples and classes at once: one ranking over ``(B, C, N)``, one clip
+    over all ``B*C*k*k`` pairs, one greedy pass.  The arguments may carry a
+    leading batch dim (what ``jax.vmap`` of the JAX function takes); the
+    outputs then carry it too.
 
     Args:
-      mlvl_bboxes: ``(N, D)`` decoded boxes.
-      mlvl_bboxes_for_nms: ``(N, 5)`` BEV xywhr boxes used for suppression.
-      mlvl_scores: ``(N, C)`` foreground class scores.
-      mlvl_valid: ``(N,)`` bool.
-      mlvl_dir_scores: optional ``(N,)``.
+      mlvl_bboxes: ``([B,] N, D)`` decoded boxes.
+      mlvl_bboxes_for_nms: ``([B,] N, 5)`` BEV xywhr boxes used for
+        suppression.
+      mlvl_scores: ``([B,] N, C)`` foreground class scores.
+      mlvl_valid: ``([B,] N)`` bool.
+      mlvl_dir_scores: optional ``([B,] N)``.
 
     Returns:
-      dict of ``boxes (max_num, D)``, ``scores``, ``labels``,
-      ``dir_scores`` and ``valid`` (all ``(max_num,)``).
+      dict of ``boxes ([B,] max_num, D)``, ``scores``, ``labels``,
+      ``dir_scores`` and ``valid`` (all ``([B,] max_num)``).
     """
-    n, n_classes = mlvl_scores.shape
+    if mlvl_scores.dim() == 2:
+        dirs = None if mlvl_dir_scores is None else mlvl_dir_scores[None]
+        out = multiclass_nms_3d(
+            mlvl_bboxes[None], mlvl_bboxes_for_nms[None], mlvl_scores[None],
+            mlvl_valid[None], score_thr=score_thr, max_num=max_num,
+            iou_thr=iou_thr, pre_nms_k=pre_nms_k, mlvl_dir_scores=dirs)
+        return {key: v[0] for key, v in out.items()}
+    b, n, n_classes = mlvl_scores.shape
     k = min(pre_nms_k, n)
     dev = mlvl_scores.device
     if mlvl_dir_scores is None:
-        mlvl_dir_scores = torch.zeros((n,), dtype=mlvl_scores.dtype,
+        mlvl_dir_scores = torch.zeros((b, n), dtype=mlvl_scores.dtype,
                                       device=dev)
 
-    scores_t = mlvl_scores.T
-    masked = torch.where(mlvl_valid[None, :] & (scores_t > score_thr),
+    scores_t = mlvl_scores.transpose(1, 2)
+    masked = torch.where(mlvl_valid[:, None, :] & (scores_t > score_thr),
                          scores_t, torch.full_like(scores_t, _NEG))
-    top_scores, top_idx = top_k(masked, k)                       # (C, k)
+    top_scores, top_idx = top_k(masked, k)                       # (B, C, k)
     top_valid = top_scores > _NEG / 2
-    nms_boxes = mlvl_bboxes_for_nms[top_idx]                     # (C, k, 5)
-    iou = iou_ops.rotated_iou_bev(nms_boxes, nms_boxes)          # (C, k, k)
-    keeps = greedy_nms_from_iou_batched(iou, top_scores, top_valid, iou_thr,
-                                        presorted=True)
-    boxes = mlvl_bboxes[top_idx].reshape(n_classes * k, -1)
+    nms_boxes = _take(mlvl_bboxes_for_nms, top_idx)              # (B, C, k, 5)
+    keeps = rotated_nms_presorted(
+        nms_boxes.reshape(b * n_classes, k, 5),
+        top_valid.reshape(b * n_classes, k), iou_thr)
+    boxes = _take(mlvl_bboxes, top_idx).reshape(b, n_classes * k, -1)
     labels = torch.arange(n_classes, dtype=torch.int32, device=dev)[
-        :, None].expand(n_classes, k).reshape(-1)
-    dirs = mlvl_dir_scores[top_idx].reshape(-1)
-    scores = top_scores.reshape(-1)
-    keeps = keeps.reshape(-1)
+        None, :, None].expand(b, n_classes, k).reshape(b, -1)
+    dirs = _take(mlvl_dir_scores, top_idx).reshape(b, -1)
+    scores = top_scores.reshape(b, -1)
+    keeps = keeps.reshape(b, -1)
 
     final_scores = torch.where(keeps, scores, torch.full_like(scores, _NEG))
     k_out = min(max_num, n_classes * k)
-    top_scores, top_idx = top_k(final_scores, k_out)
+    top_scores, top_idx = top_k(final_scores, k_out)             # (B, k_out)
     out = dict(
-        boxes=boxes[top_idx],
+        boxes=_take(boxes, top_idx),
         scores=top_scores.clamp(min=0.0),
-        labels=labels[top_idx],
-        dir_scores=dirs[top_idx],
+        labels=_take(labels, top_idx),
+        dir_scores=_take(dirs, top_idx),
         valid=top_scores > _NEG / 2,
     )
     pad = max_num - k_out
     if pad:
-        out = {key: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
-               for key, v in out.items()}
+        out = {key: torch.cat(
+            [v, v.new_zeros((b, pad) + v.shape[2:])], dim=1)
+            for key, v in out.items()}
     return out

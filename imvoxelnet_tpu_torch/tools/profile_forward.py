@@ -9,8 +9,9 @@ the cls bias at 0 so detections pass) on a synthetic KITTI batch and reports:
 * stage times from CUDA events recorded by forward hooks around the
   backbone, FPN, 3D neck and head; backprojection is the span between the
   FPN's end and the neck's start, decode + NMS the span after the head;
-* the device's busy share over the timed iterations and the top device
-  kernels by self time, from ``torch.profiler``;
+* the device's busy share over the timed iterations, the top device
+  kernels by self time and the device time of the port's own kernels, from
+  ``torch.profiler``;
 * the card's name and power limit.
 
 Needs a CUDA device.  One JSON object goes to ``--out``; a summary to stdout.
@@ -35,6 +36,9 @@ from ..utils.synthetic import kitti_batch
 
 STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
+# name fragments of the kernels in kernels/csrc/*.cu
+OWN_KERNELS = ('backproject', 'conv_wgmma', 'split3', 'rect_clip_kernel',
+               'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
 
 
@@ -125,6 +129,9 @@ def main(argv=None):
     top = [dict(name=ev.key[:90], calls=ev.count,
                 ms_per_forward=ev.self_device_time_total / 1e3 / ITERS)
            for ev in kernels[:15]]
+    own = [dict(name=ev.key[:90], calls_per_forward=ev.count / ITERS,
+                ms_per_forward=ev.self_device_time_total / 1e3 / ITERS)
+           for ev in kernels if any(k in ev.key for k in OWN_KERNELS)]
 
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -136,16 +143,20 @@ def main(argv=None):
         wall_ms_median=sorted(walls)[len(walls) // 2],
         scenes_per_s=args.batch * 1e3 / (sorted(walls)[len(walls) // 2]),
         profiled_device_busy_share=device_ms / prof_wall_ms,
-        top_device_kernels=top,
+        top_device_kernels=top, own_kernels=own,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(result, f, indent=1)
     print(smi)
     print(json.dumps({k: v for k, v in result.items()
-                      if k != 'top_device_kernels'}))
+                      if k not in ('top_device_kernels', 'own_kernels')}))
     for row in top:
         print(f"{row['ms_per_forward']:9.3f} ms  x{row['calls']:<4} "
+              f"{row['name']}")
+    print('own kernels, per forward:')
+    for row in own:
+        print(f"{row['ms_per_forward']:9.4f} ms  x{row['calls_per_forward']:<4g} "
               f"{row['name']}")
     return 0
 

@@ -19,7 +19,9 @@ from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
 from imvoxelnet_tpu_torch.ops import conv3z
+from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
+from imvoxelnet_tpu_torch.ops import nms as nms_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +99,145 @@ def test_rect_clip_kernel_bit_identical_to_plain(cuda):
     assert torch.equal(pairs.reshape(-1), got)
 
 
+def _boxes(rng, g, n):
+    """Random rects in a square that grows with n, then the degenerate
+    ones: identical, touching, nested, disjoint, zero width, zero size."""
+    side = 1.5 * np.sqrt(n)
+    boxes = np.concatenate([rng.uniform(0, side, (g, n, 2)),
+                            rng.uniform(0.3, 3.0, (g, n, 2)),
+                            rng.uniform(-np.pi, np.pi, (g, n, 1))], -1)
+    degenerate = [[0, 0, 2, 2, .3], [0, 0, 2, 2, .3], [2, 0, 2, 2, .3],
+                  [0, 0, 1, 1, 1.0], [90, 90, 2, 2, 0], [0, 0, 0, 2, 0],
+                  [0, 0, 0, 0, 0]]
+    m = min(n, len(degenerate))
+    boxes[:, :m] = degenerate[:m]
+    return torch.tensor(boxes.astype(np.float32))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize('g,n,m', [(1, 1, 1), (1, 31, 33), (3, 33, 31),
+                                   (3, 100, 100), (1, 100, 1), (3, 1, 100),
+                                   (2, 257, 64)])
+def test_rect_clip_pairwise_bit_identical_to_plain(cuda, g, n, m):
+    rng = np.random.RandomState(3)
+    c1 = box_ops.bev_corners(_boxes(rng, g, n).to(cuda)).contiguous()
+    c2 = box_ops.bev_corners(_boxes(rng, g, m).to(cuda)).contiguous()
+    got = clip_kernel.rect_intersection_area_pairwise(c1, c2)
+    ref = iou_ops.rect_intersection_area_pairwise_plain(c1, c2)
+    assert got.shape == (g, n, m)
+    assert torch.equal(_bits(got), _bits(ref))
+    # the paired entry on the materialised pairs gives the same bits
+    paired = clip_kernel.rect_intersection_area(
+        c1[:, :, None].expand(g, n, m, 4, 2).reshape(-1, 4, 2).contiguous(),
+        c2[:, None, :].expand(g, n, m, 4, 2).reshape(-1, 4, 2).contiguous())
+    assert torch.equal(_bits(paired), _bits(ref.reshape(-1)))
+
+
+def test_rotated_iou_bev_takes_the_pairwise_entry_for_any_leading_dims(
+        cuda, monkeypatch):
+    rng = np.random.RandomState(4)
+    b1 = _boxes(rng, 6, 9).reshape(2, 3, 9, 5).to(cuda)
+    b2 = _boxes(rng, 3, 12).to(cuda)               # broadcasts over dim 0
+    kernels.reset_launch_counts()
+    got = iou_ops.rotated_iou_bev(b1, b2)
+    assert kernels.launch_counts()['rect_clip'] == 1
+    assert got.shape == (2, 3, 9, 12)
+    monkeypatch.setattr(iou_ops, 'rect_intersection_area_pairwise',
+                        iou_ops.rect_intersection_area_pairwise_plain)
+    ref = iou_ops.rotated_iou_bev(b1, b2)
+    assert kernels.launch_counts()['rect_clip'] == 1
+    assert torch.equal(_bits(got), _bits(ref))
+    assert 0 < float((got > 0).float().mean()) < 1
+
+
+@pytest.mark.parametrize('g,n', [(1, 1), (1, 31), (3, 33), (3, 100),
+                                 (1, 32), (2, 64), (1, 1100)])
+@pytest.mark.parametrize('iou_thr', [0.01, 0.3])
+def test_nms_mask_and_scan_match_plain(cuda, g, n, iou_thr):
+    rng = np.random.RandomState(5)
+    boxes = _boxes(rng, g, n).to(cuda)
+    valid = torch.tensor(rng.uniform(0, 1, (g, n)) > 0.15, device=cuda)
+    corners = box_ops.bev_corners(boxes).contiguous()
+    areas = (boxes[..., 2] * boxes[..., 3]).contiguous()
+    mask = clip_kernel.nms_dominance_mask(corners, areas, iou_thr)
+    assert mask.shape == (g, n, (n + 31) // 32) and mask.dtype == torch.int32
+    assert torch.equal(mask, iou_ops.nms_dominance_mask_plain(
+        corners, areas, iou_thr))
+    keep = clip_kernel.nms_scan(mask, valid)
+    assert keep.dtype == torch.bool and keep.shape == (g, n)
+    assert torch.equal(keep, nms_ops.nms_scan_plain(mask, valid))
+    # the pair equals the fixpoint NMS on the plain IoU
+    iou = iou_ops.iou_from_overlaps(
+        iou_ops.rect_intersection_area_pairwise_plain(corners, corners),
+        areas, areas)
+    assert torch.equal(keep, nms_ops.greedy_nms_from_iou_batched(
+        iou, areas, valid, iou_thr, presorted=True))
+    assert torch.equal(nms_ops.rotated_nms_presorted(boxes, valid, iou_thr),
+                       keep)
+
+
+@pytest.mark.parametrize('case', ['all_invalid', 'all_valid', 'chain'])
+def test_nms_scan_edge_cases(cuda, case):
+    n = 70
+    dominates = torch.zeros((2, n, n), dtype=torch.bool)
+    valid = torch.ones((2, n), dtype=torch.bool)
+    if case == 'all_invalid':
+        dominates[:] = torch.ones(n, n).triu(1).bool()
+        valid[:] = False
+        want = torch.zeros((2, n), dtype=torch.bool)
+    elif case == 'all_valid':
+        want = valid.clone()
+    else:                       # i suppresses i + 1 only: every other survives
+        idx = torch.arange(n - 1)
+        dominates[:, idx, idx + 1] = True
+        want = (torch.arange(n) % 2 == 0).expand(2, n)
+    keep = clip_kernel.nms_scan(iou_ops.pack_mask(dominates).to(cuda),
+                                valid.to(cuda))
+    assert torch.equal(keep.cpu(), want)
+
+
+def _head_outs(cuda, b=3, h=10, w=12, seed=6):
+    rng = np.random.RandomState(seed)
+    cfg = a3d.Anchor3DHeadConfig()
+    a = cfg.num_anchors
+    # sample 1 has a handful of scores above the threshold, sample 2 none
+    offset = np.array([0.0, 5.0, 9.0])[:b, None, None, None]
+    outs = (rng.randn(b, h, w, a * cfg.num_classes) * 2 - offset,
+            rng.randn(b, h, w, a * cfg.box_code_size) * 0.3,
+            rng.randn(b, h, w, a * 2))
+    return cfg, tuple(torch.tensor(o.astype(np.float32), device=cuda)
+                      for o in outs)
+
+
+def test_decode_and_nms_never_wait_for_the_device(cuda, monkeypatch):
+    """``set_sync_debug_mode('error')`` makes PyTorch raise on an
+    ``.item()``, a ``bool(tensor)`` or a copy to the host.  The result
+    equals the plain path's on the same device, bit for bit."""
+    cfg, outs = _head_outs(cuda)
+    a3d.anchor3d_head_get_bboxes(outs, cfg)      # builds, caches the anchors
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = a3d.anchor3d_head_get_bboxes(outs, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['rect_clip'] == 1 and counts['nms_scan'] == 1
+    monkeypatch.setattr(nms_ops, 'rotated_nms_presorted',
+                        nms_ops.rotated_nms_presorted_plain)
+    monkeypatch.setattr(iou_ops, 'rect_intersection_area_pairwise',
+                        iou_ops.rect_intersection_area_pairwise_plain)
+    ref = a3d.anchor3d_head_get_bboxes(outs, cfg)
+    assert kernels.launch_counts() == counts
+    n_det = res['valid'].sum(1).tolist()
+    assert n_det[0] > n_det[1] > n_det[2] == 0, n_det
+    for key in ('valid', 'labels', 'boxes', 'scores'):
+        assert torch.equal(res[key], ref[key]), key
+
+
 @pytest.mark.parametrize('shape,dtype,tile', [
     ((2, 7, 9, 6, 64), torch.float32, None),     # M = 756
     ((1, 5, 130, 13, 64), torch.bfloat16, None),
@@ -142,6 +283,49 @@ def test_wrappers_count_launches(cuda):
     kernels.reset_launch_counts()
     c = torch.zeros((4, 4, 2), device=cuda)
     clip_kernel.rect_intersection_area(c, c)
-    clip_kernel.rect_intersection_area(c, c)
-    assert kernels.launch_counts() == {'backproject': 0, 'rect_clip': 2,
-                                       'conv3x3x3': 0}
+    clip_kernel.rect_intersection_area_pairwise(c[None], c[None])
+    mask = clip_kernel.nms_dominance_mask(
+        c[None], torch.zeros((1, 4), device=cuda), 0.5)
+    assert kernels.launch_counts() == {'backproject': 0, 'rect_clip': 3,
+                                       'nms_scan': 0, 'conv3x3x3': 0}
+    clip_kernel.nms_scan(mask, torch.ones((1, 4), dtype=torch.bool,
+                                          device=cuda))
+    assert kernels.launch_counts() == {'backproject': 0, 'rect_clip': 3,
+                                       'nms_scan': 1, 'conv3x3x3': 0}
+
+
+def _clip_calls(dev):
+    """Each clip wrapper on well-formed inputs on ``dev``, by name, as
+    ``(function, args)`` whose tensors a test then spoils one at a time."""
+    c = torch.zeros((2, 5, 4, 2), device=dev)
+    return {
+        'paired': (clip_kernel.rect_intersection_area, [c[0], c[1]]),
+        'pairwise': (clip_kernel.rect_intersection_area_pairwise, [c, c]),
+        'mask': (lambda corners, areas: clip_kernel.nms_dominance_mask(
+            corners, areas, 0.5), [c, torch.zeros((2, 5), device=dev)]),
+        'scan': (clip_kernel.nms_scan,
+                 [torch.zeros((2, 5, 1), dtype=torch.int32, device=dev),
+                  torch.ones((2, 5), dtype=torch.bool, device=dev)]),
+    }
+
+
+@pytest.mark.parametrize('name', ['paired', 'pairwise', 'mask', 'scan'])
+def test_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda, name):
+    fn, args = _clip_calls(cuda)[name]
+    fn(*args)                                     # well-formed: runs
+    before = kernels.launch_counts()
+    for i, arg in enumerate(args):
+        def spoiled(t):
+            return args[:i] + [t] + args[i + 1:]
+        with pytest.raises(ValueError, match='CUDA tensor'):
+            fn(*spoiled(arg.cpu()))
+        with pytest.raises(TypeError):
+            fn(*spoiled(arg.to(torch.float64)))
+        with pytest.raises(ValueError):
+            fn(*spoiled(arg[:, :-1]))             # wrong shape
+        with pytest.raises(ValueError, match='contiguous'):
+            fn(*spoiled(arg.repeat_interleave(2, dim=1)[:, ::2]))
+        if arg.dtype == torch.float32 and arg.dim() > 2:
+            with pytest.raises(RuntimeError, match='no backward'):
+                fn(*spoiled(arg.clone().requires_grad_()))
+    assert kernels.launch_counts() == before

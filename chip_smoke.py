@@ -15,10 +15,19 @@ Phases, each failing the run on its own error:
                 model's plain path on the card) and b=8 bfloat16 (throughput),
                 with the launch counts that show the kernels ran, and with
                 decode + NMS forbidden to wait for the device.
+  4. train   -- the full-width imvoxelnet_kitti training step
+                (parallel/train.py): b=1 float32 through the kernels held
+                against the plain path (losses, every trainable gradient,
+                the 3D neck's batch-norm statistics); the backprojection's
+                backward kernel against its plain version at the b=4
+                bfloat16 shapes; 5 timed b=4 bfloat16 steps at 1408x416 with
+                their launch counts; one step forbidden to wait for the
+                device.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 Weights are random from a seed.  Needs a CUDA device; imports no JAX.
 """
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -43,7 +52,10 @@ from imvoxelnet_tpu_torch.ops import boxes as box_ops
 from imvoxelnet_tpu_torch.ops import conv3z
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
-from imvoxelnet_tpu_torch.utils.synthetic import KITTI_H, KITTI_W, kitti_batch
+from imvoxelnet_tpu_torch.parallel import train as train_lib
+from imvoxelnet_tpu_torch.utils.synthetic import (KITTI_H, KITTI_W,
+                                                  kitti_batch,
+                                                  kitti_train_batch)
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BYTES = 3.35e12
@@ -313,6 +325,68 @@ def check_conv3x3x3(b, dtype, tol, rng):
                            reps))
 
 
+def check_backproject_grad(b, dtype, rng):
+    """The backward kernel at the training shapes (imvoxelnet_kitti's padded
+    train size): against its plain version, with the library time of
+    ``index_add_`` over the forward's precomputed pixels."""
+    preset = get_preset('imvoxelnet_kitti')
+    cfg, size = preset.model, preset.data.train_size
+    batch = kitti_train_batch(b, 'cuda', seed=SEED, size=size)
+    hf, wf, c = size[1] // 4, size[0] // 4, cfg.fpn_out_channels
+    points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
+                           batch['origins']).reshape(b, -1, 3).contiguous()
+    proj = bp.compute_projection(batch['intrinsics'], batch['extrinsics'],
+                                 batch['ratios']).contiguous()
+    hw = (batch['img_shape'] // 4).to(torch.int32)
+    p = points.shape[1]
+    g = torch.tensor(rng.randn(p, b, c).astype(np.float32),
+                     device='cuda').to(dtype)
+    got = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
+    ref = bp.backproject_batch_grad_plain(g, points, proj, hw, hf, wf)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    # float32 sums in another order, then one rounding to the features' type
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+    # the same function as one library call: index_add_ of the float32
+    # gradient rows at the forward's pixels (unseen rows to a spare row)
+    idx, valid = bp._view_indices(points, proj, hw, hf, wf)     # (B, 1, P)
+    n_valid = int(valid.sum())
+    if not 0 < n_valid < b * p:
+        raise AssertionError(f'backproject_grad: {n_valid} of {b * p} rows '
+                             f'seen')
+    base = torch.arange(b, device='cuda')[:, None] * (hf * wf)
+    flat = torch.where(valid[:, 0], base + idx[:, 0], b * hf * wf)
+    flat = flat.t().reshape(-1).contiguous()                   # (P * B,)
+    src = g.float().reshape(p * b, c)
+    table = torch.zeros((b * hf * wf + 1, c), device='cuda')
+    lib = torch.zeros_like(table).index_add_(0, flat, src)[:-1]
+    torch.testing.assert_close(lib.reshape(got.shape), ref.float(),
+                               rtol=tol, atol=tol)
+    # per row: 3 projections of 6 operations, 2 divides; per seen row C adds
+    n_flops = b * p * (18 + 2) + n_valid * c
+    t_bound, by = bound(nbytes(g, points, proj, hw, got), n_flops,
+                        torch.float32)
+    reps = 10
+    return dict(
+        name='backproject_grad', route='cuda',
+        source='imvoxelnet_tpu_torch/kernels/csrc/backproject.cu',
+        replaces='imvoxelnet_tpu/ops/backproject_pallas.py:155 (backward; '
+                 'the JAX package differentiates its XLA gather, '
+                 'imvoxelnet_tpu/ops/backproject.py:166)',
+        shape=f'b={b} {str(dtype)[6:]} grad_acc {tuple(g.shape)} -> '
+              f'{tuple(got.shape)}', max_abs_err=err,
+        seen_rows=n_valid,
+        ms=time_ms(lambda: bp_kernel.backproject_batch_grad(
+            g, points, proj, hw, hf, wf), reps),
+        plain_ms=time_ms(lambda: bp.backproject_batch_grad_plain(
+            g, points, proj, hw, hf, wf), 3),
+        bound_ms=t_bound, bound_by=by,
+        library_ms=time_ms(lambda: table.index_add_(0, flat, src), reps),
+        library_call='index_add_ of float32 rows, indices precomputed')
+
+
 # --------------------------------------------------------------------------
 # phase 3: the slice
 # --------------------------------------------------------------------------
@@ -420,12 +494,165 @@ def run_slice():
         f'peak memory {peak_gb:.4g} GB')
 
     for name, c in counts.items():
-        want = {'backproject': 1, 'conv3x3x3': 2, 'rect_clip': 1,
-                'nms_scan': 1}
+        want = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
+                'rect_clip': 1, 'nms_scan': 1}
         if c != want:
             raise AssertionError(f'{name}: launch counts {c} != {want}')
     log(f'launch counts per forward: {json.dumps(counts)}')
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4: training
+# --------------------------------------------------------------------------
+
+# a conv's bias right before a batch-statistics BN has a true gradient of 0:
+# both paths give float noise there
+BIASES_BEFORE_BN = tuple(f'neck_3d.model.{i}.0.bias' for i in (1, 3, 5))
+MUST_LEARN = ('backbone.layer2.0.conv1.weight',
+              'backbone.layer2.3.conv3.weight',
+              'neck.lateral_convs.0.conv.weight',
+              'neck.fpn_convs.0.conv.weight',
+              'neck_3d.model.0.conv1.weight', 'neck_3d.model.0.conv2.weight')
+TRAIN_STEPS = 5
+
+
+def trainer(model, preset):
+    """``make_train_step`` with the preset's optimizer (an epoch of 1000
+    steps: the LR keeps its first value); ``grads`` holds copies of the first
+    step's gradients as the optimizer receives them, before its clip."""
+    opt, sched = train_lib.make_optimizer(
+        model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
+        preset.grad_clip_norm, steps_per_epoch=1000, lr_steps=preset.lr_steps)
+    grads = {}
+    names = {p: n for n, p in model.named_parameters()}
+
+    def snapshot(optimizer, args, kwargs):
+        if grads:       # a pre-hook may run again inside the parent's step
+            return
+        for group in optimizer.param_groups:
+            for p in group['params']:
+                grads[names[p]] = p.grad.detach().clone()
+    opt.register_step_pre_hook(snapshot)
+    return train_lib.make_train_step(model, opt, sched), grads
+
+
+def bn_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith('neck_3d.') and k.endswith(('running_mean',
+                                                        'running_var'))}
+
+
+def run_train():
+    preset = get_preset('imvoxelnet_kitti')
+    cfg = preset.model
+    out = {}
+
+    # --- b=1 float32: one step through the kernels and one through the
+    # plain versions (forward and backward), from the same weights
+    model = build_model(cfg, device='cuda', seed=SEED)
+    plain_model = copy.deepcopy(model)
+    step, grads = trainer(model, preset)
+    plain_step, plain_grads = trainer(plain_model, preset)
+    batch1 = kitti_train_batch(1, 'cuda', seed=SEED,
+                               size=preset.data.train_size)
+    kernels.reset_launch_counts()
+    metrics = step(batch1)
+    torch.cuda.synchronize()
+    counts_b1 = kernels.launch_counts()
+    with plain_path():
+        plain_metrics = plain_step(batch1)
+    torch.cuda.synchronize()
+    if any(counts_b1[k] != v for k, v in (('backproject', 1),
+                                           ('backproject_grad', 1),
+                                           ('conv3x3x3', 4))):
+        raise AssertionError(f'b=1 train step: launch counts {counts_b1}')
+    loss_err = {k: abs(float(metrics[k]) - float(plain_metrics[k]))
+                for k in metrics}
+    for k in metrics:
+        torch.testing.assert_close(metrics[k], plain_metrics[k], rtol=2e-3,
+                                   atol=2e-3)
+    if not float(metrics['loss_bbox']) > 0:
+        raise AssertionError('b=1 train step: no positive anchor')
+    worst, worst_name = 0.0, None
+    for name, ref in plain_grads.items():
+        got = grads[name]
+        if name in BIASES_BEFORE_BN:
+            scale = plain_grads[name.replace('bias', 'weight')].abs().max()
+            if max(got.abs().max(), ref.abs().max()) > 1e-4 * scale:
+                raise AssertionError(f'{name}: gradient not noise-sized')
+            continue
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2 * scale,
+                                   msg=lambda m: f'{name}: {m}')
+        err = (got - ref).abs().max().item() / scale if scale > 0 else 0.0
+        if err > worst:
+            worst, worst_name = err, name
+    for name in MUST_LEARN:
+        if not float(grads[name].abs().max()) > 0:
+            raise AssertionError(f'{name}: zero gradient on the kernel path')
+    stats, plain_stats = bn_stats(model), bn_stats(plain_model)
+    stats_err = 0.0
+    for key, ref in plain_stats.items():
+        torch.testing.assert_close(stats[key], ref, rtol=2e-3, atol=2e-3)
+        stats_err = max(stats_err, (stats[key] - ref).abs().max().item())
+    out['b1_float32_vs_plain'] = dict(
+        loss=float(metrics['loss']), loss_abs_err=loss_err,
+        grads_compared=len(plain_grads),
+        max_grad_err_over_max_abs=worst, worst_grad=worst_name,
+        bn_stats_max_abs_err=stats_err,
+        launches=counts_b1)
+    log(f'train b=1 float32: kernel path == plain path (loss '
+        f'{float(metrics["loss"]):.6g}, {len(plain_grads)} gradients within '
+        f'{worst:.3g} of their max-abs ({worst_name} the worst), BN stats '
+        f'within {stats_err:.3g})')
+    del model, plain_model, step, plain_step, grads, plain_grads
+
+    # --- b=4 bfloat16 at the padded train size: throughput
+    b = preset.data.samples_per_device
+    cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
+    model16 = build_model(cfg16, device='cuda', seed=SEED)
+    step16, _ = trainer(model16, preset)
+    batch = kitti_train_batch(b, 'cuda', seed=SEED + 1,
+                              size=preset.data.train_size)
+    step16(batch)                               # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step16(batch)['loss'] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'b={b} train: non-finite loss {losses}')
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    want = {'backproject': 1, 'backproject_grad': 1, 'conv3x3x3': 4,
+            'rect_clip': 0, 'nms_scan': 0}
+    if per_step != want:
+        raise AssertionError(f'b={b} train: launches per step {per_step} '
+                             f'!= {want}')
+
+    # --- one step that must not wait for the device (the loss is fetched
+    # after it)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        metrics = step16(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    if not np.isfinite(float(metrics['loss'])):
+        raise AssertionError('train: non-finite loss in the sync-free step')
+    out[f'b{b}_bfloat16'] = dict(
+        size=list(preset.data.train_size), steps=TRAIN_STEPS,
+        losses=losses, steps_per_s=TRAIN_STEPS / dt,
+        scenes_per_s=b * TRAIN_STEPS / dt, ms_per_step=dt * 1e3 / TRAIN_STEPS,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, launches_per_step=per_step, sync_free_step=True)
+    log(f'train b={b} bfloat16: {TRAIN_STEPS / dt:.4g} steps/s, '
+        f'{b * TRAIN_STEPS / dt:.4g} scenes/s, peak memory '
+        f'{out[f"b{b}_bfloat16"]["peak_memory_gb"]:.4g} GB, losses {losses}')
+    return out, counts
 
 
 def main():
@@ -477,19 +704,27 @@ def main():
         log(json.dumps(row))
 
     counts = run_slice()
+    bp_grad_row = check_backproject_grad(4, torch.bfloat16, rng)
+    log(json.dumps(check_backproject_grad(1, torch.float32, rng)))
+    log(json.dumps(bp_grad_row))
+    train, train_counts = run_train()
+    log(json.dumps({'train': train}))
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
     # the summary line: the kernels at the serving shapes (b=8 bfloat16; the
-    # NMS of 8 samples x 100 candidates), with the launches of the b=8 forward
+    # NMS of 8 samples x 100 candidates) with the launches of the b=8
+    # forward, and the backprojection's backward at the b=4 bfloat16
+    # training shapes with its launches in the 5 timed training steps
     summary = []
-    for row in serving:
+    for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
+            + [(bp_grad_row, train_counts['backproject_grad'])]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
-        entry['launches'] = counts['b8_bf16'][row['name']]
+        entry['launches'] = launches
         summary.append(entry)
     log(json.dumps({'kernels': summary}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,7 +1,11 @@
-"""Wrapper of the backprojection kernel (``csrc/backproject.cu``).
+"""Wrappers of the backprojection kernels (``csrc/backproject.cu``).
 
-Replaces ``imvoxelnet_tpu/ops/backproject_pallas.py:backproject_pallas``.
-The plain version is ``ops/backproject.py:backproject_batch_plain``.
+``backproject_batch`` replaces
+``imvoxelnet_tpu/ops/backproject_pallas.py:backproject_pallas``; its plain
+version is ``ops/backproject.py:backproject_batch_plain``.
+``backproject_batch_grad`` is its backward (the JAX package differentiates
+the XLA gather); its plain version is
+``ops/backproject.py:backproject_batch_grad_plain``.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from . import build
 from ._checks import require, same_device, stream_of
 
 launches = 0
+grad_launches = 0
 
 
 def backproject_batch(features, points, projections, valid_hw):
@@ -54,3 +59,45 @@ def backproject_batch(features, points, projections, valid_hw):
     build.check(err, 'backproject')
     launches += 1
     return acc, cnt
+
+
+def backproject_batch_grad(grad_acc, points, projections, valid_hw,
+                           hf: int, wf: int):
+    """Gradient of the sums with respect to the features: a scatter-add of
+    ``grad_acc`` into each view's feature table at the forward's pixels.
+
+    Args:
+      grad_acc: ``(P, B, C)`` float32 or bfloat16, C even.
+      points, projections, valid_hw: as for :func:`backproject_batch`.
+      hf, wf: the feature map's height and width.
+
+    Returns:
+      ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype, summed in float32 with
+      atomics (so not bit-for-bit repeatable).
+    """
+    global grad_launches
+    require(grad_acc, 'grad_acc', (torch.float32, torch.bfloat16), 3)
+    require(points, 'points', (torch.float32,), 3)
+    require(projections, 'projections', (torch.float32,), 4)
+    require(valid_hw, 'valid_hw', (torch.int32,), 2)
+    same_device(grad_acc, points, projections, valid_hw)
+    p, b, c = grad_acc.shape
+    v = projections.shape[1]
+    if c % 2 or c < 2:
+        raise ValueError(f'channel count must be even and positive, got {c}')
+    if (points.shape != (b, p, 3) or projections.shape != (b, v, 3, 4)
+            or valid_hw.shape != (b, 2) or hf < 1 or wf < 1):
+        raise ValueError('shape mismatch: grad_acc '
+                         f'{tuple(grad_acc.shape)}, points '
+                         f'{tuple(points.shape)}, projections '
+                         f'{tuple(projections.shape)}, valid_hw '
+                         f'{tuple(valid_hw.shape)}, feature map {(hf, wf)}')
+    table = torch.zeros((b, v, hf, wf, c), dtype=torch.float32,
+                        device=grad_acc.device)
+    err = build.kernel('backproject', 'imvx_backproject_grad')(
+        grad_acc.data_ptr(), int(grad_acc.dtype == torch.bfloat16),
+        points.data_ptr(), projections.data_ptr(), valid_hw.data_ptr(),
+        table.data_ptr(), b, v, hf, wf, c, p, stream_of(grad_acc))
+    build.check(err, 'backproject_grad')
+    grad_launches += 1
+    return table.to(grad_acc.dtype)

@@ -39,7 +39,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     'backproject': {
         'imvx_backproject':
-            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]},
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+        'imvx_backproject_grad':
+            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]},
     'rect_clip': {
         'imvx_rect_clip': [_P, _P, _P, _L, _P],
         'imvx_rect_clip_pairwise': [_P, _P, _P, _I, _I, _I, _P],

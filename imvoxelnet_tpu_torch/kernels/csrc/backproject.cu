@@ -40,6 +40,24 @@
 // kernel picks the same pixel as the plain PyTorch version
 // (ops/backproject.py:_view_indices), which evaluates the same expression;
 // the views are summed in order in float32, as there.
+//
+// Backward (backproject_grad_kernel, entry imvx_backproject_grad): the
+// gradient of the sums with respect to the features, a scatter-add
+//   grad_feats[b, v, pix(b, v, p)] += grad_acc[p, b]   for every valid (p, v).
+// The JAX package differentiates its XLA gather (ops/backproject.py:
+// backproject_batch), whose transpose is XLA's scatter-add; Pallas has no
+// backward kernel to port.  The pixel is recomputed with the forward's own
+// pixel_of (same file, same flags), so the gradient lands on the pixel the
+// forward read; nothing of the forward is saved.  One thread owns two
+// channels of one (p, b) row, so a warp covers a 64-channel row and its
+// atomics hit consecutive addresses of one feature row.  The sums are float32
+// atomicAdds into a zeroed float32 table (bfloat16 atomics would lose the
+// sum); the wrapper casts the table to the features' type.  Bound: bytes --
+// grad_acc is read once (329 MB at a KITTI training batch of 4 in bfloat16)
+// and the table (37 MB) stays in L2, where the atomics resolve.  The order in
+// which the atomics land changes from run to run, so the result is not
+// deterministic: it equals the plain version within float32 rounding of a sum
+// of ~12 terms, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -338,7 +356,86 @@ int launch(const void* feats_v, const void* points_v, const void* proj_v,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+backproject_grad_kernel(const T* __restrict__ grad_acc,
+                        const float* __restrict__ points,
+                        const float* __restrict__ proj,
+                        const int* __restrict__ valid_hw,
+                        float* __restrict__ grad_feats, int B, int V, int Hf,
+                        int Wf, int C, long long P, int stage_proj) {
+  extern __shared__ float s_proj[];
+  const float* pj = proj;
+  const int* vhw = valid_hw;
+  if (stage_proj) {
+    const int n_pj = B * V * 12;
+    for (int i = threadIdx.x; i < n_pj; i += kThreads) s_proj[i] = proj[i];
+    int* s_hw = reinterpret_cast<int*>(s_proj + n_pj);
+    for (int i = threadIdx.x; i < 2 * B; i += kThreads) s_hw[i] = valid_hw[i];
+    __syncthreads();
+    pj = s_proj;
+    vhw = s_hw;
+  }
+  const int half = C / 2;
+  const long long n = P * B * half;
+  const long long hw = (long long)Hf * Wf;
+  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < n;
+       t += (long long)gridDim.x * kThreads) {
+    const long long row = t / half;
+    const int c = 2 * (int)(t - row * half);
+    const long long p = row / B;
+    const int b = (int)(row - p * B);
+    const float* pt = points + ((long long)b * P + p) * 3;
+    const float x = pt[0], y = pt[1], z = pt[2];
+    const float vh = (float)vhw[2 * b], vw = (float)vhw[2 * b + 1];
+    const float2 g = load2(grad_acc + row * C + c);
+    for (int v = 0; v < V; ++v) {
+      const int pix =
+          pixel_of(pj + (b * V + v) * 12, x, y, z, vh, vw, Hf, Wf);
+      if (pix < 0) continue;
+      float* dst = grad_feats + (((long long)b * V + v) * hw + pix) * C + c;
+      atomicAdd(dst, g.x);
+      atomicAdd(dst + 1, g.y);
+    }
+  }
+}
+
+template <typename T>
+int launch_grad(const void* grad_acc, const void* points, const void* proj,
+                const void* valid_hw, void* grad_feats, int B, int V, int Hf,
+                int Wf, int C, long long P, cudaStream_t stream) {
+  const long long n = P * B * (C / 2);
+  if (n < 1) return 0;
+  long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 132LL * kGridPerSM) blocks = 132LL * kGridPerSM;
+  const size_t staged = ((size_t)B * V * 12 + 2 * (size_t)B) * 4;
+  const int stage_proj = staged <= 32768;
+  backproject_grad_kernel<T>
+      <<<(unsigned)blocks, kThreads, stage_proj ? staged : 0, stream>>>(
+          static_cast<const T*>(grad_acc), static_cast<const float*>(points),
+          static_cast<const float*>(proj), static_cast<const int*>(valid_hw),
+          static_cast<float*>(grad_feats), B, V, Hf, Wf, C, P, stage_proj);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// grad_acc (P, B, C) float32 or bfloat16, C even; points (B, P, 3) float32;
+// proj (B, V, 3, 4) float32; valid_hw (B, 2) int32; grad_feats
+// (B, V, Hf, Wf, C) float32, zeroed by the caller, receives the sums.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int imvx_backproject_grad(const void* grad_acc, int grad_bf16,
+                                     const void* points, const void* proj,
+                                     const void* valid_hw, void* grad_feats,
+                                     int B, int V, int Hf, int Wf, int C,
+                                     long long P, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grad_bf16)
+    return launch_grad<__nv_bfloat16>(grad_acc, points, proj, valid_hw,
+                                      grad_feats, B, V, Hf, Wf, C, P, s);
+  return launch_grad<float>(grad_acc, points, proj, valid_hw, grad_feats, B,
+                            V, Hf, Wf, C, P, s);
+}
 
 // features (B, V, Hf, Wf, C) float32 or bfloat16, C even; points (B, P, 3)
 // float32; proj (B, V, 3, 4) float32; valid_hw (B, 2) int32 (h, w);

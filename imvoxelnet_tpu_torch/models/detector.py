@@ -1,9 +1,12 @@
 """The ImVoxelNet detector: backbone -> FPN -> backprojection -> 3D neck ->
-anchor head, and its test-time decode (``simple_test``).
+anchor head, its test-time decode (``simple_test``) and its training loss.
 
 Counterpart of ``imvoxelnet_tpu/models/detector.py`` (``ImVoxelNetConfig``,
-``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``) for the KITTI
-(``head_kind='anchor3d'``, ``neck.kind='kitti'``) configuration.
+``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``, ``imvoxelnet_loss``)
+for the KITTI (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
+configuration.  ``model.train()`` is the JAX ``train=True``: the 3D neck's
+batch norms use batch statistics and update their running ones; the
+backbone's ``FrozenBatchNorm`` ignores the mode.
 
 Batch layout, as in the JAX package (all tensors on one device):
   images      (B, V, H, W, 3)   normalized, padded
@@ -12,6 +15,10 @@ Batch layout, as in the JAX package (all tensors on one device):
   origins     (B, 3)
   img_shape   (B, 2) int        resized (pre-pad) image (h, w)
   ratios      (B,) float        ori_h / (img_h / stride)  (imvoxelnet.py:118)
+and for training
+  gt_boxes    (B, G, 7)         padded GT boxes, bottom center
+  gt_labels   (B, G) int
+  gt_mask     (B, G) bool
 """
 
 from __future__ import annotations
@@ -106,6 +113,14 @@ class ImVoxelNet(nn.Module):
 def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs):
     """Test-time detections (``imvoxelnet.py:93-106``), fixed-shape."""
     return a3d.anchor3d_head_get_bboxes(head_outs, cfg.anchor_head)
+
+
+def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch):
+    """Training losses (``imvoxelnet.py:82-87``): a dict of ``loss_cls``,
+    ``loss_bbox`` and ``loss_dir`` scalars."""
+    return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
+                                  batch['gt_labels'], batch['gt_mask'],
+                                  cfg.anchor_head)
 
 
 def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:

@@ -1,7 +1,8 @@
-"""BEV anchor head (KITTI) and its fixed-shape inference.
+"""BEV anchor head (KITTI), its training loss and its fixed-shape inference.
 
 Counterpart of ``imvoxelnet_tpu/models/heads/anchor3d_head.py``
-(``Anchor3DHeadConfig``, ``Anchor3DHead``, ``anchor3d_head_get_bboxes``).
+(``Anchor3DHeadConfig``, ``Anchor3DHead``, ``add_sin_difference``,
+``anchor3d_head_loss``, ``anchor3d_head_get_bboxes``).
 The head's outputs are returned channel-last, ``(B, H, W, A*K)``, so anchors
 flatten anchor-major exactly as in the JAX package.
 """
@@ -18,8 +19,10 @@ from torch import nn
 
 from ...core import anchors as anchor_gen
 from ...core import coder
+from ...core import target_assign
 from ...core.target_assign import AssignerConfig
 from ...ops import boxes as box_ops
+from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
 from ..layers import Conv2d
 
@@ -92,6 +95,53 @@ def head_anchors(featmap_size, cfg: Anchor3DHeadConfig, device=None):
     the host once per map size, config and device and then shared: callers
     must not write to them."""
     return _cached_anchors(tuple(featmap_size), cfg, device)
+
+
+def add_sin_difference(pred_yaw, target_yaw):
+    """``sin(a - b)`` factorised (``anchor3d_head.py:279-301``)."""
+    return (torch.sin(pred_yaw) * torch.cos(target_yaw),
+            torch.cos(pred_yaw) * torch.sin(target_yaw))
+
+
+def anchor3d_head_loss(head_outs, gt_boxes, gt_labels, gt_mask,
+                       cfg: Anchor3DHeadConfig):
+    """The batch's ``loss_cls``, ``loss_bbox`` and ``loss_dir``, each
+    normalised by the batch's positive count ``sum_i max(n_pos_i, 1)``.
+
+    ``head_outs`` as :class:`Anchor3DHead` returns them; ``gt_boxes (B, G,
+    7)``, ``gt_labels (B, G)``, ``gt_mask (B, G)`` padded GT.  The targets
+    carry no gradient; nothing here waits for the device.
+    """
+    cls_score, bbox_pred, dir_pred = head_outs
+    b, h, w, _ = cls_score.shape
+    anchors = head_anchors((h, w), cfg, device=cls_score.device)
+    targets = target_assign.anchor_targets(
+        anchors, gt_boxes, gt_labels, gt_mask, cfg.assigner, cfg.num_classes,
+        cfg.dir_offset)
+    num_total = targets['n_pos'].sum().float()
+
+    loss_cls = loss_ops.sigmoid_focal_loss(
+        cls_score.reshape(-1, cfg.num_classes), targets['labels'].reshape(-1),
+        weight=targets['label_weights'].reshape(-1), avg_factor=num_total,
+        loss_weight=cfg.loss_cls_weight)
+
+    pred = bbox_pred.reshape(b, -1, cfg.box_code_size)
+    tgt = targets['bbox_targets']
+    if cfg.diff_rad_by_sin:
+        sp, st = add_sin_difference(pred[..., 6], tgt[..., 6])
+        pred = torch.cat([pred[..., :6], sp[..., None], pred[..., 7:]], -1)
+        tgt = torch.cat([tgt[..., :6], st[..., None], tgt[..., 7:]], -1)
+    loss_bbox = loss_ops.smooth_l1_loss(
+        pred, tgt, weight=targets['bbox_weights'][..., None], beta=1.0 / 9.0,
+        avg_factor=num_total, loss_weight=cfg.loss_bbox_weight)
+
+    losses = dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+    if cfg.use_direction_classifier:
+        losses['loss_dir'] = loss_ops.softmax_cross_entropy(
+            dir_pred.reshape(-1, 2), targets['dir_targets'].reshape(-1),
+            weight=targets['dir_weights'].reshape(-1), avg_factor=num_total,
+            loss_weight=cfg.loss_dir_weight)
+    return losses
 
 
 @torch.no_grad()

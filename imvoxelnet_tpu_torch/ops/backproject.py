@@ -9,6 +9,11 @@ positive depth, and mean-pooled over the views that see the voxel.
 CUDA tensors and its plain version, ``backproject_batch_plain``, on CPU
 tensors.  Layouts are the JAX package's: channel-last features
 ``(B, V, Hf, Wf, C)`` and voxel-major outputs ``(P, B, C)``.
+
+The gradient reaches the features only (the JAX package's indices are
+integers): on CUDA tensors through :class:`BackprojectFunction`, whose
+backward is the scatter-add kernel, with ``backproject_batch_grad_plain`` as
+its plain version; on CPU tensors autograd differentiates the plain forward.
 """
 
 from __future__ import annotations
@@ -26,8 +31,13 @@ def get_points(n_voxels, voxel_size, origins):
     """
     nx, ny, nz = (int(v) for v in n_voxels)
     dev = origins.device
-    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
-    n = torch.tensor([nx, ny, nz], dtype=torch.float32, device=dev)
+
+    def const(values):
+        # filled on the device: a tensor made from a list is a copy from the
+        # host, which waits for the device
+        return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                       device=dev) for v in values])
+    vs, n = const(voxel_size), const((nx, ny, nz))
     idx = torch.stack(torch.meshgrid(
         torch.arange(nx, dtype=torch.float32, device=dev),
         torch.arange(ny, dtype=torch.float32, device=dev),
@@ -87,6 +97,11 @@ def _view_indices(points, projections, valid_hw, hf: int, wf: int):
     return yi * wf + xi, valid
 
 
+def _sum_dtype(dtype):
+    """float32 sums, float64 for float64 inputs (``gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def backproject_batch_plain(features, points, projections, valid_hw):
     """Plain PyTorch version of the backprojection kernel.
 
@@ -99,14 +114,71 @@ def backproject_batch_plain(features, points, projections, valid_hw):
                                valid_hw, hf, wf)
     table = features.reshape(b, v, hf * wf, c)
     rows = torch.arange(b, device=features.device)[:, None]
-    acc = torch.zeros((b, p, c), dtype=torch.float32, device=features.device)
+    sum_dtype = _sum_dtype(features.dtype)
+    acc = torch.zeros((b, p, c), dtype=sum_dtype, device=features.device)
     for i in range(v):
-        gathered = table[:, i][rows, idx[:, i]].float()          # (B, P, C)
+        gathered = table[:, i][rows, idx[:, i]].to(sum_dtype)    # (B, P, C)
         acc = acc + torch.where(valid[:, i, :, None], gathered,
                                 torch.zeros((), device=features.device))
     cnt = valid.sum(dim=1)                                       # (B, P)
     return (acc.transpose(0, 1).to(features.dtype).contiguous(),
             cnt.transpose(0, 1).to(features.dtype).contiguous())
+
+
+def backproject_batch_grad_plain(grad_acc, points, projections, valid_hw,
+                                 hf: int, wf: int):
+    """Plain PyTorch version of the backward kernel: the gradient of
+    :func:`backproject_batch_plain`'s sums with respect to the features.
+
+    ``grad_acc (P, B, C)`` is added, in float32, into each view's
+    ``(hf * wf, C)`` table at the pixels the forward read (``index_add_``);
+    returns ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype.
+    """
+    p, b, c = grad_acc.shape
+    v = projections.shape[1]
+    idx, valid = _view_indices(points.float(), projections.float(),
+                               valid_hw, hf, wf)
+    sum_dtype = _sum_dtype(grad_acc.dtype)
+    g = grad_acc.transpose(0, 1).to(sum_dtype)                  # (B, P, C)
+    table = torch.zeros((b * v * hf * wf, c), dtype=sum_dtype,
+                        device=grad_acc.device)
+    view_base = torch.arange(b, device=grad_acc.device)[:, None] * v
+    for i in range(v):
+        flat = (view_base + i) * (hf * wf) + idx[:, i]            # (B, P)
+        table.index_add_(0, flat[valid[:, i]], g[valid[:, i]])
+    return table.reshape(b, v, hf, wf, c).to(grad_acc.dtype)
+
+
+class BackprojectFunction(torch.autograd.Function):
+    """B1 with its gradient: ``apply(features, points, projections,
+    valid_hw, plain=False)`` -> ``(acc, cnt)``.
+
+    The forward is the kernel (``plain=True``: ``backproject_batch_plain``)
+    and the backward the scatter-add kernel (``plain=True``:
+    ``backproject_batch_grad_plain``), which recomputes the pixels rather
+    than saving the forward's ``(B, V, P)`` indices.  Only ``features`` gets
+    a gradient; ``cnt`` is not differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, features, points, projections, valid_hw, plain=False):
+        fwd = backproject_batch_plain if plain else bp_kernel.backproject_batch
+        acc, cnt = fwd(features, points, projections, valid_hw)
+        ctx.save_for_backward(points, projections, valid_hw)
+        ctx.plain = plain
+        ctx.hw = features.shape[2:4]
+        ctx.mark_non_differentiable(cnt)
+        return acc, cnt
+
+    @staticmethod
+    def backward(ctx, grad_acc, _grad_cnt):
+        # only ``features`` is differentiable, so it is the input that
+        # asked for this call
+        grad = (backproject_batch_grad_plain if ctx.plain
+                else bp_kernel.backproject_batch_grad)
+        points, projections, valid_hw = ctx.saved_tensors
+        return (grad(grad_acc.contiguous(), points, projections, valid_hw,
+                     *ctx.hw), None, None, None, None)
 
 
 def backproject_batch(features, points, projections, valid_hw):
@@ -124,7 +196,7 @@ def backproject_batch(features, points, projections, valid_hw):
       dtype.
     """
     if features.is_cuda:
-        return bp_kernel.backproject_batch(
+        return BackprojectFunction.apply(
             features.contiguous(), points.float().contiguous(),
             projections.float().contiguous(),
             valid_hw.to(torch.int32).contiguous())

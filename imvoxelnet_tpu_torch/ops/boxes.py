@@ -1,4 +1,4 @@
-"""Functional 3D box geometry (the subset the KITTI forward uses).
+"""Functional 3D box geometry (the subset the KITTI forward and training use).
 
 Counterpart of ``imvoxelnet_tpu/ops/boxes.py``.  Boxes are ``(N, 7)``
 tensors ``(x, y, z, dx, dy, dz, yaw)`` with the bottom-center convention.
@@ -24,6 +24,17 @@ def bev(boxes):
     # host and is copied to the device on every call
     return torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]],
                      dim=-1)
+
+
+def nearest_bev(boxes):
+    """Axis-aligned (rotation-snapped) BEV box ``(x1, y1, x2, y2)``: the yaw
+    is normalised to ``[-pi/2, pi/2)`` and the BEV extents swap where
+    ``|yaw| > pi/4``."""
+    rot = torch.abs(limit_period(boxes[..., 6], 0.5, PI))
+    swap = (rot > PI / 4)[..., None]
+    wh = torch.where(swap, boxes[..., 3:5].flip(-1), boxes[..., 3:5])
+    centers = boxes[..., 0:2]
+    return torch.cat([centers - wh / 2, centers + wh / 2], dim=-1)
 
 
 def bev_corners(boxes_xywhr):

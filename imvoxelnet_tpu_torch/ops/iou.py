@@ -1,6 +1,8 @@
-"""Rotated BEV IoU by an exact rect-rect clip.
+"""Axis-aligned BEV IoU for target assignment, and rotated BEV IoU by an
+exact rect-rect clip.
 
-Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``rect_intersection_area``,
+Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``bbox_overlaps_2d``,
+``bbox_overlaps_nearest_3d``, ``rect_intersection_area``,
 ``rotated_overlaps_bev``, ``rotated_iou_bev``).  On CUDA tensors, for every
 pair count, ``rect_intersection_area`` runs the paired entry of the clip
 kernel (``kernels/rect_clip.py``) and ``rotated_overlaps_bev`` /
@@ -19,6 +21,28 @@ from . import boxes as box_ops
 
 _EPS = 1e-8
 _SLOTS = 8  # rect ∩ rect has at most 8 vertices
+
+
+def bbox_overlaps_2d(boxes1, boxes2, eps: float = 1e-6):
+    """Pairwise axis-aligned IoU of xyxy boxes ``(..., N, 4)`` and
+    ``(..., M, 4)`` -> ``(..., N, M)``; leading dims broadcast."""
+    def area(b):
+        return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+    area1, area2 = area(boxes1), area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - overlap
+    return overlap / union.clamp(min=eps)
+
+
+def bbox_overlaps_nearest_3d(boxes1, boxes2):
+    """Nearest-BEV IoU of ``(..., N, 7)`` and ``(..., M, 7)`` boxes, the
+    MaxIoU assignment metric of the KITTI anchor head."""
+    return bbox_overlaps_2d(box_ops.nearest_bev(boxes1),
+                            box_ops.nearest_bev(boxes2))
 
 
 def rect_intersection_area_plain(corners1, corners2):

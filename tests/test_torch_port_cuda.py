@@ -10,6 +10,7 @@ imports no JAX, so it also runs where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from imvoxelnet_tpu_torch import kernels
 from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
@@ -35,6 +36,28 @@ def cuda():
     return torch.device('cuda')
 
 
+def _bp_geometry(dev, b, v, hf, wf, valid_hw=None, n_voxels=(7, 6, 5),
+                 blind_view=False):
+    """Voxel centers, projections and valid extents of a small scene;
+    ``blind_view`` puts every voxel behind the last view's camera."""
+    k = torch.tensor([[20.0, 0, 8.037], [0, 20.0, 5.971], [0, 0, 1]],
+                     device=dev)
+    proj = torch.zeros((b, v, 3, 4), device=dev)
+    for s in range(b):
+        for i in range(v):
+            e = torch.eye(4, device=dev)[:3]
+            e[0, 3] = 0.2 * i + 0.05 * s
+            proj[s, i] = k @ e
+    if blind_view:
+        proj[:, -1] = -proj[:, -1]
+    origins = torch.tensor([[0.0137, -0.0213, 2.0071]] * b, device=dev)
+    points = bp.get_points(n_voxels, (0.3, 0.3, 0.3), origins).reshape(
+        b, -1, 3).contiguous()
+    hw = torch.tensor([valid_hw or (hf, wf)] * b, dtype=torch.int32,
+                      device=dev)
+    return points, proj, hw
+
+
 @pytest.mark.parametrize('b,v,c,dtype,valid_hw', [
     (1, 1, 64, torch.float32, None),
     (3, 2, 8, torch.float32, (9, 13)),
@@ -54,19 +77,7 @@ def test_backproject_kernel_matches_plain(cuda, b, v, c, dtype, valid_hw):
     hf, wf = 12, 16
     feats = torch.tensor(rng.randn(b, v, hf, wf, c), dtype=torch.float32,
                          device=cuda).to(dtype)
-    k = torch.tensor([[20.0, 0, 8.037], [0, 20.0, 5.971], [0, 0, 1]],
-                     device=cuda)
-    proj = torch.zeros((b, v, 3, 4), device=cuda)
-    for s in range(b):
-        for i in range(v):
-            e = torch.eye(4, device=cuda)[:3]
-            e[0, 3] = 0.2 * i + 0.05 * s
-            proj[s, i] = k @ e
-    origins = torch.tensor([[0.0137, -0.0213, 2.0071]] * b, device=cuda)
-    points = bp.get_points((7, 6, 5), (0.3, 0.3, 0.3), origins).reshape(
-        b, -1, 3).contiguous()
-    hw = torch.tensor([valid_hw or (hf, wf)] * b, dtype=torch.int32,
-                      device=cuda)
+    points, proj, hw = _bp_geometry(cuda, b, v, hf, wf, valid_hw)
     acc, cnt = bp_kernel.backproject_batch(feats, points, proj, hw)
     ref_acc, ref_cnt = bp.backproject_batch_plain(feats, points, proj, hw)
     assert acc.dtype == dtype and acc.shape == (points.shape[1], b, c)
@@ -77,6 +88,70 @@ def test_backproject_kernel_matches_plain(cuda, b, v, c, dtype, valid_hw):
                                atol=tol)
     # same pixels, same order of the views: the sums are the same bits
     assert torch.equal(acc, ref_acc)
+
+
+@pytest.mark.parametrize('b,v,c,dtype,valid_hw,blind', [
+    (1, 1, 64, torch.float32, None, False),
+    (2, 3, 8, torch.float32, (9, 13), True),
+    (3, 2, 64, torch.bfloat16, None, True),
+    (2, 1, 130, torch.bfloat16, (9, 13), False),
+    (1, 2, 2, torch.float32, None, False),
+])
+def test_backproject_grad_kernel_matches_plain(cuda, b, v, c, dtype,
+                                               valid_hw, blind):
+    """Odd P (105 voxels), views that see nothing, both dtypes; float32
+    atomics land in any order, so a tolerance and not the same bits."""
+    rng = np.random.RandomState(3)
+    hf, wf = 12, 16
+    points, proj, hw = _bp_geometry(cuda, b, v, hf, wf, valid_hw,
+                                    n_voxels=(7, 5, 3), blind_view=blind)
+    p = points.shape[1]
+    assert p % 2 == 1
+    g = torch.tensor(rng.randn(p, b, c), dtype=torch.float32,
+                     device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    got = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
+    assert kernels.launch_counts()['backproject_grad'] == 1
+    ref = bp.backproject_batch_grad_plain(g, points, proj, hw, hf, wf)
+    assert got.dtype == dtype and got.shape == (b, v, hf, wf, c)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    hits = bp.backproject_batch_grad_plain(
+        torch.ones((p, b, 2), device=cuda), points, proj, hw, hf, wf)
+    assert hits.max() > 1 and (hits == 0).any()
+    if blind:
+        assert not got[:, -1].any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_backproject_function_gradient_matches_plain(cuda, dtype):
+    """``backproject_batch`` on the card is differentiable: its gradient is
+    the backward kernel's, equal to autograd through the plain forward
+    (float32) and to the plain backward summed in float32 (bfloat16, whose
+    autograd through the plain forward would sum in bfloat16)."""
+    rng = np.random.RandomState(4)
+    b, v, hf, wf, c = 2, 2, 12, 16, 64
+    points, proj, hw = _bp_geometry(cuda, b, v, hf, wf, (9, 13))
+    feats = torch.tensor(rng.randn(b, v, hf, wf, c), dtype=torch.float32,
+                         device=cuda).to(dtype).requires_grad_()
+    r = torch.tensor(rng.randn(points.shape[1], b, c), dtype=torch.float32,
+                     device=cuda)
+    kernels.reset_launch_counts()
+    acc, cnt = bp.backproject_batch(feats, points, proj, hw)
+    assert acc.grad_fn is not None and not cnt.requires_grad
+    (acc.float() * r).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts['backproject'] == 1 and counts['backproject_grad'] == 1
+    if dtype == torch.float32:
+        f = feats.detach().clone().requires_grad_()
+        ref_acc, _ = bp.backproject_batch_plain(f, points, proj, hw)
+        (ref_acc * r).sum().backward()
+        ref = f.grad
+    else:
+        ref = bp.backproject_batch_grad_plain(r, points, proj, hw, hf, wf)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(feats.grad.float(), ref.float(), rtol=tol,
+                               atol=tol)
 
 
 def test_rect_clip_kernel_bit_identical_to_plain(cuda):
@@ -279,6 +354,66 @@ def test_conv3x3x3_library_holds_tensor_core_instructions(cuda):
     assert build.sass_count('conv3x3x3', 'HGMMA') > 0
 
 
+@pytest.mark.parametrize('shape,dtype', [
+    ((2, 7, 9, 6, 64), torch.float32),
+    ((1, 5, 130, 13, 64), torch.bfloat16),
+    ((1, 11, 37, 12, 64), torch.bfloat16),
+])
+def test_conv3x3x3_function_matches_conv3d_autograd(cuda, shape, dtype):
+    """The op on the card as the 3D neck calls it (an NCDHW volume in
+    ``channels_last_3d`` memory, permuted to NDHWC; a float32 weight cast to
+    the compute dtype): forward and ``dx`` through the kernel, ``dk`` from
+    ``convolution_backward``, against ``F.conv3d``'s autograd (TF32 off).
+    The output gradient arrives as a permute of an NCDHW-contiguous tensor,
+    so the backward must make it NDHWC-contiguous itself."""
+    rng = np.random.RandomState(5)
+    b, nx, ny, nz, c = shape
+    x0 = torch.tensor(rng.randn(b, c, nx, ny, nz), dtype=torch.float32,
+                      device=cuda).to(dtype)
+    x0 = x0.contiguous(memory_format=torch.channels_last_3d)
+    w0 = torch.tensor(rng.randn(c, c, 3, 3, 3) / np.sqrt(27 * c),
+                      dtype=torch.float32, device=cuda)
+    r = torch.tensor(rng.randn(b, c, nx, ny, nz), dtype=torch.float32,
+                     device=cuda)
+
+    def run(conv):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        y = conv(x, w.to(dtype))
+        (y.float() * r).sum().backward()
+        return y, x.grad, w.grad
+
+    kernels.reset_launch_counts()
+    got = run(lambda x, w: conv3z.conv3x3x3(
+        x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0)).permute(
+            0, 4, 1, 2, 3))
+    assert kernels.launch_counts()['conv3x3x3'] == 2      # forward and dx
+    ref = run(lambda x, w: F.conv3d(x, w, padding=1))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, e in zip(('y', 'dx', 'dk'), got, ref):
+        scale = e.float().abs().max().item()
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol,
+                                   atol=tol * scale, msg=lambda m: f'{name}: {m}')
+
+
+def test_functions_pass_gradcheck_on_their_plain_forms(cuda):
+    """Both ``autograd.Function``s in float64 on the card, through their
+    plain forms (the kernels take float32 and bfloat16 only)."""
+    rng = np.random.RandomState(6)
+    points, proj, hw = _bp_geometry(cuda, 2, 2, 6, 8, n_voxels=(5, 4, 3))
+    feats = torch.tensor(rng.randn(2, 2, 6, 8, 2), dtype=torch.float64,
+                         device=cuda, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda f: bp.BackprojectFunction.apply(f, points, proj, hw, True)[0],
+        (feats,))
+    x = torch.tensor(rng.randn(1, 4, 5, 3, 2), dtype=torch.float64,
+                     device=cuda, requires_grad=True)
+    k = torch.tensor(rng.randn(3, 3, 3, 2, 3), dtype=torch.float64,
+                     device=cuda, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, w: conv3z.Conv3x3x3Function.apply(a, w, True), (x, k))
+
+
 def test_wrappers_count_launches(cuda):
     kernels.reset_launch_counts()
     c = torch.zeros((4, 4, 2), device=cuda)
@@ -286,12 +421,34 @@ def test_wrappers_count_launches(cuda):
     clip_kernel.rect_intersection_area_pairwise(c[None], c[None])
     mask = clip_kernel.nms_dominance_mask(
         c[None], torch.zeros((1, 4), device=cuda), 0.5)
-    assert kernels.launch_counts() == {'backproject': 0, 'rect_clip': 3,
+    assert kernels.launch_counts() == {'backproject': 0,
+                                       'backproject_grad': 0, 'rect_clip': 3,
                                        'nms_scan': 0, 'conv3x3x3': 0}
     clip_kernel.nms_scan(mask, torch.ones((1, 4), dtype=torch.bool,
                                           device=cuda))
-    assert kernels.launch_counts() == {'backproject': 0, 'rect_clip': 3,
+    points, proj, hw = _bp_geometry(cuda, 1, 1, 6, 8)
+    bp_kernel.backproject_batch_grad(
+        torch.zeros((points.shape[1], 1, 4), device=cuda), points, proj, hw,
+        6, 8)
+    assert kernels.launch_counts() == {'backproject': 0,
+                                       'backproject_grad': 1, 'rect_clip': 3,
                                        'nms_scan': 1, 'conv3x3x3': 0}
+
+
+def test_backproject_grad_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda):
+    points, proj, hw = _bp_geometry(cuda, 1, 1, 6, 8)
+    g = torch.zeros((points.shape[1], 1, 4), device=cuda)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        bp_kernel.backproject_batch_grad(g.cpu(), points, proj, hw, 6, 8)
+    with pytest.raises(TypeError):
+        bp_kernel.backproject_batch_grad(g.double(), points, proj, hw, 6, 8)
+    with pytest.raises(ValueError, match='even'):
+        bp_kernel.backproject_batch_grad(g[..., :3].contiguous(), points,
+                                         proj, hw, 6, 8)
+    with pytest.raises(ValueError, match='shape mismatch'):
+        bp_kernel.backproject_batch_grad(g[:-1].contiguous(), points, proj,
+                                         hw, 6, 8)
 
 
 def _clip_calls(dev):

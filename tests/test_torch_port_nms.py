@@ -337,8 +337,8 @@ def test_rotated_nms_presorted_matches_jax_rotated_nms_bev():
 ], ids=['pairwise', 'nms_mask', 'nms_scan'])
 def test_clip_wrappers_refuse_cpu_tensors(call):
     before = kernels.launch_counts()
-    assert set(before) == {'backproject', 'rect_clip', 'nms_scan',
-                           'conv3x3x3'}
+    assert set(before) == {'backproject', 'backproject_grad', 'rect_clip',
+                           'nms_scan', 'conv3x3x3'}
     with pytest.raises(ValueError, match='CUDA tensor'):
         call()
     assert kernels.launch_counts() == before

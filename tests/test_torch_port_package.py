@@ -22,12 +22,14 @@ PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test')
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """A tiny forward + decode in a fresh interpreter leaves every ``jax*``
-    and ``flax*`` module and every ``imvoxelnet_tpu``/``imvoxelnet_tpu.*``
-    module out of ``sys.modules`` (``imvoxelnet_tpu_torch`` shares the
-    prefix, hence the exact-name test)."""
+    """A tiny forward + decode and a training step in a fresh interpreter
+    leave every ``jax*`` and ``flax*`` module and every
+    ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
+    (``imvoxelnet_tpu_torch`` shares the prefix, hence the exact-name
+    test)."""
     code = textwrap.dedent('''
         import sys
+        import numpy as np
         import torch
         import imvoxelnet_tpu_torch
         from imvoxelnet_tpu_torch.configs.presets import get_preset
@@ -48,6 +50,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             head_outs, valid = model(batch)
             res = imvoxelnet_predict(cfg, head_outs)
         assert res['boxes'].shape == (1, cfg.anchor_head.max_out, 7)
+        # and one training step: targets, losses, backward, optimizer
+        from imvoxelnet_tpu_torch.parallel import train
+        from imvoxelnet_tpu_torch.utils import synthetic
+        gt = synthetic.car_boxes(np.random.RandomState(0), b, 8,
+                                 (3.0, 23.0), (-0.5, 0.5), (-11.0, 11.0))
+        batch.update(gt_boxes=torch.from_numpy(gt[0]),
+                     gt_labels=torch.from_numpy(gt[1]),
+                     gt_mask=torch.from_numpy(gt[2]))
+        opt, sched = train.make_optimizer(model, 1e-4, 1e-4, 0.1, 35.0,
+                                          steps_per_epoch=1)
+        metrics = train.make_train_step(model, opt, sched)(batch)
+        assert torch.isfinite(metrics['loss'])
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0].startswith(('jax', 'flax', 'optax'))
                      or m == 'imvoxelnet_tpu'

@@ -23,6 +23,15 @@ Phases, each failing the run on its own error:
                 bfloat16 shapes; 5 timed b=4 bfloat16 steps at 1408x416 with
                 their launch counts; one step forbidden to wait for the
                 device.
+  5. indoor  -- the SUN RGB-D serving path at full width and depth
+                (imvoxelnet_sunrgbd, imvoxelnet_sunrgbd_fast and
+                imvoxelnet_perspective_sunrgbd_fast, 640x480): b=1 float32
+                held against the plain path and b=8 bfloat16 timed, with
+                launch counts and a decode that must not wait for the
+                device; the backprojection at the indoor shapes (C=64 into
+                204,800 voxels, C=256 into 25,600) and the NMS mask + scan
+                at 80 and 240 groups of 256 candidates against their plain
+                versions.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 Weights are random from a seed.  Needs a CUDA device; imports no JAX.
 """
@@ -53,9 +62,11 @@ from imvoxelnet_tpu_torch.ops import conv3z
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
-from imvoxelnet_tpu_torch.utils.synthetic import (KITTI_H, KITTI_W,
-                                                  kitti_batch,
-                                                  kitti_train_batch)
+from imvoxelnet_tpu_torch.tools.profile_forward import zero_cls_bias
+from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
+                                                  kitti_train_batch,
+                                                  serving_batch,
+                                                  sunrgbd_batch)
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BYTES = 3.35e12
@@ -113,10 +124,14 @@ def copy_rate_tb_s():
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_backproject(b, dtype, tol, rng):
-    cfg = get_preset('imvoxelnet_kitti').model
-    batch = kitti_batch(b, 'cuda', seed=SEED)
-    hf, wf, c = KITTI_H // 4, KITTI_W // 4, cfg.fpn_out_channels
+def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti'):
+    """B1 at the main-path shapes of preset ``name``: its feature map,
+    channels and voxel grid."""
+    preset = get_preset(name)
+    cfg = preset.model
+    batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED)
+    h, w = batch['images'].shape[2:4]
+    hf, wf, c = h // 4, w // 4, cfg.fpn_out_channels
     feats = torch.tensor(rng.randn(b, 1, hf, wf, c).astype(np.float32),
                          device='cuda').to(dtype)
     points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
@@ -141,9 +156,9 @@ def check_backproject(b, dtype, tol, rng):
         name='backproject', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/backproject.cu',
         replaces='imvoxelnet_tpu/ops/backproject_pallas.py:155',
-        shape=f'b={b} {str(dtype)[6:]} features {tuple(feats.shape)} '
-              f'P={p}', max_abs_err=err, seen_frac=float((cnt > 0)
-                                                         .float().mean()),
+        shape=f'{name} b={b} {str(dtype)[6:]} features '
+              f'{tuple(feats.shape)} P={p}', max_abs_err=err,
+        seen_frac=float((cnt > 0).float().mean()),
         ms=time_ms(lambda: bp_kernel.backproject_batch(feats, points, proj, hw),
                    10),
         plain_ms=time_ms(
@@ -235,9 +250,10 @@ def check_rect_clip_pairwise(g, n, rng):
         overlapping_share=float((got > 0).float().mean()))
 
 
-def check_nms_kernels(g, n, iou_thr, rng):
-    """The fused mask entry and the scan kernel at the main path's shape
-    (b=8 KITTI: 8 samples x 1 class, nms_pre = 100), against their plain
+def check_nms_kernels(g, n, iou_thr, rng, plain_reps=20):
+    """The fused mask entry and the scan kernel at a main path's shape
+    (b=8 KITTI: 8 samples x 1 class, nms_pre = 100; b=8 SUN RGB-D: 8
+    samples x 10 or 30 classes, pre_nms_k = 256), against their plain
     versions and against the fixpoint NMS on the plain IoU."""
     boxes = car_boxes(rng, g, n)
     valid = torch.tensor(rng.uniform(0, 1, (g, n)) > 0.1, device='cuda')
@@ -280,19 +296,20 @@ def check_nms_kernels(g, n, iou_thr, rng):
         'rect_clip', CLIP_REPLACES, f'nms mask, {shape}',
         time_ms(run_mask, SMALL_REPS, queue_us=QUEUE_US),
         time_ms(lambda: iou_ops.nms_dominance_mask_plain(corners, areas,
-                                                         iou_thr), 20),
+                                                         iou_thr), plain_reps),
         nbytes(corners, areas, mask),
         g * n * (n - 1) // 2 * (CLIP_FLOPS + 4),
         launch_bound_ms=time_ms(run_mask, SMALL_REPS))
     scan_row = clip_row(
         'nms_scan', 'imvoxelnet_tpu/ops/nms.py:75', f'nms scan, {shape}',
         time_ms(run_scan, SMALL_REPS, queue_us=QUEUE_US),
-        time_ms(lambda: nms_ops.nms_scan_plain(mask, valid), 5),
+        time_ms(lambda: nms_ops.nms_scan_plain(mask, valid),
+                min(5, plain_reps)),
         nbytes(mask, valid, keep), 0,
         launch_bound_ms=time_ms(run_scan, SMALL_REPS),
         note='no Pallas counterpart: the JAX package runs the greedy step '
              'as a lax.while_loop fixpoint', kept=n_keep,
-        fixpoint_nms_ms=time_ms(fixpoint, 5))
+        fixpoint_nms_ms=time_ms(fixpoint, min(5, plain_reps)))
     return mask_row, scan_row
 
 
@@ -415,89 +432,116 @@ class plain_path:
             setattr(mod, attr, fn)
 
 
-def run_slice():
-    cfg = get_preset('imvoxelnet_kitti').model
-    model = build_model(cfg, device='cuda', seed=SEED)
+def forward(m, c, batch, sync_debug='default'):
+    """The forward + decode of model ``m`` (config ``c``).  ``sync_debug=
+    'error'`` makes PyTorch raise if decode + NMS waits for the device (an
+    ``.item()``, a ``bool(tensor)``, a copy to the host) between the head's
+    output and the result."""
     with torch.no_grad():
-        # the reference's -4.595 cls bias puts every random-weight score at
-        # ~0.01 < score_thr; 0 lets detections through
-        model.bbox_head.conv_cls.bias.zero_()
-    counts = {}
+        head_outs, valid = m(batch)
+        torch.cuda.set_sync_debug_mode(sync_debug)
+        try:
+            return imvoxelnet_predict(c, head_outs, valid,
+                                      batch['origins']), valid
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
 
-    def forward(m, c, batch, sync_debug='default'):
-        """``sync_debug='error'`` makes PyTorch raise if decode + NMS waits
-        for the device (an ``.item()``, a ``bool(tensor)``, a copy to the
-        host) between the head's output and the result."""
-        with torch.no_grad():
-            head_outs, valid = m(batch)
-            torch.cuda.set_sync_debug_mode(sync_debug)
-            try:
-                return imvoxelnet_predict(c, head_outs), valid
-            finally:
-                torch.cuda.set_sync_debug_mode('default')
 
-    # --- b=1 float32, kernel path vs plain path on the card
-    batch1 = kitti_batch(1, 'cuda', seed=SEED)
+def compare_with_plain_path(tag, model, cfg, batch):
+    """One forward + decode through the kernels, one through their plain
+    versions (same model, same batch): seen voxels, valid and labels exact,
+    boxes and scores within 2e-3.  Returns the kernel path's launch counts
+    and a summary."""
     kernels.reset_launch_counts()
-    res, seen = forward(model, cfg, batch1)
+    res, seen = forward(model, cfg, batch)
     torch.cuda.synchronize()
-    counts['b1_f32'] = kernels.launch_counts()
+    counts = kernels.launch_counts()
     with plain_path():
-        ref, ref_seen = forward(model, cfg, batch1)
+        ref, ref_seen = forward(model, cfg, batch)
     torch.cuda.synchronize()
     seen_diff = int((seen != ref_seen).sum())
-    log(f'b=1 float32: {int(seen.sum())} of {seen.numel()} voxels seen; '
-        f'{seen_diff} differ in seen between kernel and plain path')
+    log(f'{tag}: {int(seen.sum())} of {seen.numel()} voxels seen '
+        f'({float(seen.float().mean()):.4g}); {seen_diff} differ in seen '
+        f'between kernel and plain path')
     for key in ('boxes', 'scores'):
         if not torch.isfinite(res[key]).all():
-            raise AssertionError(f'b=1: non-finite {key}')
+            raise AssertionError(f'{tag}: non-finite {key}')
     if not torch.equal(res['valid'], ref['valid']) or not torch.equal(
             res['labels'], ref['labels']):
-        raise AssertionError('b=1: valid/labels differ from the plain path')
+        raise AssertionError(f'{tag}: valid/labels differ from the plain '
+                             f'path')
     for key in ('boxes', 'scores'):
         torch.testing.assert_close(res[key], ref[key], rtol=2e-3, atol=2e-3)
     if seen_diff or int(res['valid'].sum()) == 0:
-        raise AssertionError(f'b=1: seen differs at {seen_diff} voxels or '
+        raise AssertionError(f'{tag}: seen differs at {seen_diff} voxels or '
                              f'no valid detection')
     err = max((res[k] - ref[k]).abs().max().item() for k in ('boxes',
                                                              'scores'))
-    log(f'b=1 float32: {int(res["valid"].sum())} detections, max abs err '
-        f'vs plain path {err:.3g}')
+    log(f'{tag}: {int(res["valid"].sum())} detections, max abs err vs '
+        f'plain path {err:.3g}')
+    return counts, dict(detections=int(res['valid'].sum()),
+                        max_abs_err_vs_plain=err,
+                        seen_share=float(seen.float().mean()))
+
+
+def timed_forward(tag, model, cfg, batch, n_iters=3):
+    """The forward + decode after a warm-up: once with decode + NMS
+    forbidden to wait for the device (launch counts, peak memory), then
+    ``n_iters`` times on the host clock, each fetching a score."""
+    forward(model, cfg, batch)                  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res, _ = forward(model, cfg, batch, sync_debug='error')
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for key in ('boxes', 'scores'):
+        if not torch.isfinite(res[key]).all():
+            raise AssertionError(f'{tag}: non-finite {key}')
+    if int(res['valid'].sum()) == 0:
+        raise AssertionError(f'{tag}: no valid detection')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b = batch['images'].shape[0]
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        out, _ = forward(model, cfg, batch)
+        out['scores'].sum().item()
+    dt = time.perf_counter() - t0
+    log(f'{tag}: {int(res["valid"].sum())} detections; '
+        f'{b * n_iters / dt:.4g} scenes/s over {n_iters} batches; '
+        f'peak memory {peak_gb:.4g} GB')
+    return counts, dict(detections=int(res['valid'].sum()),
+                        scenes_per_s=b * n_iters / dt,
+                        ms_per_batch=dt * 1e3 / n_iters,
+                        peak_memory_gb=peak_gb, sync_free_decode=True)
+
+
+def assert_launches(tag, counts, want):
+    if counts != want:
+        raise AssertionError(f'{tag}: launch counts {counts} != {want}')
+
+
+def run_slice():
+    cfg = get_preset('imvoxelnet_kitti').model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    zero_cls_bias(model)
+    counts = {}
+
+    # --- b=1 float32, kernel path vs plain path on the card
+    counts['b1_f32'], _ = compare_with_plain_path(
+        'b=1 float32', model, cfg, kitti_batch(1, 'cuda', seed=SEED))
 
     # --- b=8 bfloat16 throughput
     cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
     model16 = build_model(cfg16, device='cuda', seed=SEED)
     model16.load_state_dict(model.state_dict())
-    b = 8
-    batch8 = kitti_batch(b, 'cuda', seed=SEED + 1)
-    forward(model16, cfg16, batch8)            # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    res8, seen8 = forward(model16, cfg16, batch8, sync_debug='error')
-    torch.cuda.synchronize()
-    counts['b8_bf16'] = kernels.launch_counts()
-    for key in ('boxes', 'scores'):
-        if not torch.isfinite(res8[key]).all():
-            raise AssertionError(f'b=8: non-finite {key}')
-    if int(res8['valid'].sum()) == 0:
-        raise AssertionError('b=8: no valid detection')
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_iters = 3
-    t0 = time.perf_counter()
-    for _ in range(n_iters):
-        out, _ = forward(model16, cfg16, batch8)
-        out['scores'].sum().item()
-    dt = time.perf_counter() - t0
-    log(f'b=8 bfloat16: {int(res8["valid"].sum())} detections; '
-        f'{b * n_iters / dt:.4g} scenes/s over {n_iters} batches; '
-        f'peak memory {peak_gb:.4g} GB')
+    counts['b8_bf16'], _ = timed_forward(
+        'b=8 bfloat16', model16, cfg16, kitti_batch(8, 'cuda', seed=SEED + 1))
 
+    want = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
+            'rect_clip': 1, 'nms_scan': 1}
     for name, c in counts.items():
-        want = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
-                'rect_clip': 1, 'nms_scan': 1}
-        if c != want:
-            raise AssertionError(f'{name}: launch counts {c} != {want}')
+        assert_launches(name, c, want)
     log(f'launch counts per forward: {json.dumps(counts)}')
     return counts
 
@@ -655,6 +699,44 @@ def run_train():
     return out, counts
 
 
+# --------------------------------------------------------------------------
+# phase 5: SUN RGB-D serving
+# --------------------------------------------------------------------------
+
+INDOOR_PRESETS = ('imvoxelnet_sunrgbd', 'imvoxelnet_sunrgbd_fast',
+                  'imvoxelnet_perspective_sunrgbd_fast')
+INDOOR_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 0,
+                   'rect_clip': 1, 'nms_scan': 1}
+
+
+def run_indoor():
+    """Each indoor preset at full width and depth: b=1 float32 kernel path
+    against the plain path, b=8 bfloat16 timed; launches per forward
+    asserted at both sizes (B3's gate keeps it off these volumes)."""
+    out, counts = {}, {}
+    for name in INDOOR_PRESETS:
+        cfg = get_preset(name).model
+        model = build_model(cfg, device='cuda', seed=SEED)
+        zero_cls_bias(model)
+        c1, res1 = compare_with_plain_path(
+            f'{name} b=1 float32', model, cfg,
+            sunrgbd_batch(1, 'cuda', seed=SEED))
+        cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
+        model16 = build_model(cfg16, device='cuda', seed=SEED)
+        model16.load_state_dict(model.state_dict())
+        del model
+        c8, res8 = timed_forward(f'{name} b=8 bfloat16', model16, cfg16,
+                                 sunrgbd_batch(8, 'cuda', seed=SEED + 1))
+        del model16
+        for tag, c in (('b1_f32', c1), ('b8_bf16', c8)):
+            assert_launches(f'{name} {tag}', c, INDOOR_LAUNCHES)
+        out[name] = dict(b1_float32_vs_plain=res1, b8_bfloat16=res8,
+                         launches_b1=c1, launches_b8=c8)
+        counts[name] = c8
+    log(f'indoor launch counts per forward: {json.dumps(counts)}')
+    return out, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -709,22 +791,47 @@ def main():
     log(json.dumps(bp_grad_row))
     train, train_counts = run_train()
     log(json.dumps({'train': train}))
+
+    # the indoor kernel rows, with the presets whose b=8 forward gives
+    # their launches
+    indoor_thr = get_preset('imvoxelnet_sunrgbd').model.indoor_head.iou_thr
+    indoor_rows = [
+        (check_backproject(8, torch.bfloat16, 2e-2, rng,
+                           'imvoxelnet_sunrgbd'), 'imvoxelnet_sunrgbd'),
+        (check_backproject(8, torch.bfloat16, 2e-2, rng,
+                           'imvoxelnet_sunrgbd_fast'),
+         'imvoxelnet_sunrgbd_fast')]
+    for g, preset in ((80, 'imvoxelnet_sunrgbd'),
+                      (240, 'imvoxelnet_perspective_sunrgbd_fast')):
+        indoor_rows += [(row, preset) for row in check_nms_kernels(
+            g, 256, indoor_thr, rng, plain_reps=3)]
+    for row in [check_backproject(1, torch.float32, 1e-5, rng,
+                                  'imvoxelnet_sunrgbd'),
+                check_backproject(1, torch.float32, 1e-5, rng,
+                                  'imvoxelnet_sunrgbd_fast')] + \
+            [row for row, _ in indoor_rows]:
+        log(json.dumps(row))
+    indoor, indoor_counts = run_indoor()
+    log(json.dumps({'indoor': indoor}))
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
-    # the summary line: the kernels at the serving shapes (b=8 bfloat16; the
-    # NMS of 8 samples x 100 candidates) with the launches of the b=8
-    # forward, and the backprojection's backward at the b=4 bfloat16
-    # training shapes with its launches in the 5 timed training steps
+    # the summary line: the kernels at the KITTI serving shapes (b=8
+    # bfloat16; the NMS of 8 samples x 100 candidates) with the launches of
+    # the b=8 forward, the backprojection's backward at the b=4 bfloat16
+    # training shapes with its launches in the 5 timed training steps, and
+    # the indoor rows with the launches of their preset's b=8 forward
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
-            + [(bp_grad_row, train_counts['backproject_grad'])]:
+            + [(bp_grad_row, train_counts['backproject_grad'])] \
+            + [(r, indoor_counts[p][r['name']]) for r, p in indoor_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
         entry['launches'] = launches
+        entry['shape'] = row['shape']
         summary.append(entry)
     log(json.dumps({'kernels': summary}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,7 @@
-"""Named presets of the port: ``imvoxelnet_kitti`` and ``tiny_kitti_test``.
+"""Named presets of the port: ``imvoxelnet_kitti``, ``tiny_kitti_test`` and
+the SUN RGB-D votenet and perspective families (``imvoxelnet_sunrgbd``,
+``_top27``, ``_fast`` and the same three of
+``imvoxelnet_perspective_sunrgbd``).
 
 Counterpart of ``imvoxelnet_tpu/configs/presets.py``; the other presets come
 with their model families.  Field values equal the JAX package's.
@@ -12,8 +15,19 @@ from typing import Optional, Tuple
 from ..core.target_assign import AssignerConfig
 from ..models.detector import ImVoxelNetConfig, NeckConfig
 from ..models.heads.anchor3d_head import Anchor3DHeadConfig
+from ..models.heads.imvoxel_heads import IndoorHeadConfig
 
 KITTI_CLASSES = ('Car',)
+SUNRGBD_VOTENET_CLASSES = (
+    'bed', 'table', 'sofa', 'chair', 'toilet', 'desk', 'dresser',
+    'night_stand', 'bookshelf', 'bathtub')
+# PerspectiveNet benchmark, 30 classes (sunrgbd_data_utils.py:75-81)
+SUNRGBD_PERSPECTIVE_CLASSES = (
+    'recycle_bin', 'cpu', 'paper', 'toilet', 'stool', 'whiteboard',
+    'coffee_table', 'picture', 'keyboard', 'dresser', 'painting', 'bookshelf',
+    'night_stand', 'endtable', 'drawer', 'sink', 'monitor', 'computer',
+    'cabinet', 'shelf', 'lamp', 'garbage_bin', 'box', 'bed', 'sofa',
+    'sofa_chair', 'pillow', 'desk', 'table', 'chair')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +61,56 @@ class Preset:
     total_epochs: int = 12
 
 
+def _indoor_model(n_classes, fast: bool, topk: int, n_voxels, voxel_size,
+                  score_thr: float = 0.05, fast_score_thr: float = 0.0,
+                  fast_iou_thr: float = 0.15) -> ImVoxelNetConfig:
+    """A SUN RGB-D model: v1 (ImVoxelNeck, head v1) or ``fast`` (the fast
+    neck, head v2)."""
+    if fast:
+        neck = NeckConfig(kind='fast', in_channels=256, out_channels=128,
+                          n_blocks=(1, 1, 1))
+        head = IndoorHeadConfig(
+            n_classes=n_classes, n_reg_outs=7, voxel_size=voxel_size,
+            dataset='sunrgbd', version=2, centerness_topk=18, limit=27,
+            nms_pre=1000, score_thr=fast_score_thr, iou_thr=fast_iou_thr)
+        fpn_out = 256
+    else:
+        neck = NeckConfig(kind='imvoxel', channels=(64, 128, 256, 512),
+                          out_channels=64, down_layers=(1, 2, 3, 4),
+                          up_layers=(3, 2, 1))
+        head = IndoorHeadConfig(
+            n_classes=n_classes, n_reg_outs=7, voxel_size=voxel_size,
+            dataset='sunrgbd', version=1, n_convs=0, centerness_topk=topk,
+            nms_pre=1000, score_thr=(0.0 if topk > 0 else score_thr),
+            iou_thr=0.15)
+        fpn_out = 64
+    return ImVoxelNetConfig(
+        n_voxels=n_voxels, voxel_size=voxel_size, fpn_out_channels=fpn_out,
+        neck=neck, head_kind='indoor', anchor_head=None, indoor_head=head)
+
+
+def _sunrgbd_family(prefix, classes, fast_score_thr=0.0, repeat_times=2):
+    """The v1 / top27 / fast triple of a SUN RGB-D benchmark
+    (``imvoxelnet_sunrgbd.py``, ``repeat_times`` at :76)."""
+    presets = {}
+    common = dict(dataset='sunrgbd', classes=classes, samples_per_device=4,
+                  repeat_times=repeat_times,
+                  train_size=(768, 576), test_size=(640, 480),
+                  train_scales=((512, 384), (768, 576)),
+                  flip_ratio=0.5, max_gt=64)
+    for suffix, fast, topk, nvox, vsize in (
+            ('', False, -1, (80, 80, 32), (.08, .08, .08)),
+            ('_top27', False, 28, (80, 80, 32), (.08, .08, .08)),
+            ('_fast', True, 18, (40, 40, 16), (.16, .16, .16))):
+        name = prefix + suffix
+        presets[name] = Preset(
+            name=name,
+            model=_indoor_model(len(classes), fast, topk, nvox, vsize,
+                                fast_score_thr=fast_score_thr),
+            data=DataConfig(**common))
+    return presets
+
+
 def build_presets():
     presets = {}
 
@@ -72,6 +136,15 @@ def build_presets():
                         train_scales=((1173, 352), (1387, 416)),
                         flip_ratio=0.5,
                         max_gt=16))
+
+    # --- SUN RGB-D families
+    presets.update(_sunrgbd_family('imvoxelnet_sunrgbd',
+                                   SUNRGBD_VOTENET_CLASSES))
+    # perspective _fast uses score_thr .01
+    # (imvoxelnet_perspective_sunrgbd_fast.py test_cfg)
+    presets.update(_sunrgbd_family('imvoxelnet_perspective_sunrgbd',
+                                   SUNRGBD_PERSPECTIVE_CLASSES,
+                                   fast_score_thr=0.01))
 
     # --- tiny smoke-test preset (not one of the reference configs): the
     # real structure at toy sizes, for tests on the CPU

@@ -1,12 +1,13 @@
 """The ImVoxelNet detector: backbone -> FPN -> backprojection -> 3D neck ->
-anchor head, its test-time decode (``simple_test``) and its training loss.
+head, its test-time decode (``simple_test``) and its training loss.
 
 Counterpart of ``imvoxelnet_tpu/models/detector.py`` (``ImVoxelNetConfig``,
 ``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``, ``imvoxelnet_loss``)
-for the KITTI (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
-configuration.  ``model.train()`` is the JAX ``train=True``: the 3D neck's
-batch norms use batch statistics and update their running ones; the
-backbone's ``FrozenBatchNorm`` ignores the mode.
+for the KITTI configuration (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
+and the SUN RGB-D ones (``head_kind='indoor'``, ``neck.kind`` ``'imvoxel'``
+or ``'fast'``; forward and decode only).  ``model.train()`` is the JAX
+``train=True``: the 3D neck's batch norms use batch statistics and update
+their running ones; the backbone's ``FrozenBatchNorm`` ignores the mode.
 
 Batch layout, as in the JAX package (all tensors on one device):
   images      (B, V, H, W, 3)   normalized, padded
@@ -34,14 +35,21 @@ from . import fpn as fpn_lib
 from . import necks3d
 from . import resnet as resnet_lib
 from .heads import anchor3d_head as a3d
+from .heads import imvoxel_heads as ivh
 from .layers import lecun_normal_
 
 
 @dataclasses.dataclass(frozen=True)
 class NeckConfig:
-    kind: str = 'kitti'
+    kind: str = 'kitti'            # kitti | nuscenes | imvoxel | fast
     in_channels: int = 64
     out_channels: int = 256
+    # imvoxel neck
+    channels: Tuple[int, ...] = (64, 128, 256, 512)
+    down_layers: Tuple[int, ...] = (1, 2, 3, 4)
+    up_layers: Tuple[int, ...] = (3, 2, 1)
+    # fast neck
+    n_blocks: Tuple[int, ...] = (1, 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +58,25 @@ class ImVoxelNetConfig:
     voxel_size: Tuple[float, float, float] = (0.32, 0.32, 0.32)
     fpn_out_channels: int = 64
     neck: NeckConfig = NeckConfig()
-    head_kind: str = 'anchor3d'
+    head_kind: str = 'anchor3d'    # anchor3d | indoor
     anchor_head: Optional[a3d.Anchor3DHeadConfig] = a3d.Anchor3DHeadConfig()
+    indoor_head: Optional[ivh.IndoorHeadConfig] = None
     stride: int = 4                 # asserted == 4 in the reference
     compute_dtype: str = 'float32'  # conv-path dtype: float32 | bfloat16
     # Bottlenecks per stage; (3, 4, 6, 3) = ResNet-50.
     backbone_stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+
+
+def build_neck(cfg: NeckConfig) -> nn.Module:
+    if cfg.kind == 'kitti':
+        return necks3d.KittiImVoxelNeck(cfg.in_channels, cfg.out_channels)
+    if cfg.kind == 'imvoxel':
+        return necks3d.ImVoxelNeck(cfg.channels, cfg.out_channels,
+                                   cfg.down_layers, cfg.up_layers)
+    if cfg.kind == 'fast':
+        return necks3d.FastIndoorImVoxelNeck(cfg.in_channels, cfg.n_blocks,
+                                             cfg.out_channels)
+    raise NotImplementedError(f'neck {cfg.kind!r} is not ported')
 
 
 class ImVoxelNet(nn.Module):
@@ -64,26 +85,30 @@ class ImVoxelNet(nn.Module):
 
     def __init__(self, cfg: ImVoxelNetConfig):
         super().__init__()
-        if cfg.head_kind != 'anchor3d' or cfg.neck.kind != 'kitti':
-            raise NotImplementedError(
-                f'the port has the KITTI configuration only, got head '
-                f'{cfg.head_kind!r} and neck {cfg.neck.kind!r}')
+        if getattr(cfg, 'layout_head', None) is not None:
+            raise NotImplementedError('the layout head is not ported')
         self.cfg = cfg
         self.backbone = resnet_lib.ResNet(tuple(cfg.backbone_stage_blocks))
         self.neck = fpn_lib.FPN(out_channels=cfg.fpn_out_channels)
-        self.neck_3d = necks3d.KittiImVoxelNeck(cfg.neck.in_channels,
-                                                cfg.neck.out_channels)
-        self.bbox_head = a3d.Anchor3DHead(cfg.anchor_head,
-                                          cfg.neck.out_channels)
+        self.neck_3d = build_neck(cfg.neck)
+        if cfg.head_kind == 'anchor3d':
+            self.bbox_head = a3d.Anchor3DHead(cfg.anchor_head,
+                                              cfg.neck.out_channels)
+        elif cfg.head_kind == 'indoor':
+            self.bbox_head = ivh.IndoorHead(cfg.indoor_head,
+                                            cfg.neck.out_channels)
+        else:
+            raise NotImplementedError(f'head {cfg.head_kind!r} is not ported')
 
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
     def forward(self, batch):
-        """Returns ``(head_outs, valid)``: the head's float32 NHWC
-        ``(cls_score, bbox_pred, dir_pred)`` and the ``(B, nx, ny, nz)``
-        bool mask of voxels seen by at least one view."""
+        """Returns ``(head_outs, valid)``: the head's float32 channel-last
+        outputs (KITTI: ``(cls_score, bbox_pred, dir_pred)`` maps; indoor:
+        ``(centernesses, bbox_preds, cls_scores)`` level lists) and the
+        ``(B, nx, ny, nz)`` bool mask of voxels seen by at least one view."""
         cfg = self.cfg
         images = batch['images']
         b, v, h, w, _ = images.shape
@@ -106,18 +131,27 @@ class ImVoxelNet(nn.Module):
         volume = vol.view(nx, ny, nz, b, -1).permute(3, 4, 0, 1, 2)
         valid = seen.view(nx, ny, nz, b).permute(3, 0, 1, 2)
 
-        bev = self.neck_3d(volume.to(self.dtype))
-        return self.bbox_head(bev), valid
+        return self.bbox_head(self.neck_3d(volume.to(self.dtype))), valid
 
 
-def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs):
-    """Test-time detections (``imvoxelnet.py:93-106``), fixed-shape."""
-    return a3d.anchor3d_head_get_bboxes(head_outs, cfg.anchor_head)
+def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
+                       origins=None):
+    """Test-time detections (``imvoxelnet.py:93-106``), fixed-shape.  The
+    indoor decode also needs the forward's ``valid`` mask and the batch's
+    ``origins``."""
+    if cfg.head_kind == 'anchor3d':
+        return a3d.anchor3d_head_get_bboxes(head_outs, cfg.anchor_head)
+    if valid is None or origins is None:
+        raise ValueError('the indoor decode needs valid and origins')
+    return ivh.indoor_head_get_bboxes(head_outs, valid, origins,
+                                      cfg.indoor_head)
 
 
 def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch):
     """Training losses (``imvoxelnet.py:82-87``): a dict of ``loss_cls``,
-    ``loss_bbox`` and ``loss_dir`` scalars."""
+    ``loss_bbox`` and ``loss_dir`` scalars (KITTI only so far)."""
+    if cfg.head_kind != 'anchor3d':
+        raise NotImplementedError('the indoor losses are not ported')
     return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
                                   batch['gt_labels'], batch['gt_mask'],
                                   cfg.anchor_head)
@@ -125,25 +159,39 @@ def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch):
 
 def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:
     """Seeded random weights in the JAX package's init scheme: lecun-normal
-    convs, normal(0.01) head convs, identity batch norms, the head's cls
-    bias at ``CLS_BIAS_INIT`` (``anchor3d_head.py:62-63``)."""
-    heads = model.bbox_head
+    convs, normal(0.01) head convs (every conv of the indoor head), identity
+    batch norms but for the encoder-decoder blocks' zero ``bn2`` scales,
+    ``Scale`` at 1, and the head's cls bias at ``CLS_BIAS_INIT``
+    (``anchor3d_head.py:62-63``, ``imvoxel_heads.py:95-97``)."""
+    head = model.bbox_head
+    if isinstance(head, a3d.Anchor3DHead):
+        small = {head.conv_cls, head.conv_reg}
+        cls_conv, cls_bias = head.conv_cls, a3d.CLS_BIAS_INIT
+    else:
+        small = {m for m in head.modules() if isinstance(m, nn.Conv3d)}
+        cls_conv, cls_bias = head.cls_conv, ivh.CLS_BIAS_INIT
+    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, necks3d.Conv3x3x3)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Conv3d, necks3d.Conv3x3x3)):
-                if mod is heads.conv_cls or mod is heads.conv_reg:
+            if isinstance(mod, convs):
+                if mod in small:
                     mod.weight.normal_(0.0, 0.01, generator=generator)
                 else:
                     lecun_normal_(mod.weight, generator)
                 if getattr(mod, 'bias', None) is not None:
                     mod.bias.zero_()
-        heads.conv_cls.bias.fill_(a3d.CLS_BIAS_INIT)
+        cls_conv.bias.fill_(cls_bias)
         for mod in model.modules():
             if isinstance(mod, (resnet_lib.FrozenBatchNorm, nn.BatchNorm3d)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+            elif isinstance(mod, ivh.Scale):
+                mod.scale.fill_(1.0)
+        for mod in model.modules():
+            if isinstance(mod, necks3d.BasicBlock3d) and mod.zero_init_bn2:
+                mod.bn2.weight.zero_()
 
 
 def build_model(cfg: ImVoxelNetConfig, device='cuda', seed: int = 0):

@@ -1,9 +1,14 @@
-"""The KITTI 3D neck, NCDHW (volume ``(B, C, nx, ny, nz)``).
+"""The 3D necks, NCDHW (volume ``(B, C, nx, ny, nz)``).
 
 Counterpart of ``imvoxelnet_tpu/models/necks3d.py`` (``BN``, ``Conv3x3x3``,
-``ConvBnRelu3d``, ``BasicBlock3d``, ``KittiImVoxelNeck``), with the
-reference's parameter names (``neck_3d.model.{i}...``).  The volume is kept
-in ``channels_last_3d`` memory, the layout the 3x3x3 kernel reads.
+``ConvBnRelu3d``, ``BasicBlock3d``, ``BasicBlock3dV2``, ``KittiImVoxelNeck``,
+``ImVoxelNeck``, ``FastIndoorImVoxelNeck``), with the reference's parameter
+names (``neck_3d.model.{i}...`` for KITTI, ``neck_3d.model.layers_down...``
+and ``neck_3d.conv_blocks.{i}`` for the encoder-decoder, ``neck_3d.
+down_layer_{i}`` / ``up_block_{i}`` / ``out_block_{i}`` for the fast neck).
+Volumes are kept in ``channels_last_3d`` memory, the layout the 3x3x3 kernel
+reads.  Every batch norm is :class:`layers.BatchNorm3d` (flax's running
+variance rule).
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3z import conv3x3x3
-from .layers import BatchNorm3d, Conv3d
+from .layers import BatchNorm3d, Conv3d, ConvTranspose3d
 
 # The plane size from which the 64-channel block0 convs take the 3x3x3
 # kernel (the JAX gate's ``_CONV3Z_MIN_PLANE``, necks3d.py:96-100).
@@ -52,10 +57,15 @@ class Conv3x3x3(nn.Module):
 
 
 class BasicBlock3d(nn.Module):
-    """Residual 3x3x3 block (``necks/imvoxelnet.py:191-230``)."""
+    """Residual 3x3x3 block (``necks/imvoxelnet.py:191-230``).
 
-    def __init__(self, c: int):
+    ``zero_init_bn2``: ``init_weights`` zeroes ``bn2``'s scale, as the
+    encoder-decoder's reference init does (``necks/imvoxelnet.py:340-343``).
+    """
+
+    def __init__(self, c: int, zero_init_bn2: bool = False):
         super().__init__()
+        self.zero_init_bn2 = zero_init_bn2
         self.conv1 = Conv3x3x3(c, c)
         self.bn1 = BatchNorm3d(c)
         self.conv2 = Conv3x3x3(c, c)
@@ -65,6 +75,29 @@ class BasicBlock3d(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return F.relu(out + x)
+
+
+class BasicBlock3dV2(nn.Module):
+    """The fast neck's residual block, with a strided 1x1x1 conv + BN on the
+    identity path when ``stride != 1`` (``necks/imvoxelnet.py:233-260``)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv3x3x3(cin, cout, stride=stride)
+        self.norm1 = BatchNorm3d(cout)
+        self.conv2 = Conv3x3x3(cout, cout)
+        self.norm2 = BatchNorm3d(cout)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(
+                Conv3d(cin, cout, 1, stride=stride, bias=False),
+                BatchNorm3d(cout))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.norm1(self.conv1(x)))
+        out = self.norm2(self.conv2(out))
+        return F.relu(out + identity)
 
 
 def conv_bn_relu3d(cin, cout, stride, padding):
@@ -97,3 +130,147 @@ class KittiImVoxelNeck(nn.Module):
         if x.shape[-1] != 1:
             raise ValueError(f'z must collapse to 1, got {tuple(x.shape)}')
         return x[..., 0].transpose(-1, -2)
+
+
+def trilinear_up2(x):
+    """Trilinear x2 upsampling of ``(B, C, nx, ny, nz)``, half-pixel
+    centres (the JAX package's ``_trilinear_up2``)."""
+    return F.interpolate(x, scale_factor=2, mode='trilinear',
+                         align_corners=False)
+
+
+class _Proj(nn.Module):
+    """The encoder-decoder's skip projection: 1x1x1 conv, BN, ReLU
+    (``proj.{i}.conv`` / ``proj.{i}.norm``)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv3d(c, c, 1, bias=False)
+        self.norm = BatchNorm3d(c)
+
+    def forward(self, x):
+        return F.relu(self.norm(self.conv(x)))
+
+
+class _EncoderDecoder(nn.Module):
+    """Atlas-style encoder-decoder (``neck_3d.model``, conditional=False).
+
+    ``layers_down.{0}`` holds level 0's blocks; ``layers_down.{i > 0}`` a
+    stride-2 conv at 0, its BN at 1, an identity at 2 (the reference's
+    dropout, inactive in the shipped configs and absent from the JAX
+    package), a ReLU at 3 and the blocks from 4.  ``layers_up_conv.{i}``
+    (1x1x1), ``proj.{i}`` and ``layers_up_res.{i}`` work on the decoder's
+    ``i``-th step, coarse to fine.
+    """
+
+    def __init__(self, channels, down_layers, up_layers):
+        super().__init__()
+        chans = list(channels)
+        self.layers_down = nn.ModuleList()
+        for i, ch in enumerate(chans):
+            layer = []
+            if i > 0:
+                layer += [Conv3d(chans[i - 1], ch, 3, stride=2, padding=1,
+                                 bias=False),
+                          BatchNorm3d(ch), nn.Identity(), nn.ReLU()]
+            layer += [BasicBlock3d(ch, zero_init_bn2=True)
+                      for _ in range(down_layers[i])]
+            self.layers_down.append(nn.Sequential(*layer))
+        rev = chans[::-1]
+        self.layers_up_conv = nn.ModuleList(
+            Conv3d(rev[i], rev[i + 1], 1, bias=False)
+            for i in range(len(rev) - 1))
+        self.proj = nn.ModuleList(_Proj(rev[i + 1])
+                                  for i in range(len(rev) - 1))
+        self.layers_up_res = nn.ModuleList(
+            nn.Sequential(*[BasicBlock3d(rev[i + 1], zero_init_bn2=True)
+                            for _ in range(up_layers[i])])
+            for i in range(len(rev) - 1))
+
+    def forward(self, x):
+        """Returns the decoder's outputs coarse to fine."""
+        skips = []
+        for layer in self.layers_down:
+            x = layer(x)
+            skips.append(x)
+        skips = skips[::-1]
+        outs = []
+        for i, up_conv in enumerate(self.layers_up_conv):
+            x = up_conv(trilinear_up2(x))
+            x = (x + self.proj[i](skips[i + 1])) / 2.0
+            x = self.layers_up_res[i](x)
+            outs.append(x)
+        return outs
+
+
+class ImVoxelNeck(nn.Module):
+    """Indoor encoder-decoder neck with a conv-bn-relu per output scale
+    (``necks/imvoxelnet.py:70-91``).
+
+    Input ``(B, C0, nx, ny, nz)`` with ``C0 = channels[0]``; returns 3 scales
+    finest first, ``[(B, out, nx, ny, nz), /2, /4]``.  The reference also
+    builds a ``conv_blocks`` entry for the coarsest encoder level, which its
+    forward never reads; the port, like the JAX package, has none (a
+    released checkpoint's ``conv_blocks.3`` is dropped on conversion).
+    """
+
+    def __init__(self, channels=(64, 128, 256, 512), out_channels: int = 64,
+                 down_layers=(1, 2, 3, 4), up_layers=(3, 2, 1)):
+        super().__init__()
+        self.model = _EncoderDecoder(channels, down_layers, up_layers)
+        self.conv_blocks = nn.ModuleList(
+            conv_bn_relu3d(c, out_channels, 1, 1) for c in channels[:-1])
+
+    def forward(self, x):
+        outs = self.model(x.contiguous(memory_format=torch.channels_last_3d))
+        return [block(o) for block, o in zip(self.conv_blocks, outs[::-1])]
+
+
+class FastIndoorImVoxelNeck(nn.Module):
+    """The v3 simplified indoor neck (``necks/imvoxelnet.py:9-67``).
+
+    ``down_layer_{i}``: level ``i``'s blocks, the first of levels ``i > 0``
+    with stride 2 and twice the channels; ``up_block_{i}``: a stride-2
+    ``ConvTranspose3d(2)`` to level ``i - 1``'s channels, BN, ReLU, a 3x3x3
+    conv, BN, ReLU, added to level ``i - 1``; ``out_block_{i}``: 3x3x3 conv
+    to ``out_channels``, BN, ReLU.  Returns the scales finest first.
+    """
+
+    def __init__(self, in_channels: int = 256, n_blocks=(1, 1, 1),
+                 out_channels: int = 128):
+        super().__init__()
+        self.n_scales = len(n_blocks)
+        chans, ch = [], in_channels
+        for i, n in enumerate(n_blocks):
+            blocks = []
+            for j in range(n):
+                if i > 0 and j == 0:
+                    blocks.append(BasicBlock3dV2(ch, ch * 2, stride=2))
+                    ch *= 2
+                else:
+                    blocks.append(BasicBlock3dV2(ch, ch))
+            self.add_module(f'down_layer_{i}', nn.Sequential(*blocks))
+            chans.append(ch)
+        for i in range(1, self.n_scales):
+            c = chans[i - 1]
+            self.add_module(f'up_block_{i}', nn.Sequential(
+                ConvTranspose3d(chans[i], c, 2, stride=2, bias=False),
+                BatchNorm3d(c), nn.ReLU(inplace=True),
+                Conv3x3x3(c, c), BatchNorm3d(c), nn.ReLU(inplace=True)))
+        for i in range(self.n_scales):
+            self.add_module(f'out_block_{i}', nn.Sequential(
+                Conv3x3x3(chans[i], out_channels), BatchNorm3d(out_channels),
+                nn.ReLU(inplace=True)))
+
+    def forward(self, x):
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        downs = []
+        for i in range(self.n_scales):
+            x = getattr(self, f'down_layer_{i}')(x)
+            downs.append(x)
+        outs = []
+        for i in range(self.n_scales - 1, -1, -1):
+            if i < self.n_scales - 1:
+                x = downs[i] + getattr(self, f'up_block_{i + 1}')(x)
+            outs.append(getattr(self, f'out_block_{i}')(x))
+        return outs[::-1]

@@ -1,4 +1,4 @@
-"""Functional 3D box geometry (the subset the KITTI forward and training use).
+"""Functional 3D box geometry (the subset the KITTI and SUN RGB-D paths use).
 
 Counterpart of ``imvoxelnet_tpu/ops/boxes.py``.  Boxes are ``(N, 7)``
 tensors ``(x, y, z, dx, dy, dz, yaw)`` with the bottom-center convention.
@@ -16,6 +16,29 @@ PI = math.pi
 def limit_period(val, offset: float = 0.5, period: float = PI):
     """Limit angles into ``[-offset*period, (1-offset)*period)``."""
     return val - torch.floor(val / period + offset) * period
+
+
+def rotation_3d_in_axis(points, angles, axis: int = 2):
+    """Rotate points ``(..., M, 3)`` by angles ``(...)`` about the z axis.
+
+    The row-vector convention of the reference's einsum
+    (``core/bbox/structures/utils.py:21-61``): ``out = points @ R`` with
+    ``R = [[c, -s, 0], [s, c, 0], [0, 0, 1]]``.  Only ``axis=2`` is ported
+    (every caller on the port's paths rotates about z).
+    """
+    if axis not in (2, -1):
+        raise NotImplementedError(f'only axis 2 is ported, got {axis}')
+    c = torch.cos(angles)[..., None]
+    s = torch.sin(angles)[..., None]
+    x, y, z = points.unbind(-1)
+    return torch.stack([x * c + y * s, y * c - x * s, z], dim=-1)
+
+
+def to_bottom_center(boxes_gc):
+    """Gravity-center boxes back to the bottom-center convention."""
+    z_bottom = boxes_gc[..., 2:3] - boxes_gc[..., 5:6] * 0.5
+    return torch.cat([boxes_gc[..., :2], z_bottom, boxes_gc[..., 3:]],
+                     dim=-1)
 
 
 def bev(boxes):

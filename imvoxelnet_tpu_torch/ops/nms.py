@@ -110,7 +110,7 @@ def rotated_nms_presorted(boxes_xywhr, valid, iou_thr: float):
     return clip_kernel.nms_scan(mask, valid.contiguous())
 
 
-def _take(x, idx):
+def take_per_sample(x, idx):
     """``x (B, N, ...)`` at ``idx (B, ...)`` along dim 1, per sample."""
     b = torch.arange(x.shape[0], device=x.device)
     return x[b.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
@@ -158,14 +158,15 @@ def multiclass_nms_3d(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
                          scores_t, torch.full_like(scores_t, _NEG))
     top_scores, top_idx = top_k(masked, k)                       # (B, C, k)
     top_valid = top_scores > _NEG / 2
-    nms_boxes = _take(mlvl_bboxes_for_nms, top_idx)              # (B, C, k, 5)
+    nms_boxes = take_per_sample(mlvl_bboxes_for_nms, top_idx)   # (B, C, k, 5)
     keeps = rotated_nms_presorted(
         nms_boxes.reshape(b * n_classes, k, 5),
         top_valid.reshape(b * n_classes, k), iou_thr)
-    boxes = _take(mlvl_bboxes, top_idx).reshape(b, n_classes * k, -1)
+    boxes = take_per_sample(mlvl_bboxes, top_idx).reshape(
+        b, n_classes * k, -1)
     labels = torch.arange(n_classes, dtype=torch.int32, device=dev)[
         None, :, None].expand(b, n_classes, k).reshape(b, -1)
-    dirs = _take(mlvl_dir_scores, top_idx).reshape(b, -1)
+    dirs = take_per_sample(mlvl_dir_scores, top_idx).reshape(b, -1)
     scores = top_scores.reshape(b, -1)
     keeps = keeps.reshape(b, -1)
 
@@ -173,10 +174,10 @@ def multiclass_nms_3d(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
     k_out = min(max_num, n_classes * k)
     top_scores, top_idx = top_k(final_scores, k_out)             # (B, k_out)
     out = dict(
-        boxes=_take(boxes, top_idx),
+        boxes=take_per_sample(boxes, top_idx),
         scores=top_scores.clamp(min=0.0),
-        labels=_take(labels, top_idx),
-        dir_scores=_take(dirs, top_idx),
+        labels=take_per_sample(labels, top_idx),
+        dir_scores=take_per_sample(dirs, top_idx),
         valid=top_scores > _NEG / 2,
     )
     pad = max_num - k_out

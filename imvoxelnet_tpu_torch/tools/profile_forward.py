@@ -1,14 +1,17 @@
-"""Where the time of the KITTI forward, or of a training step, goes on the
+"""Where the time of a forward, or of a KITTI training step, goes on the
 card.
 
     python -m imvoxelnet_tpu_torch.tools.profile_forward [--batch 8]
-        [--dtype bfloat16] [--out work_dirs/profile_forward.json]
+        [--dtype bfloat16] [--preset imvoxelnet_kitti]
+        [--out work_dirs/profile_forward.json]
     python -m imvoxelnet_tpu_torch.tools.profile_forward --train [--batch 4]
 
-Runs ``imvoxelnet_kitti`` (random weights from a seed) on a synthetic KITTI
-batch: forward + decode/NMS (the cls bias at 0 so detections pass), or with
-``--train`` the training step of ``parallel/train.py`` at the preset's padded
-train size (1408x416).  It reports:
+Runs the preset (``imvoxelnet_kitti`` by default, or a SUN RGB-D one such as
+``imvoxelnet_sunrgbd``; random weights from a seed) on its synthetic batch
+(``utils/synthetic.py``: KITTI 1280x384 or SUN RGB-D 640x480): forward +
+decode/NMS (the cls bias at 0 so detections pass), or with ``--train`` the
+KITTI training step of ``parallel/train.py`` at the preset's padded train
+size (1408x416).  It reports:
 
 * stage times from CUDA events recorded by forward hooks around the
   backbone, FPN, 3D neck and head; backprojection is the span between the
@@ -40,7 +43,7 @@ from torch.autograd import DeviceType
 from ..configs.presets import get_preset
 from ..models.detector import build_model, imvoxelnet_predict
 from ..parallel import train as train_lib
-from ..utils.synthetic import kitti_batch, kitti_train_batch
+from ..utils.synthetic import kitti_train_batch, serving_batch
 
 STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
@@ -48,6 +51,16 @@ ITERS = 5
 OWN_KERNELS = ('backproject', 'conv_wgmma', 'split3', 'rect_clip_kernel',
                'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
+
+
+def zero_cls_bias(model):
+    """The reference's cls bias of -4.595 puts every random-weight score
+    near 0.01, below ``score_thr`` (x ~0.5 centerness on the indoor head);
+    0 lets detections through."""
+    head = model.bbox_head
+    conv = head.conv_cls if hasattr(head, 'conv_cls') else head.cls_conv
+    with torch.no_grad():
+        conv.bias.zero_()
 
 
 def record(events, key):
@@ -98,6 +111,9 @@ def main(argv=None):
                     help='samples (default 8; 4 with --train)')
     ap.add_argument('--dtype', default='bfloat16',
                     choices=('float32', 'bfloat16'))
+    ap.add_argument('--preset', default='imvoxelnet_kitti',
+                    help='a preset of configs/presets.py (--train: '
+                         'imvoxelnet_kitti only)')
     ap.add_argument('--out', default=None,
                     help='JSON path (default work_dirs/profile_forward.json '
                          'or work_dirs/profile_train.json)')
@@ -109,7 +125,11 @@ def main(argv=None):
     out_path = args.out or ('work_dirs/profile_train.json' if args.train
                             else 'work_dirs/profile_forward.json')
 
-    preset = get_preset('imvoxelnet_kitti')
+    preset = get_preset(args.preset)
+    if args.train and preset.model.head_kind != 'anchor3d':
+        print('profile_forward: --train runs the KITTI step only',
+              file=sys.stderr)
+        return 1
     cfg = dataclasses.replace(preset.model, compute_dtype=args.dtype)
     model = build_model(cfg, device='cuda', seed=SEED)
     events = {}
@@ -126,14 +146,15 @@ def main(argv=None):
         def run():
             return train_step(batch)['loss']
     else:
-        with torch.no_grad():
-            model.bbox_head.conv_cls.bias.zero_()
-        batch = kitti_batch(batch_size, 'cuda', seed=SEED)
+        zero_cls_bias(model)
+        batch = serving_batch(preset.data.dataset, batch_size, 'cuda',
+                              seed=SEED)
 
         def run():
             with torch.no_grad():
-                head_outs, _ = model(batch)
-                return imvoxelnet_predict(cfg, head_outs)
+                head_outs, valid = model(batch)
+                return imvoxelnet_predict(cfg, head_outs, valid,
+                                          batch['origins'])
 
     run()                                       # build kernels, warm up
     torch.cuda.synchronize()
@@ -207,7 +228,8 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     wall = sorted(walls)[len(walls) // 2]
     result = dict(
-        card=smi, mode='train' if args.train else 'forward',
+        card=smi, preset=args.preset,
+        mode='train' if args.train else 'forward',
         batch=batch_size, dtype=args.dtype, iters=ITERS,
         stage_ms={k: sorted(v)[len(v) // 2] for k, v in spans.items()},
         wall_ms_median=wall, scenes_per_s=batch_size * 1e3 / wall,

@@ -2,12 +2,17 @@
 
 ``from_jax_variables`` is the inverse of the JAX package's reference
 converter (``imvoxelnet_tpu/utils/checkpoint.py``: ``convert_resnet50``,
-``convert_fpn``, ``convert_kitti_neck``, ``convert_anchor3d_head``): it turns
-a ``{'params', 'batch_stats'}`` tree of numpy arrays into tensors under the
-reference's mmdet names, so both packages can run the same weights.  Layouts:
+``convert_fpn``, ``convert_kitti_neck``, ``convert_imvoxel_neck``,
+``convert_fast_neck``, ``convert_anchor3d_head``, ``convert_indoor_head``):
+it turns a ``{'params', 'batch_stats'}`` tree of numpy arrays into tensors
+under the reference's mmdet names, so both packages can run the same
+weights.  Layouts:
 
   flax Conv (kH, kW, I, O)           -> torch Conv2d (O, I, kH, kW)
   flax Conv (kD, kH, kW, I, O)       -> torch Conv3d (O, I, kD, kH, kW)
+  flax ConvTranspose(transpose_kernel=True) (kD, kH, kW, O, I)
+                                     -> torch ConvTranspose3d (I, O, kD, kH,
+                                        kW): the same axis permutation
   scale / bias + mean / var          -> weight / bias / running_mean /
                                         running_var (+ num_batches_tracked 0)
 """
@@ -19,7 +24,9 @@ import torch
 
 
 def _t(x):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    x = np.asarray(x, np.float32)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape (Scale's ())
+    return torch.from_numpy(np.ascontiguousarray(x).reshape(x.shape))
 
 
 def _conv(kernel):
@@ -63,20 +70,86 @@ def _fpn(sd, p):
             sd[f'neck.{mod}.{i}.conv.bias'] = _t(p[flax_name]['bias'])
 
 
+def _block(sd, tp, p, s):
+    """``BasicBlock3d``: flax ``bn1`` wraps its BN in ``bn``, ``bn2`` not."""
+    sd[f'{tp}.conv1.weight'] = _conv(p['conv1']['kernel'])
+    sd[f'{tp}.conv2.weight'] = _conv(p['conv2']['kernel'])
+    _bn(sd, f'{tp}.bn1', p['bn1']['bn'], s['bn1']['bn'])
+    _bn(sd, f'{tp}.bn2', p['bn2'], s['bn2'])
+
+
 def _kitti_neck(sd, p, s):
     mapping = (('block0', 0), ('down0', 1), ('block1', 2), ('down1', 3),
                ('block2', 4), ('out_conv', 5))
     for name, pos in mapping:
         tp = f'neck_3d.model.{pos}'
         if name.startswith('block'):
-            sd[f'{tp}.conv1.weight'] = _conv(p[name]['conv1']['kernel'])
-            sd[f'{tp}.conv2.weight'] = _conv(p[name]['conv2']['kernel'])
-            _bn(sd, f'{tp}.bn1', p[name]['bn1']['bn'], s[name]['bn1']['bn'])
-            _bn(sd, f'{tp}.bn2', p[name]['bn2'], s[name]['bn2'])
+            _block(sd, tp, p[name], s[name])
         else:
             sd[f'{tp}.0.weight'] = _conv(p[name]['conv']['kernel'])
             sd[f'{tp}.0.bias'] = _t(p[name]['conv']['bias'])
             _bn(sd, f'{tp}.1', p[name]['norm']['bn'], s[name]['norm']['bn'])
+
+
+def _imvoxel_neck(sd, p, s, neck):
+    """``ImVoxelNeck``: ``model.layers_down.{i}`` (conv 0, BN 1, blocks from
+    4 for i > 0), ``layers_up_conv``, ``proj``, ``layers_up_res`` and
+    ``conv_blocks`` (``convert_imvoxel_neck``)."""
+    tm = 'neck_3d.model'
+    for i in range(len(neck.channels)):
+        off = 0
+        if i > 0:
+            sd[f'{tm}.layers_down.{i}.0.weight'] = _conv(
+                p[f'down_conv_{i}']['kernel'])
+            _bn(sd, f'{tm}.layers_down.{i}.1', p[f'down_bn_{i}']['bn'],
+                s[f'down_bn_{i}']['bn'])
+            off = 4
+        for j in range(neck.down_layers[i]):
+            _block(sd, f'{tm}.layers_down.{i}.{off + j}', p[f'down_{i}_{j}'],
+                   s[f'down_{i}_{j}'])
+    for i in range(len(neck.channels) - 1):
+        sd[f'{tm}.layers_up_conv.{i}.weight'] = _conv(
+            p[f'up_conv_{i}']['kernel'])
+        sd[f'{tm}.proj.{i}.conv.weight'] = _conv(p[f'proj_conv_{i}']['kernel'])
+        _bn(sd, f'{tm}.proj.{i}.norm', p[f'proj_bn_{i}']['bn'],
+            s[f'proj_bn_{i}']['bn'])
+        for j in range(neck.up_layers[i]):
+            _block(sd, f'{tm}.layers_up_res.{i}.{j}', p[f'up_{i}_{j}'],
+                   s[f'up_{i}_{j}'])
+        tc = f'neck_3d.conv_blocks.{i}'
+        sd[f'{tc}.0.weight'] = _conv(p[f'out_conv_{i}']['kernel'])
+        sd[f'{tc}.0.bias'] = _t(p[f'out_conv_{i}']['bias'])
+        _bn(sd, f'{tc}.1', p[f'out_bn_{i}']['bn'], s[f'out_bn_{i}']['bn'])
+
+
+def _fast_neck(sd, p, s, neck):
+    """``FastIndoorImVoxelNeck``: ``down_layer_{i}.{j}``, ``up_block_{i}``
+    (transposed conv 0, BN 1, conv 3, BN 4) and ``out_block_{i}``
+    (``convert_fast_neck``)."""
+    for i, n in enumerate(neck.n_blocks):
+        for j in range(n):
+            tp, bp, bs = (f'neck_3d.down_layer_{i}.{j}', p[f'down_{i}_{j}'],
+                          s[f'down_{i}_{j}'])
+            for k in ('conv1', 'conv2'):
+                sd[f'{tp}.{k}.weight'] = _conv(bp[k]['kernel'])
+            for k in ('norm1', 'norm2'):
+                _bn(sd, f'{tp}.{k}', bp[k]['bn'], bs[k]['bn'])
+            if 'downsample_conv' in bp:
+                sd[f'{tp}.downsample.0.weight'] = _conv(
+                    bp['downsample_conv']['kernel'])
+                _bn(sd, f'{tp}.downsample.1', bp['downsample_norm']['bn'],
+                    bs['downsample_norm']['bn'])
+    for i in range(1, len(neck.n_blocks)):
+        tp = f'neck_3d.up_block_{i}'
+        sd[f'{tp}.0.weight'] = _conv(p[f'up_convt_{i}']['kernel'])
+        sd[f'{tp}.3.weight'] = _conv(p[f'up_conv_{i}']['kernel'])
+        for name, pos in ((f'up_bn1_{i}', 1), (f'up_bn2_{i}', 4)):
+            _bn(sd, f'{tp}.{pos}', p[name]['bn'], s[name]['bn'])
+    for i in range(len(neck.n_blocks)):
+        sd[f'neck_3d.out_block_{i}.0.weight'] = _conv(
+            p[f'out_conv_{i}']['kernel'])
+        _bn(sd, f'neck_3d.out_block_{i}.1', p[f'out_bn_{i}']['bn'],
+            s[f'out_bn_{i}']['bn'])
 
 
 def _anchor3d_head(sd, p):
@@ -84,6 +157,46 @@ def _anchor3d_head(sd, p):
         if name in p:
             sd[f'bbox_head.{name}.weight'] = _conv(p[name]['kernel'])
             sd[f'bbox_head.{name}.bias'] = _t(p[name]['bias'])
+
+
+def _indoor_head(sd, p, s, head):
+    """``IndoorHead``: the three prediction convs, ``scales.{i}`` and the
+    v1 towers ``{reg,cls}_convs.{j}`` (``convert_indoor_head``)."""
+    for name in ('centerness_conv', 'reg_conv', 'cls_conv'):
+        sd[f'bbox_head.{name}.weight'] = _conv(p[name]['kernel'])
+    sd['bbox_head.cls_conv.bias'] = _t(p['cls_conv']['bias'])
+    for i in range(head.n_scales):
+        sd[f'bbox_head.scales.{i}.scale'] = _t(p[f'scale_{i}']['scale'])
+    for j in range(head.n_convs if head.version == 1 else 0):
+        for tower, tname in (('reg', 'reg_convs'), ('cls', 'cls_convs')):
+            sd[f'bbox_head.{tname}.{j}.0.weight'] = _conv(
+                p[f'{tower}_tower_{j}']['kernel'])
+            _bn(sd, f'bbox_head.{tname}.{j}.1', p[f'{tower}_tower_bn_{j}'],
+                s[f'{tower}_tower_bn_{j}'])
+
+
+def neck_state_dict(neck_cfg, params, stats) -> dict:
+    """The ``neck_3d.*`` entries for the JAX neck's own variables."""
+    sd = {}
+    if neck_cfg.kind == 'kitti':
+        _kitti_neck(sd, params, stats)
+    elif neck_cfg.kind == 'imvoxel':
+        _imvoxel_neck(sd, params, stats, neck_cfg)
+    elif neck_cfg.kind == 'fast':
+        _fast_neck(sd, params, stats, neck_cfg)
+    else:
+        raise NotImplementedError(f'neck {neck_cfg.kind!r} is not ported')
+    return sd
+
+
+def head_state_dict(cfg, params, stats) -> dict:
+    """The ``bbox_head.*`` entries for the JAX head's own variables."""
+    sd = {}
+    if cfg.head_kind == 'anchor3d':
+        _anchor3d_head(sd, params)
+    else:
+        _indoor_head(sd, params, stats, cfg.indoor_head)
+    return sd
 
 
 def from_jax_variables(variables_np, cfg) -> dict:
@@ -94,6 +207,7 @@ def from_jax_variables(variables_np, cfg) -> dict:
     sd = {}
     _backbone(sd, params['backbone'], cfg.backbone_stage_blocks)
     _fpn(sd, params['neck'])
-    _kitti_neck(sd, params['neck_3d'], stats['neck_3d'])
-    _anchor3d_head(sd, params['bbox_head'])
+    sd.update(neck_state_dict(cfg.neck, params['neck_3d'], stats['neck_3d']))
+    sd.update(head_state_dict(cfg, params['bbox_head'],
+                              stats.get('bbox_head', {})))
     return sd

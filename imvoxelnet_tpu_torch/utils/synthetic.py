@@ -1,10 +1,17 @@
-"""A synthetic KITTI batch: real camera geometry, random images.
+"""Synthetic batches: real camera geometry, random images.
 
-The camera is KITTI's camera 2 (intrinsics of the 1242x375 frames) looking
-along the lidar's +x axis, so roughly two thirds of the ``imvoxelnet_kitti``
-voxel grid (0..69 m ahead, +-40 m across) projects into the image; the grid
-center is nudged off the voxel lattice.  Images are padded 1280x384 with
-``ratio = ori_h / (img_h / stride) = 4`` (``imvoxelnet.py:118``).
+KITTI (:func:`kitti_batch`): the camera is KITTI's camera 2 (intrinsics of
+the 1242x375 frames) looking along the lidar's +x axis, so roughly two
+thirds of the ``imvoxelnet_kitti`` voxel grid (0..69 m ahead, +-40 m across)
+projects into the image; the grid center is nudged off the voxel lattice.
+Images are padded 1280x384 with ``ratio = ori_h / (img_h / stride) = 4``
+(``imvoxelnet.py:118``).
+
+SUN RGB-D (:func:`sunrgbd_batch`): a Kinect-like camera (fx = fy = 529.5 at
+640x480) tilted by a few degrees of pitch and roll, with the extrinsic built
+as the dataset builds it from the calibration's ``Rt``
+(``imvoxelnet_tpu/data/datasets.py:231-240``) and the dataset's grid origin
+``(0, 3, -1)``: the 6.4 x 6.4 x 2.56 m grid starts 0.2 m behind the camera.
 """
 
 from __future__ import annotations
@@ -108,3 +115,64 @@ def kitti_train_batch(b: int, device='cuda', seed: int = 0,
         gt_labels=torch.tensor(labels, device=device),
         gt_mask=torch.tensor(mask, device=device))
     return batch
+
+
+SUNRGBD_H, SUNRGBD_W = 480, 640
+SUNRGBD_ORIGIN = (0.0, 3.0, -1.0)           # datasets.py:228
+
+
+def _rotation(pitch: float, roll: float):
+    """Camera tilt ``Rt`` (3, 3) in the upright depth frame (z up, y ahead):
+    a pitch about x, then a roll about y."""
+    cp, sp, cr, sr = np.cos(pitch), np.sin(pitch), np.cos(roll), np.sin(roll)
+    r_x = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    r_y = np.array([[cr, 0, sr], [0, 1, 0], [-sr, 0, cr]])
+    return r_x @ r_y
+
+
+def _sunrgbd_extrinsic(rt):
+    """``SunRgbdMultiViewDataset._matrices``'s extrinsic from ``Rt``: the
+    depth frame's y and z columns swapped, y negated, transposed."""
+    e = np.asarray(rt, np.float32).copy()
+    e[:, [1, 2]] = e[:, [2, 1]]
+    e[:, 1] = -e[:, 1]
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = e.T
+    return out
+
+
+def sunrgbd_batch(b: int, device='cuda', seed: int = 0,
+                  size=(SUNRGBD_W, SUNRGBD_H)):
+    """A ``b``-sample, one-view SUN RGB-D-like batch in the detector's
+    layout at image ``size (W, H)``: each sample's camera pitches by 2-8
+    degrees and rolls by -3..3; intrinsics scale with the size from fx = fy
+    = 529.5 at 640x480, the principal point nudged off the pixel grid;
+    ``ratio = 4`` (the images are not resized)."""
+    rng = np.random.RandomState(seed)
+    w, h = size
+    f = 529.5 * w / SUNRGBD_W
+    k = np.array([[f, 0.0, (w - 1) / 2 + 0.137], [0.0, f, (h - 1) / 2 - 0.213],
+                  [0.0, 0.0, 1.0]], np.float32)
+    ext = np.stack([_sunrgbd_extrinsic(_rotation(
+        np.deg2rad(rng.uniform(2, 8)), np.deg2rad(rng.uniform(-3, 3))))[None]
+        for _ in range(b)])
+    return dict(
+        images=torch.tensor(rng.randn(b, 1, h, w, 3).astype(np.float32),
+                            device=device),
+        intrinsics=torch.tensor(np.stack([k] * b), device=device),
+        extrinsics=torch.tensor(ext, device=device),
+        origins=torch.tensor([SUNRGBD_ORIGIN] * b, dtype=torch.float32,
+                             device=device),
+        img_shape=torch.tensor([[h, w]] * b, dtype=torch.int32,
+                               device=device),
+        ratios=torch.full((b,), 4.0, device=device),
+    )
+
+
+def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0):
+    """The synthetic serving batch of a preset's ``data.dataset``."""
+    if dataset == 'sunrgbd':
+        return sunrgbd_batch(b, device, seed=seed)
+    if dataset == 'kitti':
+        return kitti_batch(b, device, seed=seed)
+    raise NotImplementedError(f'no synthetic {dataset!r} batch')

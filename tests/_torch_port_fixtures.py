@@ -55,14 +55,14 @@ def projection_margin(n_voxels, voxel_size, batch_np, stride=4):
     return margin
 
 
-def _random_tree(shapes, rng, path=()):
+def random_tree(shapes, rng, path=()):
     """Numpy weights for a tree of shapes: lecun-normal conv kernels
     (normal(0.01) for the head's cls/reg convs, as the JAX init), random
     biases and batch-norm statistics."""
     out = {}
     for key, val in shapes.items():
         if hasattr(val, 'items'):
-            out[key] = _random_tree(val, rng, path + (key,))
+            out[key] = random_tree(val, rng, path + (key,))
             continue
         shape = val.shape
         if key == 'kernel':
@@ -90,10 +90,11 @@ def jax_variables(cfg, batch_np, seed=0, cls_bias=None):
     shapes = jax.eval_shape(
         lambda b: ImVoxelNet(cfg).init(jax.random.PRNGKey(0), b,
                                        train=False), batch)
-    variables = _random_tree(shapes, np.random.RandomState(seed))
+    variables = random_tree(shapes, np.random.RandomState(seed))
     if cls_bias is not None:
-        head = variables['params']['bbox_head']['conv_cls']
-        head['bias'] = np.full_like(head['bias'], cls_bias)
+        head = variables['params']['bbox_head']
+        conv = head['conv_cls' if 'conv_cls' in head else 'cls_conv']
+        conv['bias'] = np.full_like(conv['bias'], cls_bias)
     return variables
 
 
@@ -111,3 +112,59 @@ def port_model(cfg, variables, device='cpu'):
     model = ImVoxelNet(cfg)
     model.load_state_dict(from_jax_variables(variables, cfg), strict=True)
     return model.to(device).eval()
+
+
+def tiny_indoor_cfgs(fast=False, version=None, n_convs=0):
+    """The same tiny SUN RGB-D config in both packages (JAX, port), built
+    as ``tests/test_models.py:_tiny_indoor_cfg`` builds it: ResNet stages
+    (1, 1, 1, 1), FPN 16, 16x16x8 voxels of 0.4 m, 3 classes, ``pre_nms_k``
+    32; v1 (ImVoxelNeck) or ``fast`` (the fast neck, head v2)."""
+    from imvoxelnet_tpu.models import detector as jdet
+    from imvoxelnet_tpu.models.heads import imvoxel_heads as jivh
+    from imvoxelnet_tpu_torch.models import detector as tdet
+    from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as tivh
+
+    if fast:
+        neck = dict(kind='fast', in_channels=16, out_channels=16,
+                    n_blocks=(1, 1, 1))
+    else:
+        neck = dict(kind='imvoxel', channels=(16, 24, 32, 48),
+                    out_channels=16, down_layers=(1, 1, 1, 1),
+                    up_layers=(1, 1, 1))
+    version = version or (2 if fast else 1)
+    head = dict(n_classes=3, n_reg_outs=7, voxel_size=(0.4, 0.4, 0.4),
+                dataset='sunrgbd', version=version, n_convs=n_convs,
+                centerness_topk=4 if version == 2 else -1, limit=8,
+                nms_pre=64, score_thr=0.01, iou_thr=0.15, max_out=16,
+                pre_nms_k=32)
+    out = []
+    for det, ivh in ((jdet, jivh), (tdet, tivh)):
+        out.append(det.ImVoxelNetConfig(
+            n_voxels=(16, 16, 8), voxel_size=(0.4, 0.4, 0.4),
+            fpn_out_channels=16, neck=det.NeckConfig(**neck),
+            head_kind='indoor', anchor_head=None,
+            indoor_head=ivh.IndoorHeadConfig(**head),
+            backbone_stage_blocks=(1, 1, 1, 1)))
+    return tuple(out)
+
+
+def tiny_sunrgbd_batch_np(b, seed=0):
+    """The port's synthetic SUN RGB-D batch at 128x96, as numpy."""
+    from imvoxelnet_tpu_torch.utils.synthetic import sunrgbd_batch
+
+    return {k: v.numpy() for k, v in sunrgbd_batch(
+        b, 'cpu', seed=seed, size=(128, 96)).items()}
+
+
+def jax_neck(cfg):
+    """The JAX package's 3D neck module for a JAX ``ImVoxelNetConfig``."""
+    from imvoxelnet_tpu.models import necks3d
+
+    n = cfg.neck
+    if n.kind == 'kitti':
+        return necks3d.KittiImVoxelNeck(n.in_channels, n.out_channels)
+    if n.kind == 'imvoxel':
+        return necks3d.ImVoxelNeck(n.channels, n.out_channels,
+                                   n.down_layers, n.up_layers)
+    return necks3d.FastIndoorImVoxelNeck(n.in_channels, n.n_blocks,
+                                         n.out_channels)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test skips without a CUDA device.  Small and ragged
-shapes here; ``chip_smoke.py`` covers the KITTI main-path shapes.  This file
+shapes here, and the SUN RGB-D serving shapes; ``chip_smoke.py`` covers the
+main paths' shapes with times.  This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -20,7 +21,10 @@ from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
 from imvoxelnet_tpu_torch.ops import conv3z
+from imvoxelnet_tpu_torch.configs.presets import get_preset
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
+from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
+from imvoxelnet_tpu_torch.utils.synthetic import sunrgbd_batch
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 
@@ -309,6 +313,99 @@ def test_decode_and_nms_never_wait_for_the_device(cuda, monkeypatch):
     assert kernels.launch_counts() == counts
     n_det = res['valid'].sum(1).tolist()
     assert n_det[0] > n_det[1] > n_det[2] == 0, n_det
+    for key in ('valid', 'labels', 'boxes', 'scores'):
+        assert torch.equal(res[key], ref[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the SUN RGB-D serving shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('name,b,dtype', [
+    ('imvoxelnet_sunrgbd', 1, torch.float32),      # C = 64, 204,800 voxels
+    ('imvoxelnet_sunrgbd', 3, torch.bfloat16),
+    ('imvoxelnet_sunrgbd_fast', 1, torch.float32),  # C = 256, 25,600 voxels
+    ('imvoxelnet_sunrgbd_fast', 3, torch.bfloat16),
+    ('imvoxelnet_sunrgbd_fast', 2, torch.bfloat16),
+])
+def test_backproject_kernel_matches_plain_at_the_indoor_shapes(cuda, name, b,
+                                                               dtype):
+    """B1 at the SUN RGB-D feature map (120x160) and grids: rows of 128 to
+    1024 bytes on the 16-bytes-a-lane path, at odd and even batch sizes."""
+    cfg = get_preset(name).model
+    batch = sunrgbd_batch(b, cuda, seed=2)
+    rng = np.random.RandomState(1)
+    feats = torch.tensor(rng.randn(b, 1, 120, 160, cfg.fpn_out_channels),
+                         dtype=torch.float32, device=cuda).to(dtype)
+    points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
+                           batch['origins']).reshape(b, -1, 3).contiguous()
+    proj = bp.compute_projection(batch['intrinsics'], batch['extrinsics'],
+                                 batch['ratios']).contiguous()
+    hw = (batch['img_shape'] // 4).to(torch.int32)
+    acc, cnt = bp_kernel.backproject_batch(feats, points, proj, hw)
+    ref_acc, ref_cnt = bp.backproject_batch_plain(feats, points, proj, hw)
+    assert acc.shape == (points.shape[1], b, cfg.fpn_out_channels)
+    assert torch.equal(cnt, ref_cnt)
+    assert 0 < float((cnt > 0).float().mean()) < 1
+    # one view: the sums are the gathered values themselves
+    assert torch.equal(acc, ref_acc)
+
+
+@pytest.mark.parametrize('g', [80, 240])
+def test_nms_kernels_match_plain_at_the_indoor_shapes(cuda, g):
+    """The mask of ``g`` groups of 256 candidates (8 words a row, the words
+    on and below the diagonal skipped) bit for bit, and the scan."""
+    rng = np.random.RandomState(7)
+    n = 256
+    boxes = _boxes(rng, g, n).to(cuda)
+    valid = torch.tensor(rng.uniform(0, 1, (g, n)) > 0.1, device=cuda)
+    corners = box_ops.bev_corners(boxes).contiguous()
+    areas = (boxes[..., 2] * boxes[..., 3]).contiguous()
+    mask = clip_kernel.nms_dominance_mask(corners, areas, 0.15)
+    assert mask.shape == (g, n, 8)
+    assert torch.equal(mask, iou_ops.nms_dominance_mask_plain(corners, areas,
+                                                              0.15))
+    keep = clip_kernel.nms_scan(mask, valid)
+    assert torch.equal(keep, nms_ops.nms_scan_plain(mask, valid))
+    assert 0 < int(keep.sum()) < int(valid.sum())
+
+
+def test_indoor_decode_never_waits_for_the_device(cuda, monkeypatch):
+    """The SUN RGB-D decode + NMS under ``set_sync_debug_mode('error')``:
+    one mask and one scan launch for all samples and classes, and the plain
+    path's result bit for bit."""
+    cfg = get_preset('imvoxelnet_sunrgbd').model.indoor_head
+    rng = np.random.RandomState(8)
+    b, sizes = 3, [(80, 80, 32), (40, 40, 16), (20, 20, 8)]
+    head = ([], [], [])
+    for size in sizes:
+        head[0].append(rng.randn(b, *size, 1))
+        head[1].append(np.concatenate([np.exp(0.3 * rng.randn(b, *size, 6)),
+                                       rng.randn(b, *size, 1)], -1))
+        head[2].append(rng.randn(b, *size, cfg.n_classes) - 1.0)
+    head = tuple([torch.tensor(x.astype(np.float32), device=cuda)
+                  for x in lv] for lv in head)
+    valid = torch.tensor(rng.uniform(0, 1, (b, 80, 80, 32)) > 0.5,
+                         device=cuda)
+    valid[2, :40] = False
+    origins = torch.tensor([[0.0, 3.0, -1.0]] * b, device=cuda)
+    ivh.indoor_head_get_bboxes(head, valid, origins, cfg)     # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = ivh.indoor_head_get_bboxes(head, valid, origins, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['rect_clip'] == 1 and counts['nms_scan'] == 1
+    monkeypatch.setattr(nms_ops, 'rotated_nms_presorted',
+                        nms_ops.rotated_nms_presorted_plain)
+    monkeypatch.setattr(iou_ops, 'rect_intersection_area_pairwise',
+                        iou_ops.rect_intersection_area_pairwise_plain)
+    ref = ivh.indoor_head_get_bboxes(head, valid, origins, cfg)
+    assert kernels.launch_counts() == counts
+    assert res['boxes'].shape == (b, cfg.max_out, 7)
+    assert int(res['valid'].sum()) > 0
     for key in ('valid', 'labels', 'boxes', 'scores'):
         assert torch.equal(res[key], ref[key]), key
 

@@ -18,12 +18,17 @@ from imvoxelnet_tpu_torch.models.detector import ImVoxelNet
 from imvoxelnet_tpu_torch.utils.checkpoint import from_jax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test')
+PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test', 'imvoxelnet_sunrgbd',
+                'imvoxelnet_sunrgbd_top27', 'imvoxelnet_sunrgbd_fast',
+                'imvoxelnet_perspective_sunrgbd',
+                'imvoxelnet_perspective_sunrgbd_top27',
+                'imvoxelnet_perspective_sunrgbd_fast')
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """A tiny forward + decode and a training step in a fresh interpreter
-    leave every ``jax*`` and ``flax*`` module and every
+    """A tiny forward + decode, a training step and a tiny SUN RGB-D forward
+    + decode in a fresh interpreter leave every ``jax*`` and ``flax*``
+    module and every
     ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
     (``imvoxelnet_tpu_torch`` shares the prefix, hence the exact-name
     test)."""
@@ -62,6 +67,26 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                           steps_per_epoch=1)
         metrics = train.make_train_step(model, opt, sched)(batch)
         assert torch.isfinite(metrics['loss'])
+        # and a tiny SUN RGB-D forward + decode (encoder-decoder neck)
+        import dataclasses
+        from imvoxelnet_tpu_torch.models.detector import NeckConfig
+        full = get_preset('imvoxelnet_sunrgbd').model
+        icfg = dataclasses.replace(
+            full, n_voxels=(16, 16, 8), voxel_size=(0.4, 0.4, 0.4),
+            fpn_out_channels=16, backbone_stage_blocks=(1, 1, 1, 1),
+            neck=NeckConfig(kind='imvoxel', channels=(16, 24, 32, 48),
+                            out_channels=16, down_layers=(1, 1, 1, 1),
+                            up_layers=(1, 1, 1)),
+            indoor_head=dataclasses.replace(
+                full.indoor_head, voxel_size=(0.4, 0.4, 0.4), nms_pre=64,
+                pre_nms_k=32, max_out=16))
+        imodel = build_model(icfg, device='cpu', seed=0)
+        ibatch = synthetic.sunrgbd_batch(1, 'cpu', seed=0, size=(128, 96))
+        with torch.no_grad():
+            ihead, ivalid = imodel(ibatch)
+            ires = imvoxelnet_predict(icfg, ihead, ivalid, ibatch['origins'])
+        assert ires['boxes'].shape == (1, 16, 7)
+        assert 0 < float(ivalid.float().mean()) < 1
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0].startswith(('jax', 'flax', 'optax'))
                      or m == 'imvoxelnet_tpu'
@@ -79,12 +104,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 # JAX config fields the port leaves to later slices, with the values every
 # ported preset must hold for them.
 _JAX_ONLY = {
-    'ImVoxelNetConfig': dict(indoor_head=None, layout_head=None,
-                             axis_name=None, dp_loss_norm='per_image',
+    'ImVoxelNetConfig': dict(layout_head=None, axis_name=None,
+                             dp_loss_norm='per_image',
                              stage_with_dcn=(False,) * 4,
                              view_shard_axis=None),
-    'NeckConfig': dict(channels=None, down_layers=None, up_layers=None,
-                       n_blocks=None),      # indoor necks only: not read
 }
 
 
@@ -110,10 +133,14 @@ def _assert_same(port, ref, path):
 def test_preset_equals_jax_field_for_field(name):
     port, ref = presets.get_preset(name), jax_presets.get_preset(name)
     _assert_same(port, ref, name)
-    assert port.model.anchor_head.num_anchors == \
-        ref.model.anchor_head.num_anchors
-    assert port.model.anchor_head.box_code_size == \
-        ref.model.anchor_head.box_code_size
+    if port.model.head_kind == 'anchor3d':
+        assert port.model.anchor_head.num_anchors == \
+            ref.model.anchor_head.num_anchors
+        assert port.model.anchor_head.box_code_size == \
+            ref.model.anchor_head.box_code_size
+    else:
+        assert port.model.indoor_head.with_yaw == \
+            ref.model.indoor_head.with_yaw
 
 
 def _randomize_bn(model, rng):
@@ -128,7 +155,8 @@ def _randomize_bn(model, rng):
                     rng.uniform(0.5, 1.5, t.shape).astype(np.float32)))
 
 
-@pytest.mark.parametrize('name', PRESET_NAMES)
+# each model family once: the perspective presets differ only in classes
+@pytest.mark.parametrize('name', PRESET_NAMES[:5])
 def test_state_dict_round_trip_through_the_jax_converter(name):
     """port state_dict -> convert_reference_checkpoint(strict) ->
     from_jax_variables gives the same state_dict back, key for key."""

@@ -6,12 +6,13 @@ then the slice as a whole: ``make_train_step`` for 3 steps against
 ``jax.jit`` of the JAX ``make_train_step`` on ``tiny_kitti_test``, from the
 same weights (``from_jax_variables``) and the same numpy batch.
 
+The necks' batch norms update ``running_var`` with the biased batch
+variance, as flax does (``models/layers.py:BatchNorm3d``; torch's own rule,
+the reference's, takes the unbiased one): after one train-mode forward the
+running statistics equal the JAX package's to float rounding.
+
 Known gaps, which the tolerances allow for:
 
-* ``nn.BatchNorm3d`` updates ``running_var`` with the unbiased batch
-  variance, as the reference does; flax uses the biased one
-  (``necks3d.py:39-46``).  The relative gap is 1/(N-1): 3e-5 for block0 at
-  these sizes, 4e-4 for the last BN (N = 2280).
 * Adam's first update is about ``lr * sign(g)``, so a gradient entry near
   zero can flip an entry by ``2 * lr``: parameters after the steps are
   compared with ``atol = 2 * lr`` per step, not tighter.
@@ -43,7 +44,7 @@ from imvoxelnet_tpu.parallel import train as jax_train
 from imvoxelnet_tpu_torch.configs import presets
 from imvoxelnet_tpu_torch.core import coder, target_assign
 from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
-from imvoxelnet_tpu_torch.models.detector import imvoxelnet_loss
+from imvoxelnet_tpu_torch.models.detector import build_neck, imvoxelnet_loss
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
@@ -52,20 +53,25 @@ from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import losses
 from imvoxelnet_tpu_torch.parallel import train
 from imvoxelnet_tpu_torch.utils import synthetic
-from imvoxelnet_tpu_torch.utils.checkpoint import from_jax_variables
+from imvoxelnet_tpu_torch.utils.checkpoint import (from_jax_variables,
+                                                   neck_state_dict)
 
-from _torch_port_fixtures import (K_TINY, W, jax_variables, port_model,
-                                  tiny_batch_np, to_torch)
+from _torch_port_fixtures import (K_TINY, W, jax_neck, jax_variables,
+                                  port_model, random_tree, tiny_batch_np,
+                                  tiny_indoor_cfgs, to_torch)
 
 PRESET = 'tiny_kitti_test'
 LOSS_RTOL, LOSS_ATOL = 5e-3, 1e-5     # test_full_train_loss_parity.py:121
 GRAD_TOL = 2e-2                       # test_full_train_loss_parity.py:205
-STATS_TOL = 2e-3
+# BN statistics after 3 steps: the first step's match to float rounding
+# (the test below), the later ones drift with Adam's sign flips, at most
+# 4.9e-4 x (1 + |x|) (block0.bn1's running variance)
+STATS_TOL = 1e-3
 IOU_MARGIN = 1e-4
 STEPS = 3
-# Adam's sign flips (second known gap) move the next steps' batch statistics
+# Adam's sign flips (first known gap) move the next steps' batch statistics
 # in proportion to the LR: at the preset's 1e-4 block0's running variance
-# drifts 2x past STATS_TOL by step 3, at 1e-5 to a quarter of it
+# drifts 4x past STATS_TOL by step 3, at 1e-5 to half of it
 SLICE_LR_MULT = 0.1
 SPE, LR_STEPS = 1, (1, 2)             # both LR boundaries inside 3 steps
 
@@ -330,6 +336,52 @@ def _as_port(tree, variables, cfg):
 
 
 LABELS_INDEX = {'frozen': 0, 'backbone': 1, 'rest': 2}
+
+
+# the necks' batch norms after one train-mode forward, at b=2: block0 of the
+# tiny KITTI neck holds N = 30,720 values a channel, the coarsest BNs of the
+# tiny ImVoxelNeck N = 8, where the unbiased rule's gap 1/(N-1) is 14%
+BN_RTOL = 1e-6
+
+
+@pytest.mark.parametrize('which', ['kitti', 'imvoxel', 'fast'])
+def test_neck_bn_running_stats_match_jax_after_one_train_forward(which):
+    if which == 'kitti':
+        jcfg = jax_presets.get_preset(PRESET).model
+        cfg = presets.get_preset(PRESET).model
+        cin = cfg.neck.in_channels
+    else:
+        jcfg, cfg = tiny_indoor_cfgs(fast=which == 'fast')
+        cin = (cfg.neck.channels[0] if which == 'imvoxel'
+               else cfg.neck.in_channels)
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, *cfg.n_voxels, cin).astype(np.float32)
+    jneck = jax_neck(jcfg)
+    shapes = jax.eval_shape(lambda v: jneck.init(jax.random.PRNGKey(0), v,
+                                                 train=False), x)
+    variables = random_tree(shapes, rng)
+    _, updated = jneck.apply(variables, jnp.asarray(x), train=True,
+                             mutable=['batch_stats'])
+    want = neck_state_dict(cfg.neck, variables['params'],
+                           jax.tree_util.tree_map(np.asarray,
+                                                  updated['batch_stats']))
+
+    neck = build_neck(cfg.neck)
+    neck.load_state_dict({k[len('neck_3d.'):]: v for k, v in neck_state_dict(
+        cfg.neck, variables['params'], variables['batch_stats']).items()})
+    with torch.no_grad():
+        neck.train()(torch.from_numpy(x).permute(0, 4, 1, 2, 3))
+    got = neck.state_dict()
+    n_compared = 0
+    for key, ref in want.items():
+        if key.endswith(('running_var', 'running_mean')):
+            ref_np = ref.numpy()
+            np.testing.assert_allclose(
+                got[key[len('neck_3d.'):]].numpy(), ref_np, rtol=BN_RTOL,
+                atol=BN_RTOL * np.abs(ref_np).max(), err_msg=key)
+            n_compared += 1
+    assert n_compared == 2 * sum(isinstance(m, torch.nn.BatchNorm3d)
+                                 for m in neck.modules())
 
 
 def test_param_labels_match_jax():

@@ -18,11 +18,17 @@ Phases, each failing the run on its own error:
   4. train   -- the full-width imvoxelnet_kitti training step
                 (parallel/train.py): b=1 float32 through the kernels held
                 against the plain path (losses, every trainable gradient,
-                the 3D neck's batch-norm statistics); the backprojection's
-                backward kernel against its plain version at the b=4
-                bfloat16 shapes; 5 timed b=4 bfloat16 steps at 1408x416 with
-                their launch counts; one step forbidden to wait for the
-                device.
+                the 3D neck's batch-norm statistics); where the gradient gap
+                comes from (each kernel swapped alone for its plain version,
+                and both paths against a float64 step of the plain path);
+                two steps from one state with cudnn.deterministic, whose
+                gradients must repeat bit for bit; the backprojection's
+                backward kernel bit for bit against its plain version on the
+                CPU, twice, at the b=4 bfloat16 and b=1 float32 shapes, with
+                the time of each of its passes; B1's forward and B3's
+                forward and dx at the b=4 bfloat16 shapes; 5 timed b=4
+                bfloat16 steps at 1408x416 with their launch counts; one
+                step forbidden to wait for the device.
   5. indoor  -- the SUN RGB-D serving path at full width and depth
                 (imvoxelnet_sunrgbd, imvoxelnet_sunrgbd_fast and
                 imvoxelnet_perspective_sunrgbd_fast, 640x480): b=1 float32
@@ -33,9 +39,11 @@ Phases, each failing the run on its own error:
                 at 80 and 240 groups of 256 candidates against their plain
                 versions.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
-Weights are random from a seed.  Needs a CUDA device; imports no JAX.
+float32 work runs with TF32 off (utils/precision.py).  Weights are random
+from a seed.  Needs a CUDA device; imports no JAX.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -55,6 +63,7 @@ from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
 from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.models import necks3d
 from imvoxelnet_tpu_torch.models.detector import (build_model,
+                                                  imvoxelnet_loss,
                                                   imvoxelnet_predict)
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
@@ -63,6 +72,7 @@ from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
 from imvoxelnet_tpu_torch.tools.profile_forward import zero_cls_bias
+from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
                                                   kitti_train_batch,
                                                   serving_batch,
@@ -124,12 +134,17 @@ def copy_rate_tb_s():
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti'):
+def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
+                      train=False):
     """B1 at the main-path shapes of preset ``name``: its feature map,
-    channels and voxel grid."""
+    channels and voxel grid; ``train``: KITTI's padded training size."""
     preset = get_preset(name)
     cfg = preset.model
-    batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED)
+    if train:
+        batch = kitti_train_batch(b, 'cuda', seed=SEED,
+                                  size=preset.data.train_size)
+    else:
+        batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED)
     h, w = batch['images'].shape[2:4]
     hf, wf, c = h // 4, w // 4, cfg.fpn_out_channels
     feats = torch.tensor(rng.randn(b, 1, hf, wf, c).astype(np.float32),
@@ -156,8 +171,9 @@ def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti'):
         name='backproject', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/backproject.cu',
         replaces='imvoxelnet_tpu/ops/backproject_pallas.py:155',
-        shape=f'{name} b={b} {str(dtype)[6:]} features '
-              f'{tuple(feats.shape)} P={p}', max_abs_err=err,
+        shape=f'{name}{" training" if train else ""} b={b} '
+              f'{str(dtype)[6:]} features {tuple(feats.shape)} P={p}',
+        max_abs_err=err,
         seen_frac=float((cnt > 0).float().mean()),
         ms=time_ms(lambda: bp_kernel.backproject_batch(feats, points, proj, hw),
                    10),
@@ -193,8 +209,8 @@ def car_boxes(rng, g, n):
 def assert_same_bits(name, got, ref):
     n_diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
     if n_diff:
-        raise AssertionError(f'{name}: {n_diff} of {got.numel()} values not '
-                             f'bit-identical to the plain version')
+        raise AssertionError(f'{name}: {n_diff} 32-bit words of '
+                             f'{got.numel()} values not bit-identical')
 
 
 def clip_row(name, replaces, shape, ms, plain_ms, n_bytes, n_flops, **extra):
@@ -214,7 +230,7 @@ def check_rect_clip_paired(rng):
     got = clip_kernel.rect_intersection_area(c1, c2)
     ref = iou_ops.rect_intersection_area_plain(c1, c2)
     torch.cuda.synchronize()
-    assert_same_bits('rect_clip paired', got, ref)
+    assert_same_bits('rect_clip paired vs its plain version', got, ref)
     n = c1.shape[0]
 
     def run():
@@ -233,7 +249,8 @@ def check_rect_clip_pairwise(g, n, rng):
     got = clip_kernel.rect_intersection_area_pairwise(corners, corners)
     ref = iou_ops.rect_intersection_area_pairwise_plain(corners, corners)
     torch.cuda.synchronize()
-    assert_same_bits(f'rect_clip pairwise G={g} N={n}', got, ref)
+    assert_same_bits(f'rect_clip pairwise G={g} N={n} vs its plain version',
+                     got, ref)
     if not (0 < float((got > 0).float().mean()) < 1):
         raise AssertionError('rect_clip pairwise: degenerate test boxes')
     def run():
@@ -313,39 +330,88 @@ def check_nms_kernels(g, n, iou_thr, rng, plain_reps=20):
     return mask_row, scan_row
 
 
-def check_conv3x3x3(b, dtype, tol, rng):
+def check_conv3x3x3(b, dtype, tol, rng, dx=False):
+    """B3 at KITTI's block0 shape.  ``dx``: the input gradient of the
+    training step, the same kernel on the output gradient with the
+    transposed kernel; its library call is ``aten.convolution_backward``
+    asked for the input gradient alone."""
     nx, ny, nz, c = 216, 248, 12, 64         # KITTI block0
     x = torch.tensor(rng.randn(b, nx, ny, nz, c).astype(np.float32),
                      device='cuda').to(dtype)
     w = torch.tensor((rng.randn(3, 3, 3, c, c) / np.sqrt(27 * c))
                      .astype(np.float32), device='cuda').to(dtype)
-    got = conv_kernel.conv3x3x3(x, w)
-    ref = conv3z.conv3x3x3_plain(x, w)
+    w_run = conv3z.transpose_kernel(w) if dx else w
+    got = conv_kernel.conv3x3x3(x, w_run)
+    ref = conv3z.conv3x3x3_plain(x, w_run)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
     x_ncdhw = x.permute(0, 4, 1, 2, 3)           # channels_last_3d memory
     w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
+    if dx:
+        def library():
+            return torch.ops.aten.convolution_backward(
+                x_ncdhw, x_ncdhw, w_oidhw, None, [1, 1, 1], [1, 1, 1],
+                [1, 1, 1], False, [0, 0, 0], 1, [True, False, False])[0]
+    else:
+        def library():
+            return F.conv3d(x_ncdhw, w_oidhw, padding=1)
     n_flops = 2 * b * nx * ny * nz * 27 * c * c
     t_bound, by = bound(nbytes(x, w, got), n_flops, dtype)
+    extra = {}
+    if dtype == torch.float32:
+        # both float32 convs against one in float64: how far each is from
+        # the exact result
+        exact = conv3z.conv3x3x3_plain(x.double(), w_run.double())
+        extra = dict(max_abs_err_vs_float64=(got - exact).abs().max().item(),
+                     library_max_abs_err_vs_float64=(
+                         ref - exact).abs().max().item())
+        del exact
     reps = 10
-    ms = time_ms(lambda: conv_kernel.conv3x3x3(x, w), reps)
+    ms = time_ms(lambda: conv_kernel.conv3x3x3(x, w_run), reps)
+    what = 'dx: output gradient' if dx else 'x'
     return dict(
         name='conv3x3x3', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/conv3x3x3.cu',
         replaces='imvoxelnet_tpu/ops/conv3z_pallas.py:91',
-        shape=f'b={b} {str(dtype)[6:]} x {tuple(x.shape)}', max_abs_err=err,
-        ms=ms, tflops=n_flops / (ms * 1e-3) / 1e12,
-        plain_ms=time_ms(lambda: conv3z.conv3x3x3_plain(x, w), reps),
-        bound_ms=t_bound, bound_by=by,
-        library_ms=time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1),
-                           reps))
+        shape=f'b={b} {str(dtype)[6:]} {what} {tuple(x.shape)}',
+        max_abs_err=err, ms=ms, tflops=n_flops / (ms * 1e-3) / 1e12,
+        plain_ms=time_ms(lambda: conv3z.conv3x3x3_plain(x, w_run), reps),
+        bound_ms=t_bound, bound_by=by, library_ms=time_ms(library, reps),
+        library_call=('aten.convolution_backward, input gradient only'
+                      if dx else 'F.conv3d'), **extra)
+
+
+GRAD_PASSES = ('grad_count_kernel', 'grad_scan_kernel', 'grad_fill_kernel',
+               'grad_sum_kernel', 'Memset')
+
+
+def device_ms_by_name(fn, names, reps=5):
+    """Device milliseconds per call of ``fn`` for each kernel whose name
+    holds one of ``names``, from ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        for n in names:
+            if n in ev.key and ev.self_device_time_total > 0:
+                out[n] = out.get(n, 0.0) + \
+                    ev.self_device_time_total / 1e3 / reps
+    return out
 
 
 def check_backproject_grad(b, dtype, rng):
     """The backward kernel at the training shapes (imvoxelnet_kitti's padded
-    train size): against its plain version, with the library time of
-    ``index_add_`` over the forward's precomputed pixels."""
+    train size): bit for bit against its plain version run on CPU copies,
+    two launches bit-identical, with the device time of each of its passes
+    and the library time of ``index_add_`` over the forward's precomputed
+    pixels."""
     preset = get_preset('imvoxelnet_kitti')
     cfg, size = preset.model, preset.data.train_size
     batch = kitti_train_batch(b, 'cuda', seed=SEED, size=size)
@@ -359,12 +425,16 @@ def check_backproject_grad(b, dtype, rng):
     g = torch.tensor(rng.randn(p, b, c).astype(np.float32),
                      device='cuda').to(dtype)
     got = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
-    ref = bp.backproject_batch_grad_plain(g, points, proj, hw, hf, wf)
+    again = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
+    ref = bp.backproject_batch_grad_plain(g.cpu(), points.cpu(), proj.cpu(),
+                                          hw.cpu(), hf, wf)
     torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
-    # float32 sums in another order, then one rounding to the features' type
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    # (32-bit words of the rows, both dtypes: C is even)
+    assert_same_bits(f'backproject_grad b={b} vs its plain version on the '
+                     f'CPU', got.cpu(), ref)
+    assert_same_bits(f'backproject_grad b={b}, second launch vs first',
+                     again, got)
+    err = (got.cpu().float() - ref.float()).abs().max().item()
 
     # the same function as one library call: index_add_ of the float32
     # gradient rows at the forward's pixels (unseen rows to a spare row)
@@ -375,17 +445,23 @@ def check_backproject_grad(b, dtype, rng):
                              f'seen')
     base = torch.arange(b, device='cuda')[:, None] * (hf * wf)
     flat = torch.where(valid[:, 0], base + idx[:, 0], b * hf * wf)
+    segments = torch.bincount(flat.reshape(-1), minlength=b * hf * wf + 1
+                              )[:-1]
     flat = flat.t().reshape(-1).contiguous()                   # (P * B,)
     src = g.float().reshape(p * b, c)
     table = torch.zeros((b * hf * wf + 1, c), device='cuda')
     lib = torch.zeros_like(table).index_add_(0, flat, src)[:-1]
-    torch.testing.assert_close(lib.reshape(got.shape), ref.float(),
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(lib.reshape(got.shape), ref.float().cuda(),
                                rtol=tol, atol=tol)
     # per row: 3 projections of 6 operations, 2 divides; per seen row C adds
     n_flops = b * p * (18 + 2) + n_valid * c
     t_bound, by = bound(nbytes(g, points, proj, hw, got), n_flops,
                         torch.float32)
     reps = 10
+
+    def run():
+        return bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
     return dict(
         name='backproject_grad', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/backproject.cu',
@@ -394,9 +470,13 @@ def check_backproject_grad(b, dtype, rng):
                  'imvoxelnet_tpu/ops/backproject.py:166)',
         shape=f'b={b} {str(dtype)[6:]} grad_acc {tuple(g.shape)} -> '
               f'{tuple(got.shape)}', max_abs_err=err,
+        bit_identical_to_plain_on_cpu=True, repeats_bit_for_bit=True,
         seen_rows=n_valid,
-        ms=time_ms(lambda: bp_kernel.backproject_batch_grad(
-            g, points, proj, hw, hf, wf), reps),
+        pixels_read=int((segments > 0).sum()), pixels=int(segments.numel()),
+        longest_segment=int(segments.max()),
+        mean_segment=n_valid / max(1, int((segments > 0).sum())),
+        ms=time_ms(run, reps),
+        pass_ms=device_ms_by_name(run, GRAD_PASSES),
         plain_ms=time_ms(lambda: bp.backproject_batch_grad_plain(
             g, points, proj, hw, hf, wf), 3),
         bound_ms=t_bound, bound_by=by,
@@ -408,28 +488,34 @@ def check_backproject_grad(b, dtype, rng):
 # phase 3: the slice
 # --------------------------------------------------------------------------
 
-class plain_path:
+@contextlib.contextmanager
+def swapped(*patches):
+    """Replace ``module.attr`` by ``fn`` for each ``(module, attr, fn)``
+    for the duration of the block."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
+         (iou_ops, 'rect_intersection_area',
+          iou_ops.rect_intersection_area_plain),
+         (iou_ops, 'rect_intersection_area_pairwise',
+          iou_ops.rect_intersection_area_pairwise_plain),
+         (nms_ops, 'rotated_nms_presorted',
+          nms_ops.rotated_nms_presorted_plain),
+         (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
+
+
+def plain_path():
     """Route the model's kernel call sites to their plain versions for the
     duration of the block (a smoke-run comparison device only)."""
-
-    PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
-             (iou_ops, 'rect_intersection_area',
-              iou_ops.rect_intersection_area_plain),
-             (iou_ops, 'rect_intersection_area_pairwise',
-              iou_ops.rect_intersection_area_pairwise_plain),
-             (nms_ops, 'rotated_nms_presorted',
-              nms_ops.rotated_nms_presorted_plain),
-             (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
-
-    def __enter__(self):
-        self._saved = [(m, a, getattr(m, a)) for m, a, _ in self.PLAIN]
-        for mod, attr, plain in self.PLAIN:
-            setattr(mod, attr, plain)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, attr, fn in self._saved:
-            setattr(mod, attr, fn)
+    return swapped(*PLAIN)
 
 
 def forward(m, c, batch, sync_debug='default'):
@@ -587,6 +673,149 @@ def bn_stats(model):
                                                         'running_var'))}
 
 
+class B3PlainForward(conv3z.Conv3x3x3Function):
+    """B3 with its forward as ``F.conv3d`` and its ``dx`` through the
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, plain=False):
+        ctx.save_for_backward(x, kernel)
+        ctx.conv = conv_kernel.conv3x3x3
+        return conv3z.conv3x3x3_plain(x, kernel)
+
+
+class B3PlainDx(conv3z.Conv3x3x3Function):
+    """B3 with its forward through the kernel and its ``dx`` as
+    ``F.conv3d``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, plain=False):
+        ctx.save_for_backward(x, kernel)
+        ctx.conv = conv3z.conv3x3x3_plain
+        return conv_kernel.conv3x3x3(x, kernel)
+
+
+class B1PlainBackward(bp.BackprojectFunction):
+    """B1 with its forward through the kernel and its backward as the plain
+    ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, features, points, projections, valid_hw, plain=False):
+        out = bp.BackprojectFunction.forward(ctx, features, points,
+                                             projections, valid_hw)
+        ctx.plain = True
+        return out
+
+
+def conv_with(fn):
+    return lambda x, k: fn.apply(x.contiguous(), k.contiguous())
+
+
+def backproject_with(fn):
+    return lambda f, pts, pj, hw: fn.apply(
+        f.contiguous(), pts.float().contiguous(), pj.float().contiguous(),
+        hw.to(torch.int32).contiguous())
+
+
+# one kernel at a time swapped for its plain version (the C2 study)
+SWAPS = {
+    'B3 forward plain': [(necks3d, 'conv3x3x3', conv_with(B3PlainForward))],
+    'B3 dx plain': [(necks3d, 'conv3x3x3', conv_with(B3PlainDx))],
+    'B1 backward plain': [(bp, 'backproject_batch',
+                           backproject_with(B1PlainBackward))],
+}
+GAP_WATCH = 'neck_3d.model.4.conv1.weight'
+
+
+def first_grads(model, cfg, batch):
+    """The trainable gradients of one training step of ``model`` from zero
+    gradients (train-mode forward, losses, backward; the optimizer's
+    freezing), at ``cfg``'s precision, as float64 copies."""
+    for name, prm in model.named_parameters():
+        prm.requires_grad_(train_lib.param_label(name) != 'frozen')
+        prm.grad = None
+    with compute_precision(cfg.compute_dtype):
+        model.train()
+        head_outs, _ = model(batch)
+        sum(imvoxelnet_loss(cfg, head_outs, batch).values()).backward()
+    return {n: (torch.zeros_like(prm) if prm.grad is None else prm.grad)
+            .detach().double() for n, prm in model.named_parameters()
+            if prm.requires_grad}
+
+
+def grad_gap(got, ref):
+    """Worst max-abs gap over max-abs of ``ref`` across the gradients
+    (the conv biases before a batch-statistics BN, true gradient 0, left
+    out), its parameter, and the gap on ``GAP_WATCH``."""
+    gaps = {}
+    for name, r in ref.items():
+        if name in BIASES_BEFORE_BN:
+            continue
+        scale = r.abs().max().item()
+        gaps[name] = ((got[name].double() - r.double()).abs().max().item()
+                      / scale if scale > 0 else 0.0)
+    worst = max(gaps, key=gaps.get)
+    return dict(worst=gaps[worst], worst_grad=worst,
+                watched=gaps[GAP_WATCH])
+
+
+def gradient_gap_study(pristine, cfg, batch, grads, plain_grads):
+    """Where the b=1 float32 gap between the kernel path and the plain path
+    comes from: each kernel swapped alone for its plain version, a second
+    kernel-path step, and a float64 step of the plain path as the
+    reference that both paths are measured against."""
+    kernel_path = {k: v.double() for k, v in grads.items()}
+    plain = {k: v.double() for k, v in plain_grads.items()}
+    out = {'kernel path': dict(vs_plain=grad_gap(kernel_path, plain))}
+    runs = {'kernel path again': []}
+    runs.update(SWAPS)
+    for tag, patches in runs.items():
+        with swapped(*patches):
+            g = first_grads(copy.deepcopy(pristine), cfg, batch)
+        out[tag] = dict(vs_plain=grad_gap(g, plain),
+                        vs_kernel_path=grad_gap(g, kernel_path))
+        del g
+    cfg64 = dataclasses.replace(cfg, compute_dtype='float64')
+    model64 = build_model(cfg64, device='cuda', seed=SEED)
+    model64.load_state_dict(pristine.state_dict())
+    model64.double()
+    with plain_path():
+        exact = first_grads(model64, cfg64, batch)
+    del model64
+    out['kernel path']['vs_float64'] = grad_gap(kernel_path, exact)
+    out['plain path'] = dict(vs_float64=grad_gap(plain, exact))
+    for tag, res in out.items():
+        log(f'train b=1 float32 gradient gap, {tag}: ' + ', '.join(
+            f'{k} worst {v["worst"]:.3g} ({v["worst_grad"]}), '
+            f'{GAP_WATCH} {v["watched"]:.3g}' for k, v in res.items()))
+    return out
+
+
+def repeat_count(pristine, preset, batch):
+    """Two b=1 float32 training steps of the kernel path from one state
+    with ``cudnn.deterministic`` set: every gradient must repeat bit for
+    bit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            step, grads = trainer(copy.deepcopy(pristine), preset)
+            step(batch)
+            runs.append(grads)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    same = [n for n, g in runs[0].items() if torch.equal(
+        g.view(torch.int32), runs[1][n].view(torch.int32))]
+    differing = sorted(set(runs[0]) - set(same))
+    log(f'train b=1 float32, cudnn.deterministic: {len(same)} of '
+        f'{len(runs[0])} gradients repeat bit for bit')
+    if differing:
+        raise AssertionError(f'train b=1 float32: gradients differ between '
+                             f'two steps from one state: {differing}')
+    return dict(repeated=len(same), gradients=len(runs[0]))
+
+
 def run_train():
     preset = get_preset('imvoxelnet_kitti')
     cfg = preset.model
@@ -595,6 +824,7 @@ def run_train():
     # --- b=1 float32: one step through the kernels and one through the
     # plain versions (forward and backward), from the same weights
     model = build_model(cfg, device='cuda', seed=SEED)
+    pristine = copy.deepcopy(model)
     plain_model = copy.deepcopy(model)
     step, grads = trainer(model, preset)
     plain_step, plain_grads = trainer(plain_model, preset)
@@ -650,7 +880,12 @@ def run_train():
         f'{float(metrics["loss"]):.6g}, {len(plain_grads)} gradients within '
         f'{worst:.3g} of their max-abs ({worst_name} the worst), BN stats '
         f'within {stats_err:.3g})')
-    del model, plain_model, step, plain_step, grads, plain_grads
+    del model, plain_model, step, plain_step
+    out['b1_float32_gap_study'] = gradient_gap_study(
+        pristine, cfg, batch1, grads, plain_grads)
+    del grads, plain_grads
+    out['b1_float32_repeat'] = repeat_count(pristine, preset, batch1)
+    del pristine
 
     # --- b=4 bfloat16 at the padded train size: throughput
     b = preset.data.samples_per_device
@@ -741,9 +976,13 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    # the float32 comparisons in full float32 (TF32 off); bfloat16 work is
+    # untouched by the flags
+    with compute_precision('float32'):
+        return smoke()
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+
+def smoke():
     rng = np.random.RandomState(SEED)
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
@@ -789,6 +1028,14 @@ def main():
     bp_grad_row = check_backproject_grad(4, torch.bfloat16, rng)
     log(json.dumps(check_backproject_grad(1, torch.float32, rng)))
     log(json.dumps(bp_grad_row))
+    # B1's forward and B3's forward and dx at the b=4 bfloat16 training
+    # shapes
+    train_rows = [check_backproject(4, torch.bfloat16, 2e-2, rng,
+                                    train=True),
+                  check_conv3x3x3(4, torch.bfloat16, 2e-2, rng),
+                  check_conv3x3x3(4, torch.bfloat16, 2e-2, rng, dx=True)]
+    for row in train_rows:
+        log(json.dumps(row))
     train, train_counts = run_train()
     log(json.dumps({'train': train}))
 
@@ -820,12 +1067,14 @@ def main():
     log(smi)
     # the summary line: the kernels at the KITTI serving shapes (b=8
     # bfloat16; the NMS of 8 samples x 100 candidates) with the launches of
-    # the b=8 forward, the backprojection's backward at the b=4 bfloat16
-    # training shapes with its launches in the 5 timed training steps, and
+    # the b=8 forward; the backprojection's backward, its forward and B3's
+    # forward and dx at the b=4 bfloat16 training shapes with their
+    # launches in the 5 timed training steps (B3's count holds both); and
     # the indoor rows with the launches of their preset's b=8 forward
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
-            + [(bp_grad_row, train_counts['backproject_grad'])] \
+            + [(r, train_counts[r['name']])
+               for r in [bp_grad_row] + train_rows] \
             + [(r, indoor_counts[p][r['name']]) for r, p in indoor_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',

@@ -63,8 +63,15 @@ def backproject_batch(features, points, projections, valid_hw):
 
 def backproject_batch_grad(grad_acc, points, projections, valid_hw,
                            hf: int, wf: int):
-    """Gradient of the sums with respect to the features: a scatter-add of
-    ``grad_acc`` into each view's feature table at the forward's pixels.
+    """Gradient of the sums with respect to the features: each feature row
+    gets the sum of the ``grad_acc`` rows of the voxels that read it.
+
+    A pixel-major gather with no floating-point atomics (``csrc/
+    backproject.cu``: count, scan, fill and sum passes after one memset):
+    each output row is summed in float32 from zero in ascending voxel order,
+    the order in which ``ops/backproject.py:backproject_batch_grad_plain``
+    adds on the CPU, and rounded once to the output's type, so the result
+    equals the plain version's bit for bit and repeats from call to call.
 
     Args:
       grad_acc: ``(P, B, C)`` float32 or bfloat16, C even.
@@ -72,8 +79,7 @@ def backproject_batch_grad(grad_acc, points, projections, valid_hw,
       hf, wf: the feature map's height and width.
 
     Returns:
-      ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype, summed in float32 with
-      atomics (so not bit-for-bit repeatable).
+      ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype.
     """
     global grad_launches
     require(grad_acc, 'grad_acc', (torch.float32, torch.bfloat16), 3)
@@ -92,12 +98,19 @@ def backproject_batch_grad(grad_acc, points, projections, valid_hw,
                          f'{tuple(points.shape)}, projections '
                          f'{tuple(projections.shape)}, valid_hw '
                          f'{tuple(valid_hw.shape)}, feature map {(hf, wf)}')
-    table = torch.zeros((b, v, hf, wf, c), dtype=torch.float32,
-                        device=grad_acc.device)
+    if b * v * p >= 2 ** 31 or b * v * hf * wf >= 2 ** 31 - 1:
+        raise ValueError(f'too many rows for 32-bit segment indices: '
+                         f'B*V*P = {b * v * p}, B*V*Hf*Wf = {b * v * hf * wf}')
+    dev = grad_acc.device
+    n_scratch = build.kernel('backproject', 'imvx_backproject_grad_scratch')(
+        b, v, hf, wf, p)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    out = torch.empty((b, v, hf, wf, c), dtype=grad_acc.dtype, device=dev)
     err = build.kernel('backproject', 'imvx_backproject_grad')(
         grad_acc.data_ptr(), int(grad_acc.dtype == torch.bfloat16),
         points.data_ptr(), projections.data_ptr(), valid_hw.data_ptr(),
-        table.data_ptr(), b, v, hf, wf, c, p, stream_of(grad_acc))
+        out.data_ptr(), scratch.data_ptr(), b, v, hf, wf, c, p,
+        stream_of(grad_acc))
     build.check(err, 'backproject_grad')
     grad_launches += 1
-    return table.to(grad_acc.dtype)
+    return out

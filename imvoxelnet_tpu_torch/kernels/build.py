@@ -33,7 +33,8 @@ _EXTRA = {'backproject': ['-fmad=false'], 'rect_clip': ['-fmad=false'],
           'conv3x3x3': []}
 
 # Each library's functions and their ctypes argument types; every function
-# returns the CUDA error code of its launch as an int.
+# returns the CUDA error code of its launch as an int, except those in
+# RESTYPES.
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 SIGNATURES = {
@@ -41,7 +42,8 @@ SIGNATURES = {
         'imvx_backproject':
             [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
         'imvx_backproject_grad':
-            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P]},
+            [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+        'imvx_backproject_grad_scratch': [_I, _I, _I, _I, _L]},
     'rect_clip': {
         'imvx_rect_clip': [_P, _P, _P, _L, _P],
         'imvx_rect_clip_pairwise': [_P, _P, _P, _I, _I, _I, _P],
@@ -50,6 +52,7 @@ SIGNATURES = {
     'conv3x3x3': {
         'imvx_conv3x3x3': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
+RESTYPES = {'imvx_backproject_grad_scratch': ctypes.c_longlong}
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -120,7 +123,7 @@ def _open(name: str) -> dict:
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
         fns[fn_name] = fn
     return fns
 

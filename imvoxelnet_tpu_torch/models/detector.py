@@ -81,7 +81,13 @@ def build_neck(cfg: NeckConfig) -> nn.Module:
 
 class ImVoxelNet(nn.Module):
     """Parameters carry the reference's mmdet ``state_dict`` names
-    (``backbone.*``, ``neck.*``, ``neck_3d.*``, ``bbox_head.*``)."""
+    (``backbone.*``, ``neck.*``, ``neck_3d.*``, ``bbox_head.*``).
+
+    The module sets no precision flag of its own: run a ``'float32'`` model
+    inside ``utils.precision.compute_precision(cfg.compute_dtype)`` (the
+    train step and the tools do) so that its cuDNN convolutions and matmuls
+    compute in full float32 rather than TF32 on the card.
+    """
 
     def __init__(self, cfg: ImVoxelNetConfig):
         super().__init__()

@@ -12,8 +12,11 @@ tensors.  Layouts are the JAX package's: channel-last features
 
 The gradient reaches the features only (the JAX package's indices are
 integers): on CUDA tensors through :class:`BackprojectFunction`, whose
-backward is the scatter-add kernel, with ``backproject_batch_grad_plain`` as
-its plain version; on CPU tensors autograd differentiates the plain forward.
+backward is a kernel that gathers, for each feature row, the gradient rows of
+the voxels that read it and adds them in ascending voxel order (no float
+atomics: the result repeats bit for bit), with
+``backproject_batch_grad_plain`` as its plain version; on CPU tensors
+autograd differentiates the plain forward.
 """
 
 from __future__ import annotations
@@ -132,7 +135,10 @@ def backproject_batch_grad_plain(grad_acc, points, projections, valid_hw,
 
     ``grad_acc (P, B, C)`` is added, in float32, into each view's
     ``(hf * wf, C)`` table at the pixels the forward read (``index_add_``);
-    returns ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype.
+    returns ``(B, V, hf, wf, C)`` in ``grad_acc``'s dtype.  On the CPU
+    ``index_add_`` adds the rows one after another in index order, i.e. each
+    feature row is a float32 sum from zero in ascending voxel order, rounded
+    once: the kernel's order, so the two agree bit for bit.
     """
     p, b, c = grad_acc.shape
     v = projections.shape[1]
@@ -154,10 +160,12 @@ class BackprojectFunction(torch.autograd.Function):
     valid_hw, plain=False)`` -> ``(acc, cnt)``.
 
     The forward is the kernel (``plain=True``: ``backproject_batch_plain``)
-    and the backward the scatter-add kernel (``plain=True``:
+    and the backward the gather kernel (``plain=True``:
     ``backproject_batch_grad_plain``), which recomputes the pixels rather
-    than saving the forward's ``(B, V, P)`` indices.  Only ``features`` gets
-    a gradient; ``cnt`` is not differentiable.
+    than saving the forward's ``(B, V, P)`` indices, groups the voxels by
+    pixel and sums each pixel's gradient rows in ascending voxel order, with
+    no float atomics: the same inputs give the same bits.  Only ``features``
+    gets a gradient; ``cnt`` is not differentiable.
     """
 
     @staticmethod

@@ -16,7 +16,9 @@ Counterpart of ``imvoxelnet_tpu/parallel/train.py`` (``param_labels``,
     param group.
 
 One step is: forward in train mode, targets and losses, backward, clip,
-update, LR step -- all queued on the device, with no host read.
+update, LR step -- all queued on the device, with no host read, at the
+precision of the model's ``compute_dtype`` (``utils/precision.py``: float32
+means TF32 off).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..models.detector import imvoxelnet_loss
+from ..utils.precision import compute_precision
 
 def param_label(name: str) -> str:
     """``'frozen'``, ``'backbone'`` or ``'rest'`` for a parameter of
@@ -95,11 +98,12 @@ def make_train_step(model, optimizer, scheduler):
     """``step(batch) -> metrics``: one update of ``model`` on ``batch`` (the
     detector's layout with ``gt_boxes``, ``gt_labels``, ``gt_mask``).
 
-    Puts the model in train mode.  ``metrics`` holds ``loss_cls``,
-    ``loss_bbox``, ``loss_dir`` and ``loss`` as device tensors.  Every
-    trainable parameter gets a zero gradient up front, so that one that does
-    not reach the loss (the FPN's unused output convs) still decays, as under
-    optax.
+    Puts the model in train mode and runs inside
+    ``compute_precision(model.cfg.compute_dtype)``.  ``metrics`` holds
+    ``loss_cls``, ``loss_bbox``, ``loss_dir`` and ``loss`` as device tensors.
+    Every trainable parameter gets a zero gradient up front, so that one that
+    does not reach the loss (the FPN's unused output convs) still decays, as
+    under optax.
     """
     cfg = model.cfg
     params = [p for g in optimizer.param_groups for p in g['params']]
@@ -108,14 +112,15 @@ def make_train_step(model, optimizer, scheduler):
             p.grad = torch.zeros_like(p)
 
     def step(batch):
-        model.train()
-        optimizer.zero_grad(set_to_none=False)
-        head_outs, _ = model(batch)
-        losses = imvoxelnet_loss(cfg, head_outs, batch)
-        total = sum(losses.values())
-        total.backward()
-        optimizer.step()
-        scheduler.step()
+        with compute_precision(cfg.compute_dtype):
+            model.train()
+            optimizer.zero_grad(set_to_none=False)
+            head_outs, _ = model(batch)
+            losses = imvoxelnet_loss(cfg, head_outs, batch)
+            total = sum(losses.values())
+            total.backward()
+            optimizer.step()
+            scheduler.step()
         return dict({k: v.detach() for k, v in losses.items()},
                     loss=total.detach())
     return step

@@ -24,6 +24,8 @@ size (1408x416).  It reports:
   ``torch.profiler``;
 * the card's name and power limit.
 
+A float32 run computes in full float32 (TF32 off: ``utils/precision.py``).
+
 Needs a CUDA device.  One JSON object goes to ``--out``; a summary to stdout.
 """
 
@@ -43,12 +45,14 @@ from torch.autograd import DeviceType
 from ..configs.presets import get_preset
 from ..models.detector import build_model, imvoxelnet_predict
 from ..parallel import train as train_lib
+from ..utils.precision import compute_precision
 from ..utils.synthetic import kitti_train_batch, serving_batch
 
 STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
 # name fragments of the kernels in kernels/csrc/*.cu
-OWN_KERNELS = ('backproject', 'conv_wgmma', 'split3', 'rect_clip_kernel',
+OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
+               'grad_sum', 'conv_wgmma', 'split3', 'rect_clip_kernel',
                'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
 
@@ -103,6 +107,38 @@ def step_events(model, optimizer, events):
                 lambda *_: record(events, ('optimizer', 'end')))]
 
 
+def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
+             device='cuda'):
+    """The preset's model (random weights from ``SEED``) and ``run()``, one
+    forward + decode or one training step on its synthetic batch, at the
+    precision ``dtype`` names (``utils/precision.py``: float32 means TF32
+    off).  Returns ``(model, optimizer or None, run)``."""
+    preset = get_preset(preset_name)
+    cfg = dataclasses.replace(preset.model, compute_dtype=dtype)
+    model = build_model(cfg, device=device, seed=SEED)
+    if train:
+        batch = kitti_train_batch(batch_size, device, seed=SEED,
+                                  size=preset.data.train_size)
+        optimizer, scheduler = train_lib.make_optimizer(
+            model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
+            preset.grad_clip_norm, steps_per_epoch=1000,
+            lr_steps=preset.lr_steps)
+        train_step = train_lib.make_train_step(model, optimizer, scheduler)
+
+        def run():
+            return train_step(batch)['loss']
+        return model, optimizer, run
+    zero_cls_bias(model)
+    batch = serving_batch(preset.data.dataset, batch_size, device, seed=SEED)
+
+    def run():
+        with compute_precision(dtype), torch.no_grad():
+            head_outs, valid = model(batch)
+            return imvoxelnet_predict(cfg, head_outs, valid,
+                                      batch['origins'])
+    return model, None, run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--train', action='store_true',
@@ -130,32 +166,10 @@ def main(argv=None):
         print('profile_forward: --train runs the KITTI step only',
               file=sys.stderr)
         return 1
-    cfg = dataclasses.replace(preset.model, compute_dtype=args.dtype)
-    model = build_model(cfg, device='cuda', seed=SEED)
+    model, optimizer, run = make_run(args.preset, args.train, batch_size,
+                                     args.dtype)
     events = {}
     handles = []
-    if args.train:
-        batch = kitti_train_batch(batch_size, 'cuda', seed=SEED,
-                                  size=preset.data.train_size)
-        optimizer, scheduler = train_lib.make_optimizer(
-            model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
-            preset.grad_clip_norm, steps_per_epoch=1000,
-            lr_steps=preset.lr_steps)
-        train_step = train_lib.make_train_step(model, optimizer, scheduler)
-
-        def run():
-            return train_step(batch)['loss']
-    else:
-        zero_cls_bias(model)
-        batch = serving_batch(preset.data.dataset, batch_size, 'cuda',
-                              seed=SEED)
-
-        def run():
-            with torch.no_grad():
-                head_outs, valid = model(batch)
-                return imvoxelnet_predict(cfg, head_outs, valid,
-                                          batch['origins'])
-
     run()                                       # build kernels, warm up
     torch.cuda.synchronize()
 

@@ -41,9 +41,11 @@ def cuda():
 
 
 def _bp_geometry(dev, b, v, hf, wf, valid_hw=None, n_voxels=(7, 6, 5),
-                 blind_view=False):
+                 blind_view=False, cluster=0):
     """Voxel centers, projections and valid extents of a small scene;
-    ``blind_view`` puts every voxel behind the last view's camera."""
+    ``blind_view`` puts every voxel behind the last view's camera;
+    ``cluster`` copies of one seen voxel center are spread over the voxel
+    list, so that one pixel is read by that many voxels or more."""
     k = torch.tensor([[20.0, 0, 8.037], [0, 20.0, 5.971], [0, 0, 1]],
                      device=dev)
     proj = torch.zeros((b, v, 3, 4), device=dev)
@@ -59,6 +61,14 @@ def _bp_geometry(dev, b, v, hf, wf, valid_hw=None, n_voxels=(7, 6, 5),
         b, -1, 3).contiguous()
     hw = torch.tensor([valid_hw or (hf, wf)] * b, dtype=torch.int32,
                       device=dev)
+    if cluster:
+        _, valid = bp._view_indices(points, proj, hw, hf, wf)
+        hot = int(valid.sum((0, 1)).argmax())
+        pieces, start = [], 0
+        for at in np.linspace(0, points.shape[1], cluster, endpoint=False):
+            pieces += [points[:, start:int(at)], points[:, hot:hot + 1]]
+            start = int(at)
+        points = torch.cat(pieces + [points[:, start:]], 1).contiguous()
     return points, proj, hw
 
 
@@ -94,45 +104,75 @@ def test_backproject_kernel_matches_plain(cuda, b, v, c, dtype, valid_hw):
     assert torch.equal(acc, ref_acc)
 
 
-@pytest.mark.parametrize('b,v,c,dtype,valid_hw,blind', [
-    (1, 1, 64, torch.float32, None, False),
-    (2, 3, 8, torch.float32, (9, 13), True),
-    (3, 2, 64, torch.bfloat16, None, True),
-    (2, 1, 130, torch.bfloat16, (9, 13), False),
-    (1, 2, 2, torch.float32, None, False),
-])
-def test_backproject_grad_kernel_matches_plain(cuda, b, v, c, dtype,
-                                               valid_hw, blind):
-    """Odd P (105 voxels), views that see nothing, both dtypes; float32
-    atomics land in any order, so a tolerance and not the same bits."""
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _check_grad_kernel(dev, b, v, c, dtype, cluster, valid_hw=(9, 13)):
+    """The gather kernel against the plain version run on CPU copies, bit
+    for bit, and a second launch against the first."""
     rng = np.random.RandomState(3)
     hf, wf = 12, 16
-    points, proj, hw = _bp_geometry(cuda, b, v, hf, wf, valid_hw,
-                                    n_voxels=(7, 5, 3), blind_view=blind)
+    points, proj, hw = _bp_geometry(dev, b, v, hf, wf, valid_hw,
+                                    n_voxels=(7, 5, 3), blind_view=v > 1,
+                                    cluster=cluster)
     p = points.shape[1]
-    assert p % 2 == 1
     g = torch.tensor(rng.randn(p, b, c), dtype=torch.float32,
-                     device=cuda).to(dtype)
+                     device=dev).to(dtype)
     kernels.reset_launch_counts()
     got = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
-    assert kernels.launch_counts()['backproject_grad'] == 1
-    ref = bp.backproject_batch_grad_plain(g, points, proj, hw, hf, wf)
+    again = bp_kernel.backproject_batch_grad(g, points, proj, hw, hf, wf)
+    assert kernels.launch_counts()['backproject_grad'] == 2
+    ref = bp.backproject_batch_grad_plain(g.cpu(), points.cpu(), proj.cpu(),
+                                          hw.cpu(), hf, wf)
     assert got.dtype == dtype and got.shape == (b, v, hf, wf, c)
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    assert _same_bits(got.cpu(), ref)
+    assert _same_bits(again, got)
     hits = bp.backproject_batch_grad_plain(
-        torch.ones((p, b, 2), device=cuda), points, proj, hw, hf, wf)
-    assert hits.max() > 1 and (hits == 0).any()
-    if blind:
+        torch.ones((p, b, 2)), points.cpu(), proj.cpu(), hw.cpu(), hf, wf)
+    assert hits.max() >= cluster and (hits == 0).any()
+    if valid_hw is None:     # the map's last row and column are read
+        assert hits[:, :, -1].any() and hits[:, :, :, -1].any()
+    if v > 1:
         assert not got[:, -1].any()
+    return p
+
+
+@pytest.mark.parametrize('valid_hw', [None, (9, 13)], ids=['full', 'crop'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('b,v,c', [
+    (b, v, c) for b in (1, 2, 3) for v in (1, 3) for c in (64, 256, 130)]
+    + [(2, v, c) for v in (1, 3) for c in (8, 2)] + [(3, 2, 64)])
+def test_backproject_grad_kernel_matches_plain(cuda, b, v, c, dtype,
+                                               valid_hw):
+    """The gather kernel equals the plain version run on CPU copies bit for
+    bit, and a second launch repeats the first: odd P, a cluster of 40
+    voxels on one pixel (a segment longer than a warp, ordered in shared
+    memory), the whole map (its border pixels read) or a cropped valid
+    extent, pixels no voxel reads, a view that sees nothing (v > 1), rows
+    of whole 16-byte chunks (C=64, 256, 8) and not (C=130, 2)."""
+    assert _check_grad_kernel(cuda, b, v, c, dtype, cluster=40,
+                              valid_hw=valid_hw) % 2 == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('c', [64, 130])
+@pytest.mark.parametrize('v', [1, 3])
+def test_backproject_grad_kernel_orders_long_segments(cuda, v, c, dtype):
+    """A segment of 200+ voxels, longer than the sum pass orders in shared
+    memory (160): it ranks such a list in device memory."""
+    _check_grad_kernel(cuda, 2, v, c, dtype, cluster=200)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_backproject_function_gradient_matches_plain(cuda, dtype):
     """``backproject_batch`` on the card is differentiable: its gradient is
-    the backward kernel's, equal to autograd through the plain forward
-    (float32) and to the plain backward summed in float32 (bfloat16, whose
-    autograd through the plain forward would sum in bfloat16)."""
+    the backward kernel's, bit-identical to the plain backward on the CPU,
+    and equal to autograd through the plain forward (float32; bfloat16's
+    would sum in bfloat16)."""
     rng = np.random.RandomState(4)
     b, v, hf, wf, c = 2, 2, 12, 16, 64
     points, proj, hw = _bp_geometry(cuda, b, v, hf, wf, (9, 13))
@@ -146,16 +186,14 @@ def test_backproject_function_gradient_matches_plain(cuda, dtype):
     (acc.float() * r).sum().backward()
     counts = kernels.launch_counts()
     assert counts['backproject'] == 1 and counts['backproject_grad'] == 1
+    ref = bp.backproject_batch_grad_plain(r.cpu().to(dtype), points.cpu(),
+                                          proj.cpu(), hw.cpu(), hf, wf)
+    assert _same_bits(feats.grad.cpu(), ref)
     if dtype == torch.float32:
         f = feats.detach().clone().requires_grad_()
         ref_acc, _ = bp.backproject_batch_plain(f, points, proj, hw)
         (ref_acc * r).sum().backward()
-        ref = f.grad
-    else:
-        ref = bp.backproject_batch_grad_plain(r, points, proj, hw, hf, wf)
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(feats.grad.float(), ref.float(), rtol=tol,
-                               atol=tol)
+        torch.testing.assert_close(feats.grad, f.grad, rtol=1e-5, atol=1e-5)
 
 
 def test_rect_clip_kernel_bit_identical_to_plain(cuda):
@@ -546,6 +584,14 @@ def test_backproject_grad_wrapper_refuses_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match='shape mismatch'):
         bp_kernel.backproject_batch_grad(g[:-1].contiguous(), points, proj,
                                          hw, 6, 8)
+    with pytest.raises(ValueError, match='shape mismatch'):
+        bp_kernel.backproject_batch_grad(g, points, proj, hw, 0, 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        bp_kernel.backproject_batch_grad(
+            torch.zeros((points.shape[1], 1, 8), device=cuda)[..., ::2],
+            points, proj, hw, 6, 8)
+    with pytest.raises(TypeError):
+        bp_kernel.backproject_batch_grad(g, points, proj, hw.long(), 6, 8)
 
 
 def _clip_calls(dev):

@@ -105,6 +105,157 @@ def test_backproject_plain_bf16_matches_pallas_interpret(v, valid_hw):
                                atol=2e-2)
 
 
+def _clustered_grad_setup(b, v, c, dtype, seed=0):
+    """Inputs of B1's backward: ``_bp_setup``'s scene with a cluster of 40
+    copies of one voxel center spread over the voxel list (so that one
+    pixel of every view that sees it is read by 40+ voxels, more than one
+    lane group's worth), a valid extent that crops the 12x16 map (pixels no
+    voxel reads), and a gradient in ``dtype``."""
+    _, points, proj = _bp_setup(b=b, v=v, seed=seed)
+    hw = np.array([(9, 13)] * b, np.int32)
+    _, valid = bp._view_indices(torch.from_numpy(points),
+                                torch.from_numpy(proj), torch.from_numpy(hw),
+                                12, 16)
+    hot = int(valid.sum((0, 1)).argmax())        # the voxel most views see
+    n = points.shape[1]
+    at = np.linspace(0, n, 40, endpoint=False).astype(np.int64)
+    points = np.insert(points, at, points[:, hot:hot + 1], axis=1)
+    p = points.shape[1]
+    g = np.random.RandomState(seed + 1).randn(p, b, c).astype(np.float32)
+    return (torch.from_numpy(g).to(dtype), torch.from_numpy(points),
+            torch.from_numpy(proj), torch.from_numpy(hw), 12, 16)
+
+
+def _pixel_major_gather(grad_acc, points, proj, hw, hf, wf, rng):
+    """The backward kernel's algorithm (``csrc/backproject.cu``, passes 1-4)
+    in plain PyTorch: count the voxels of every (b, v, pixel) and hand out
+    slots in an arbitrary order, as the kernel's atomics do; scan the counts
+    into segment offsets; fill each segment; order each segment by rank (the
+    number of smaller entries); add each pixel's gradient rows in that order
+    in float32 from zero and round once."""
+    p, b, c = grad_acc.shape
+    v = proj.shape[1]
+    idx, valid = bp._view_indices(points, proj, hw, hf, wf)   # (B, V, P)
+    k = b * v * hf * wf
+    key = torch.arange(b * v).view(b, v, 1) * (hf * wf) + idx
+    voxel = torch.arange(p).expand(b, v, p)
+    sample = torch.arange(b).view(b, 1, 1).expand(b, v, p)
+    key, voxel, sample = key[valid], voxel[valid], sample[valid]
+    # 1. counts, and slots in order of arrival
+    counts = torch.bincount(key, minlength=k)
+    arrival = torch.from_numpy(rng.permutation(len(key)))
+    slot = torch.empty_like(key)
+    seen = torch.zeros(k, dtype=torch.int64)
+    for i in arrival.tolist():
+        slot[i] = seen[key[i]]
+        seen[key[i]] += 1
+    # 2. exclusive scan of the K + 1 counts
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(counts, 0)])
+    # 3. fill
+    entries = torch.empty(len(key), dtype=torch.int64)
+    entries[offsets[key] + slot] = voxel
+    # 4. order each segment by rank, then sum in that order
+    ordered = torch.empty_like(entries)
+    for kk in torch.nonzero(counts).flatten().tolist():
+        seg = entries[offsets[kk]:offsets[kk + 1]]
+        rank = (seg[None, :] < seg[:, None]).sum(1)
+        ordered[offsets[kk] + rank] = seg
+    g = grad_acc.float()
+    seg_sample = torch.arange(k) // (v * hf * wf)
+    out = torch.zeros((k, c), dtype=torch.float32)
+    for j in range(int(counts.max())):
+        rows = torch.nonzero(counts > j).flatten()
+        out[rows] = out[rows] + g[ordered[offsets[rows] + j],
+                                  seg_sample[rows]]
+    return out.reshape(b, v, hf, wf, c).to(grad_acc.dtype), counts
+
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('c', [4, 130])
+@pytest.mark.parametrize('v', [1, 3])
+@pytest.mark.parametrize('b', [1, 2])
+def test_backproject_grad_algorithm_bit_identical_to_plain(b, v, c, dtype):
+    """B1's backward as the kernel computes it (segments filled in an
+    arbitrary order, then ordered by voxel and summed in that order) equals
+    ``backproject_batch_grad_plain`` (``index_add_``) bit for bit: both add
+    each pixel's rows in ascending voxel order in float32 from zero."""
+    grad_acc, points, proj, hw, hf, wf = _clustered_grad_setup(b, v, c, dtype)
+    got, counts = _pixel_major_gather(grad_acc, points, proj, hw, hf, wf,
+                                      np.random.RandomState(7))
+    ref = bp.backproject_batch_grad_plain(grad_acc, points, proj, hw, hf, wf)
+    assert _same_bits(got, ref)
+    # the cases the kernel must handle: a segment longer than a warp, pixels
+    # no voxel reads (the crop), rows that sum several voxels in float32
+    assert counts.max() >= 40 and (counts == 0).any()
+    assert (counts > 1).sum() >= 5
+    # the order matters: the same rows in descending voxel order differ
+    if dtype == torch.float32 and c == 130:
+        rev = _pixel_major_gather(grad_acc.flip(0), points.flip(1), proj, hw,
+                                  hf, wf, np.random.RandomState(7))[0]
+        assert not _same_bits(rev, ref)
+
+
+def test_backproject_bf16_view_sums_against_jax_at_20_views():
+    """bfloat16 features summed over 20 views (ScanNet's training views).
+    The port adds in float32 and rounds once; the JAX package carries the
+    sum in bfloat16 (``ops/backproject.py:205``), rounding after every view.
+    Their difference is held to the first-order bound of those roundings,
+    ``2^-8 * (|S_1| + ... + |S_20| + |S|)`` for partial sums ``S_k`` (unit
+    roundoff 2^-8), and the port is the nearer of the two to the float64
+    sum of the same bfloat16 values."""
+    rng = np.random.RandomState(11)
+    b, v, hf, wf, c = 1, 20, 12, 16, 32
+    k = np.array([[20.0, 0, wf / 2 + 0.0371], [0, 20.0, hf / 2 - 0.0293],
+                  [0, 0, 1]], np.float32)
+    proj = np.zeros((b, v, 3, 4), np.float32)
+    for i in range(v):
+        e = np.eye(4, dtype=np.float32)[:3]
+        e[:2, 3] = rng.uniform(-0.05, 0.05, 2)
+        proj[0, i] = k @ e
+    origins = torch.tensor([[0.0137, -0.0213, 2.0071]])
+    points = bp.get_points((6, 6, 4), (0.3, 0.3, 0.3), origins).reshape(
+        b, -1, 3)
+    hw = torch.tensor([(hf, wf)], dtype=torch.int32)
+    feats = torch.from_numpy(rng.randn(b, v, hf, wf, c).astype(np.float32)
+                             ).to(torch.bfloat16)
+    proj = torch.from_numpy(proj)
+    acc, cnt = bp.backproject_batch_plain(feats, points, proj, hw)
+    ref_acc, ref_cnt = jax_bp.backproject_batch(
+        jnp.asarray(feats.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(points.numpy()), jnp.asarray(proj.numpy()),
+        jnp.asarray(hw.numpy()))
+    ref_acc = torch.from_numpy(np.array(ref_acc.astype(jnp.float32)))
+    np.testing.assert_array_equal(cnt.float().numpy(),
+                                  np.asarray(ref_cnt.astype(jnp.float32)))
+    assert float(cnt.float().mean()) > 10          # most views see a voxel
+    # float64 partial sums of the same bfloat16 values, view by view
+    idx, valid = bp._view_indices(points, proj, hw, hf, wf)
+    table = feats.double().reshape(b, v, hf * wf, c)
+    partial = torch.zeros((b, points.shape[1], c), dtype=torch.float64)
+    partial_abs = torch.zeros_like(partial)
+    for i in range(v):
+        row = table[:, i][torch.arange(b)[:, None], idx[:, i]]
+        partial = partial + torch.where(valid[:, i, :, None], row,
+                                        torch.zeros(()))
+        partial_abs = partial_abs + partial.abs()
+    exact = partial.transpose(0, 1)
+    limit = 2.0 ** -8 * (partial_abs + partial.abs()).transpose(0, 1)
+    dev = (acc.double() - ref_acc.double()).abs()
+    assert (dev <= limit * 1.001 + 1e-30).all()
+    assert dev.max() > 0                           # the two do differ
+    port_err = (acc.double() - exact).abs()
+    jax_err = (ref_acc.double() - exact).abs()
+    assert port_err.mean() < jax_err.mean() / 2
+    assert port_err.max() <= jax_err.max()
+
+
 def test_project_points_matches_jax():
     features, points, proj = _bp_setup(b=1, v=2)
     for i in range(2):

@@ -38,6 +38,22 @@ Phases, each failing the run on its own error:
                 204,800 voxels, C=256 into 25,600) and the NMS mask + scan
                 at 80 and 240 groups of 256 candidates against their plain
                 versions.
+  6. indoor train -- the SUN RGB-D training step (imvoxelnet_sunrgbd and
+                imvoxelnet_sunrgbd_fast, full width and depth, 768x576):
+                the clip's paired entry and its backward kernel against
+                autograd of the plain clip at the b=4 IoU-3D loss shapes
+                (934,400 and 116,800 pairs; a stress input with 80% of the
+                pairs carrying an area gradient, and the corners and area
+                gradient of a b=4 step, timed), B1's forward and backward at
+                the training shapes (b=4 bfloat16, b=1 float32, with the
+                backward's segment-length histogram); per preset one b=1
+                float32 step through the kernels held against the plain
+                path (losses, every gradient, the neck's BN statistics;
+                positives at every level, a nonzero gradient into the
+                clip), 5 timed b=4 bfloat16 steps with their launch counts
+                and one step forbidden to wait for the device; then one
+                b=4 bfloat16 step of each other SUN RGB-D preset (_top27
+                and the perspective family), with its launch counts.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -47,6 +63,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +85,7 @@ from imvoxelnet_tpu_torch.models.detector import (build_model,
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
 from imvoxelnet_tpu_torch.ops import conv3z
+from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
@@ -76,7 +94,7 @@ from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
                                                   kitti_train_batch,
                                                   serving_batch,
-                                                  sunrgbd_batch)
+                                                  sunrgbd_batch, train_batch)
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
 PEAK_BYTES = 3.35e12
@@ -137,12 +155,11 @@ def copy_rate_tb_s():
 def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
                       train=False):
     """B1 at the main-path shapes of preset ``name``: its feature map,
-    channels and voxel grid; ``train``: KITTI's padded training size."""
+    channels and voxel grid; ``train``: the preset's padded training size."""
     preset = get_preset(name)
     cfg = preset.model
     if train:
-        batch = kitti_train_batch(b, 'cuda', seed=SEED,
-                                  size=preset.data.train_size)
+        batch = train_batch(preset.data, b, 'cuda', seed=SEED)
     else:
         batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED)
     h, w = batch['images'].shape[2:4]
@@ -241,6 +258,169 @@ def check_rect_clip_paired(rng):
         time_ms(lambda: iou_ops.rect_intersection_area_plain(c1, c2), 20),
         nbytes(c1, c2, got), n * CLIP_FLOPS,
         launch_bound_ms=time_ms(run, SMALL_REPS))
+
+
+# The clip's backward per pair: the forward again (CLIP_FLOPS), then per
+# edge and slot ~37 operations of the reverse sweep (the crossing's and the
+# edge distance's adjoints, the routing adds) and 8 per slot for the
+# shoelace's adjoint.
+CLIP_GRAD_FLOPS = CLIP_FLOPS + 4 * 8 * 37 + 8 * 8
+CLIP_GRAD_REPLACES = ('imvoxelnet_tpu/ops/iou_pallas.py:189 (backward; the '
+                      'JAX package differentiates its jnp clip, '
+                      'imvoxelnet_tpu/ops/iou.py:291-307)')
+
+
+def loss_pairs(rng, n):
+    """BEV corners of ``n`` pairs as the v1 IoU-3D loss clips them
+    (``bev_corners_loss`` of gravity-center boxes): furniture-sized targets
+    with predictions near them, and a share of disjoint (5%), nested (5%)
+    and identical (5%) pairs."""
+    target = np.concatenate([rng.uniform(-3, 3, (n, 2)),
+                             rng.uniform(0.3, 2.5, (n, 2)),
+                             rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    pred = target + np.concatenate([0.2 * rng.randn(n, 2),
+                                    0.15 * rng.randn(n, 2),
+                                    0.3 * rng.randn(n, 1)], -1)
+    pred[:, 2:4] = np.abs(pred[:, 2:4]) + 0.05
+    k = n // 20
+    pred[:k, :2] += 20.0
+    pred[k:2 * k] = target[k:2 * k]
+    pred[2 * k:3 * k] = target[2 * k:3 * k] * [1, 1, 0.5, 0.5, 1]
+    c1, c2 = (box_ops.bev_corners_loss(torch.tensor(
+        x.astype(np.float32), device='cuda')).contiguous()
+        for x in (pred, target))
+    return c1, c2
+
+
+def zero_pairs(grad):
+    """Pairs whose ``(4, 2)`` gradient is exactly zero."""
+    return (grad.reshape(grad.shape[0], -1) == 0).all(1)
+
+
+def stress_area_grad(rng, n):
+    """A random area gradient with 20% zeros: 80% of the pairs carry one,
+    far more than a training step sends (there only the positives do), so
+    that the sweep is checked on every kind of pair."""
+    g = torch.tensor(rng.randn(n).astype(np.float32), device='cuda')
+    g[torch.tensor(rng.uniform(size=n) < 0.2, device='cuda')] = 0.0
+    return g
+
+
+def check_rect_clip_grad(c1, c2, g, label, min_live):
+    """B2's paired entry and its backward on ``(n, 4, 2)`` corners ``c1``,
+    ``c2`` and the area gradient ``g``: the areas bit for bit against the
+    plain clip, the gradients against autograd of the plain clip on the
+    same CUDA tensors (1e-5 x max-abs, the same pairs exactly zero); at
+    least ``min_live`` pairs must get a gradient.  Returns the forward and
+    the backward row.  The backward's bound counts what this input needs:
+    every pair reads its gradient and writes 64 B, and only a pair with a
+    nonzero gradient reads its corners and runs the sweep."""
+    n = c1.shape[0]
+    x1, x2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
+    area = iou_ops.RectClipFunction.apply(x1, x2)
+    area.backward(g)
+    y1, y2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
+    ref = iou_ops.rect_intersection_area_plain(y1, y2)
+    ref.backward(g, retain_graph=True)
+    torch.cuda.synchronize()
+    assert_same_bits(f'rect_clip paired {label} vs its plain version',
+                     area.detach(), ref.detach())
+    errs, abs_errs, zeros = [], [], {}
+    for name, got, want in (('corners1', x1.grad, y1.grad),
+                            ('corners2', x2.grad, y2.grad)):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        errs.append(err / scale if scale > 0 else err)
+        abs_errs.append(err)
+        if err > 1e-5 * scale:
+            raise AssertionError(f'rect_clip_grad {label} {name}: max abs '
+                                 f'err {err} > 1e-5 x {scale}')
+        zk, zp = zero_pairs(got), zero_pairs(want)
+        if not torch.equal(zk, zp):
+            raise AssertionError(f'rect_clip_grad {label} {name}: the '
+                                 f'exactly-zero pairs differ')
+        flips = (got == 0) != (want == 0)
+        zeros[name] = dict(zero_pairs=int(zp.sum()),
+                           zero_entries_plain=int((want == 0).sum()),
+                           entries_zero_in_one_only=int(flips.sum()),
+                           their_max_abs=float((got - want)[flips].abs()
+                                               .max()) if flips.any()
+                           else 0.0)
+    live = int((~(zero_pairs(y1.grad) & zero_pairs(y2.grad))).sum())
+    if live < min_live:
+        raise AssertionError(f'rect_clip_grad {label}: only {live} pairs '
+                             f'with a gradient')
+    overlap = float((area > 0).float().mean())
+
+    def fwd():
+        return clip_kernel.rect_intersection_area(c1, c2)
+
+    def bwd():
+        return clip_kernel.rect_intersection_area_grad(c1, c2, g)
+
+    def plain_bwd():
+        return torch.autograd.grad(ref, (y1, y2), g, retain_graph=True)
+    g0 = torch.zeros_like(g)
+    n_live_g = int((g != 0).sum())
+    fwd_row = clip_row(
+        'rect_clip', CLIP_REPLACES, f'paired, {label}, {n} pairs float32',
+        time_ms(fwd, 20), time_ms(
+            lambda: iou_ops.rect_intersection_area_plain(c1, c2), 3),
+        nbytes(c1, c2, area), n * CLIP_FLOPS, overlapping_share=overlap)
+    t_bound, by = bound(nbytes(g, x1.grad, x2.grad) + n_live_g * 64,
+                        n_live_g * CLIP_GRAD_FLOPS, torch.float32)
+    bwd_row = dict(
+        name='rect_clip_grad', route='cuda', source=CLIP_SOURCE,
+        replaces=CLIP_GRAD_REPLACES,
+        shape=f'paired backward, {label}, {n} pairs float32',
+        max_abs_err=max(abs_errs), max_err_over_max_abs=max(errs),
+        zeros=zeros, nonzero_area_gradients=n_live_g,
+        nonzero_share=n_live_g / n, pairs_with_a_gradient=live,
+        ms=time_ms(bwd, SMALL_REPS, queue_us=QUEUE_US),
+        launch_bound_ms=time_ms(bwd, SMALL_REPS),
+        # the same call with no area gradient at all: what the pairs
+        # without one cost (their load, their zeros, their block's slot)
+        all_zero_gradient_ms=time_ms(
+            lambda: clip_kernel.rect_intersection_area_grad(c1, c2, g0),
+            SMALL_REPS, queue_us=QUEUE_US),
+        plain_ms=time_ms(plain_bwd, 3),
+        plain='autograd of rect_intersection_area_plain (backward only)',
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+        ptxas=clip_grad_ptxas())
+    del ref, y1, y2
+    return fwd_row, bwd_row
+
+
+def ptxas_functions(log):
+    """Per kernel of a ``ptxas -v`` log: registers, stack frame and spill
+    bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and cur:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r'Compiling entry function \'(\S+)\'', line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+        m = re.search(r'Used (\d+) registers', line)
+        if m and cur:
+            out[cur]['registers'] = int(m.group(1))
+    return out
+
+
+def clip_grad_ptxas():
+    return {k: v for k, v in ptxas_functions(
+        build.ptxas_log.get('rect_clip', '')).items()
+        if 'rect_clip_grad_kernel' in k}
 
 
 def check_rect_clip_pairwise(g, n, rng):
@@ -406,15 +586,31 @@ def device_ms_by_name(fn, names, reps=5):
     return out
 
 
-def check_backproject_grad(b, dtype, rng):
-    """The backward kernel at the training shapes (imvoxelnet_kitti's padded
-    train size): bit for bit against its plain version run on CPU copies,
-    two launches bit-identical, with the device time of each of its passes
-    and the library time of ``index_add_`` over the forward's precomputed
-    pixels."""
-    preset = get_preset('imvoxelnet_kitti')
+def segment_histogram(segments):
+    """How the pixel rows' reads spread over segments (voxels that read one
+    pixel row): percentiles of the segment lengths, and the share of the
+    reads in segments longer than 64 and than 160 (the sum pass ranks up to
+    160 entries in shared memory, longer ones with shuffles)."""
+    seg = segments[segments > 0].double()
+    reads = seg.sum()
+    q = torch.quantile(seg, torch.tensor([0.5, 0.9, 0.99],
+                                         dtype=torch.float64, device='cuda'))
+    return dict(median=float(q[0]), p90=float(q[1]), p99=float(q[2]),
+                longest=int(seg.max()),
+                reads_in_segments_over_64=float(seg[seg > 64].sum() / reads),
+                reads_in_segments_over_160=float(seg[seg > 160].sum()
+                                                 / reads))
+
+
+def check_backproject_grad(b, dtype, rng, name='imvoxelnet_kitti'):
+    """The backward kernel at the training shapes of preset ``name`` (its
+    padded train size): bit for bit against its plain version run on CPU
+    copies, two launches bit-identical, with the device time of each of its
+    passes, the histogram of its segment lengths, and the library time of
+    ``index_add_`` over the forward's precomputed pixels."""
+    preset = get_preset(name)
     cfg, size = preset.model, preset.data.train_size
-    batch = kitti_train_batch(b, 'cuda', seed=SEED, size=size)
+    batch = train_batch(preset.data, b, 'cuda', seed=SEED)
     hf, wf, c = size[1] // 4, size[0] // 4, cfg.fpn_out_channels
     points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
                            batch['origins']).reshape(b, -1, 3).contiguous()
@@ -468,13 +664,14 @@ def check_backproject_grad(b, dtype, rng):
         replaces='imvoxelnet_tpu/ops/backproject_pallas.py:155 (backward; '
                  'the JAX package differentiates its XLA gather, '
                  'imvoxelnet_tpu/ops/backproject.py:166)',
-        shape=f'b={b} {str(dtype)[6:]} grad_acc {tuple(g.shape)} -> '
-              f'{tuple(got.shape)}', max_abs_err=err,
+        shape=f'{name} training b={b} {str(dtype)[6:]} grad_acc '
+              f'{tuple(g.shape)} -> {tuple(got.shape)}', max_abs_err=err,
         bit_identical_to_plain_on_cpu=True, repeats_bit_for_bit=True,
         seen_rows=n_valid,
         pixels_read=int((segments > 0).sum()), pixels=int(segments.numel()),
         longest_segment=int(segments.max()),
         mean_segment=n_valid / max(1, int((segments > 0).sum())),
+        segment_histogram=segment_histogram(segments),
         ms=time_ms(run, reps),
         pass_ms=device_ms_by_name(run, GRAD_PASSES),
         plain_ms=time_ms(lambda: bp.backproject_batch_grad_plain(
@@ -625,7 +822,7 @@ def run_slice():
         'b=8 bfloat16', model16, cfg16, kitti_batch(8, 'cuda', seed=SEED + 1))
 
     want = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
-            'rect_clip': 1, 'nms_scan': 1}
+            'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
     for name, c in counts.items():
         assert_launches(name, c, want)
     log(f'launch counts per forward: {json.dumps(counts)}')
@@ -908,7 +1105,7 @@ def run_train():
         raise AssertionError(f'b={b} train: non-finite loss {losses}')
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
     want = {'backproject': 1, 'backproject_grad': 1, 'conv3x3x3': 4,
-            'rect_clip': 0, 'nms_scan': 0}
+            'rect_clip': 0, 'rect_clip_grad': 0, 'nms_scan': 0}
     if per_step != want:
         raise AssertionError(f'b={b} train: launches per step {per_step} '
                              f'!= {want}')
@@ -941,7 +1138,7 @@ def run_train():
 INDOOR_PRESETS = ('imvoxelnet_sunrgbd', 'imvoxelnet_sunrgbd_fast',
                   'imvoxelnet_perspective_sunrgbd_fast')
 INDOOR_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 0,
-                   'rect_clip': 1, 'nms_scan': 1}
+                   'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
 
 
 def run_indoor():
@@ -972,6 +1169,233 @@ def run_indoor():
     return out, counts
 
 
+# --------------------------------------------------------------------------
+# phase 6: SUN RGB-D training
+# --------------------------------------------------------------------------
+
+INDOOR_TRAIN_PRESETS = ('imvoxelnet_sunrgbd', 'imvoxelnet_sunrgbd_fast')
+INDOOR_TRAIN_LAUNCHES = {'backproject': 1, 'backproject_grad': 1,
+                         'conv3x3x3': 0, 'rect_clip': 1, 'rect_clip_grad': 1,
+                         'nms_scan': 0}
+# the other SUN RGB-D presets that train: one b=4 bfloat16 step each
+INDOOR_TRAIN_OTHERS = ('imvoxelnet_sunrgbd_top27',
+                       'imvoxelnet_perspective_sunrgbd',
+                       'imvoxelnet_perspective_sunrgbd_top27',
+                       'imvoxelnet_perspective_sunrgbd_fast')
+INDOOR_MUST_LEARN = ('backbone.layer2.0.conv1.weight',
+                     'neck.lateral_convs.0.conv.weight',
+                     'bbox_head.centerness_conv.weight',
+                     'bbox_head.reg_conv.weight', 'bbox_head.cls_conv.weight')
+
+
+def biases_before_bn(model):
+    """The biases of the convs that feed a batch-statistics BN directly:
+    their true gradient is 0, and both paths give float noise there."""
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.named_children())
+            for (i, a), (_, b) in zip(kids, kids[1:]):
+                if isinstance(b, torch.nn.BatchNorm3d) and getattr(
+                        a, 'bias', None) is not None:
+                    out.add(f'{name}.{i}.bias')
+    return out
+
+
+def positives_per_level(model, cfg, batch):
+    """``(B, levels)`` positive counts of the indoor targets on ``batch``
+    (labels >= 0 on voxels the camera sees), as the loss finds them."""
+    hc = cfg.indoor_head
+    with torch.no_grad():
+        head_outs, valid = model(batch)
+        sizes = [tuple(x.shape[1:4]) for x in head_outs[0]]
+        b = valid.shape[0]
+        flat_valid = torch.cat([v.reshape(b, -1) for v in
+                                ivh.resize_valid_to_levels(valid, sizes)], 1)
+        scales, rr = ivh._level_constants(
+            [x * y * z for x, y, z in sizes], hc.regress_ranges, 'cuda')
+        points = torch.cat(ivh.mlvl_points(sizes, hc.voxel_size,
+                                           batch['origins']), 1)
+        _, _, labels = ivh.indoor_targets(
+            points, scales, rr, batch['gt_boxes'], batch['gt_labels'],
+            batch['gt_mask'], hc)
+        pos = (labels >= 0) & flat_valid
+        return torch.stack([pos[:, scales == i].sum(1)
+                            for i in range(hc.n_scales)], 1).cpu()
+
+
+@contextlib.contextmanager
+def clip_grad_probe(seen):
+    """Record copies of the corners and the area gradient that reach the
+    clip's backward kernel, ``(c1, c2, grad_areas)`` in ``seen``."""
+    wrapped = clip_kernel.rect_intersection_area_grad
+
+    def probe(c1, c2, grad_areas):
+        seen.append((c1.clone(), c2.clone(), grad_areas.clone()))
+        return wrapped(c1, c2, grad_areas)
+    with swapped((clip_kernel, 'rect_intersection_area_grad', probe)):
+        yield
+
+
+def run_indoor_train():
+    """Each indoor training preset at full width and depth: one b=1 float32
+    step through the kernels against one through the plain path (same
+    weights, same batch), then 5 pipelined b=4 bfloat16 steps at the
+    presets' 768x576 with their launch counts, and one step that must not
+    wait for the device.  Returns the results, the launches of the timed
+    steps and, per preset, the clip backward's inputs in a b=4 step."""
+    out, counts, clip_inputs = {}, {}, {}
+    for name in INDOOR_TRAIN_PRESETS:
+        preset = get_preset(name)
+        cfg = preset.model
+        res = {}
+        model = build_model(cfg, device='cuda', seed=SEED)
+        noise = biases_before_bn(model)
+        batch1 = train_batch(preset.data, 1, 'cuda', seed=SEED)
+        pos = positives_per_level(model, cfg, batch1)
+        if not bool((pos > 0).all()):
+            raise AssertionError(f'{name} b=1: a level without positives '
+                                 f'{pos.tolist()}')
+        plain_model = copy.deepcopy(model)
+        step, grads = trainer(model, preset)
+        plain_step, plain_grads = trainer(plain_model, preset)
+        seen = []
+        kernels.reset_launch_counts()
+        with clip_grad_probe(seen):
+            metrics = step(batch1)
+        torch.cuda.synchronize()
+        counts_b1 = kernels.launch_counts()
+        with plain_path():
+            plain_metrics = plain_step(batch1)
+        torch.cuda.synchronize()
+        assert_launches(f'{name} b=1 train step', counts_b1,
+                        INDOOR_TRAIN_LAUNCHES)
+        clip_grad_max = float(seen[0][2].abs().max())
+        if not clip_grad_max > 0 or not float(metrics['loss_bbox']) > 0:
+            raise AssertionError(f'{name}: the IoU loss sends no gradient to '
+                                 f'the clip ({clip_grad_max})')
+        loss_err = {k: abs(float(metrics[k]) - float(plain_metrics[k]))
+                    for k in metrics}
+        gaps = {}
+        for gname, ref in plain_grads.items():
+            got = grads[gname]
+            if gname in noise:
+                scale = plain_grads[gname.replace('bias', 'weight')].abs(
+                    ).max().item()
+                gaps[gname] = max(got.abs().max().item(),
+                                  ref.abs().max().item()) / scale
+                continue
+            scale = ref.abs().max().item()
+            gaps[gname] = ((got - ref).abs().max().item() / scale
+                           if scale > 0 else 0.0)
+        noise_gap = max((gaps[k] for k in noise), default=0.0)
+        worst = max((k for k in gaps if k not in noise), key=gaps.get)
+        stats, plain_stats = bn_stats(model), bn_stats(plain_model)
+        stats_err = max((stats[k] - v).abs().max().item()
+                        for k, v in plain_stats.items())
+        log(f'{name} train b=1 float32: loss {float(metrics["loss"]):.6g} '
+            f'(kernel - plain: {json.dumps(loss_err)}); worst gradient gap '
+            f'{gaps[worst]:.3g} of max-abs on {worst}; conv biases before '
+            f'BN {noise_gap:.3g} of their weight gradient; BN stats within '
+            f'{stats_err:.3g}; largest area gradient at the clip '
+            f'{clip_grad_max:.3g}; positives per level {pos.tolist()}')
+        for k in metrics:
+            torch.testing.assert_close(metrics[k], plain_metrics[k],
+                                       rtol=2e-3, atol=2e-3)
+        for k, v in plain_stats.items():
+            torch.testing.assert_close(stats[k], v, rtol=2e-3, atol=2e-3)
+        if gaps[worst] > 2e-2 or noise_gap > 1e-4:
+            raise AssertionError(f'{name}: gradient gap {gaps[worst]} on '
+                                 f'{worst} (bias noise {noise_gap})')
+        for gname in INDOOR_MUST_LEARN:
+            if not float(grads[gname].abs().max()) > 0:
+                raise AssertionError(f'{gname}: zero gradient')
+        res['b1_float32_vs_plain'] = dict(
+            loss=float(metrics['loss']), loss_abs_err=loss_err,
+            grads_compared=len(plain_grads), max_grad_err_over_max_abs=
+            gaps[worst], worst_grad=worst, bias_before_bn_noise=noise_gap,
+            bn_stats_max_abs_err=stats_err, positives_per_level=pos.tolist(),
+            clip_grad_max=clip_grad_max, launches=counts_b1)
+        del model, plain_model, step, plain_step, grads, plain_grads
+
+        # --- b=4 bfloat16 at the padded train size: throughput
+        b = preset.data.samples_per_device
+        cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
+        model16 = build_model(cfg16, device='cuda', seed=SEED)
+        step16, _ = trainer(model16, preset)
+        batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1)
+        pos4 = positives_per_level(model16, cfg16, batch)
+        if not bool((pos4 > 0).all()):
+            raise AssertionError(f'{name} b={b}: a level without positives '
+                                 f'{pos4.tolist()}')
+        seen = []
+        with clip_grad_probe(seen):
+            step16(batch)                       # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        clip_inputs[name] = seen[0] + (int(pos4.sum()),)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step16(batch)['loss'] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'{name} b={b} train: non-finite loss '
+                                 f'{losses}')
+        per_step = {k: v / TRAIN_STEPS for k, v in c.items()}
+        assert_launches(f'{name} b={b} train, per step', per_step,
+                        INDOOR_TRAIN_LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            metrics = step16(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        if not np.isfinite(float(metrics['loss'])):
+            raise AssertionError(f'{name}: non-finite loss in the sync-free '
+                                 f'step')
+        res[f'b{b}_bfloat16'] = dict(
+            size=list(preset.data.train_size), steps=TRAIN_STEPS,
+            losses=losses, steps_per_s=TRAIN_STEPS / dt,
+            scenes_per_s=b * TRAIN_STEPS / dt,
+            ms_per_step=dt * 1e3 / TRAIN_STEPS, peak_memory_gb=peak_gb,
+            positives_per_level=pos4.tolist(), launches=c,
+            launches_per_step=per_step, sync_free_step=True)
+        log(f'{name} train b={b} bfloat16: {TRAIN_STEPS / dt:.4g} steps/s, '
+            f'{b * TRAIN_STEPS / dt:.4g} scenes/s, '
+            f'{dt * 1e3 / TRAIN_STEPS:.4g} ms a step, peak memory '
+            f'{peak_gb:.4g} GB, losses {losses}')
+        del model16, step16, seen
+        out[name] = res
+        counts[name] = c
+    for name in INDOOR_TRAIN_OTHERS:
+        preset = get_preset(name)
+        cfg16 = dataclasses.replace(preset.model, compute_dtype='bfloat16')
+        model16 = build_model(cfg16, device='cuda', seed=SEED)
+        step16, _ = trainer(model16, preset)
+        b = preset.data.samples_per_device
+        batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1)
+        pos4 = positives_per_level(model16, cfg16, batch)
+        if not bool((pos4.sum(1) > 0).all()):
+            raise AssertionError(f'{name} b={b}: a sample without '
+                                 f'positives {pos4.tolist()}')
+        kernels.reset_launch_counts()
+        metrics = {k: float(v) for k, v in step16(batch).items()}
+        c = kernels.launch_counts()
+        assert_launches(f'{name} b={b} train step', c, INDOOR_TRAIN_LAUNCHES)
+        if not all(np.isfinite(list(metrics.values()))) or not \
+                metrics['loss_bbox'] > 0:
+            raise AssertionError(f'{name} b={b} train: losses {metrics}')
+        out[name] = dict(b4_bfloat16_one_step=dict(
+            losses=metrics, positives_per_level=pos4.tolist(), launches=c))
+        log(f'{name} train b={b} bfloat16: one step, losses '
+            f'{json.dumps(metrics)}, positives per level {pos4.tolist()}')
+        del model16, step16
+    return out, counts, clip_inputs
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -992,15 +1416,13 @@ def smoke():
     log(f'build: {time.perf_counter() - t0:.1f} s wall, per kernel '
         f'{json.dumps({k: round(v, 1) for k, v in build.build_seconds.items()})}')
     for name, text in build.ptxas_log.items():
-        for line in text.splitlines():
-            if 'registers' in line or 'spill' in line:
-                log(f'ptxas {name}: {line.strip()}')
-            # the clip's polygon must live in registers
-            if name == 'rect_clip' and 'stack frame' in line and not \
-                    line.strip().startswith(
-                        '0 bytes stack frame, 0 bytes spill stores, '
-                        '0 bytes spill loads'):
-                raise AssertionError(f'rect_clip: {line.strip()}')
+        for fn, info in ptxas_functions(text).items():
+            log(f'ptxas {name}: {fn}: {json.dumps(info)}')
+            # the forward clips' polygon must live in registers
+            if name == 'rect_clip' and 'grad' not in fn and (
+                    info.get('stack', 1) or info.get('spill_stores', 1)
+                    or info.get('spill_loads', 1)):
+                raise AssertionError(f'rect_clip: {fn}: {info}')
     # (a library found already built has no log)
     if 'stack frame' not in build.ptxas_log.get('rect_clip', 'stack frame'):
         raise AssertionError('rect_clip: ptxas reported no stack frame line')
@@ -1060,6 +1482,39 @@ def smoke():
         log(json.dumps(row))
     indoor, indoor_counts = run_indoor()
     log(json.dumps({'indoor': indoor}))
+
+    # the SUN RGB-D training path: the clip's paired entry and its backward
+    # at the b=4 IoU-3D loss shapes on a stress input (80% of the pairs
+    # with an area gradient), B1's forward and backward at the training
+    # shapes (768x576), then the training steps; then the clip's rows on
+    # the corners and the area gradient of a b=4 step
+    for n in (934400, 116800):
+        for row in check_rect_clip_grad(
+                *loss_pairs(rng, n), stress_area_grad(rng, n),
+                'stress input, 80% nonzero area gradients', n // 2):
+            log(json.dumps(row))
+    indoor_train_rows = [
+        (check_backproject(4, torch.bfloat16, 2e-2, rng, p, train=True), p)
+        for p in INDOOR_TRAIN_PRESETS] + [
+        (check_backproject_grad(4, torch.bfloat16, rng, p), p)
+        for p in INDOOR_TRAIN_PRESETS]
+    for row in [check_backproject(1, torch.float32, 1e-5, rng, p, train=True)
+                for p in INDOOR_TRAIN_PRESETS] + [
+            check_backproject_grad(1, torch.float32, rng, p)
+            for p in INDOOR_TRAIN_PRESETS] + \
+            [row for row, _ in indoor_train_rows]:
+        log(json.dumps(row))
+    indoor_train, indoor_train_counts, clip_inputs = run_indoor_train()
+    log(json.dumps({'indoor_train': indoor_train}))
+    for p in INDOOR_TRAIN_PRESETS:
+        c1, c2, g, positives = clip_inputs[p]
+        rows = check_rect_clip_grad(c1, c2, g,
+                                    f'{p} b=4 bf16 step, IoU-3D loss', 1)
+        rows[1]['positives_in_the_batch'] = positives
+        indoor_train_rows += [(row, p) for row in rows]
+        for row in rows:
+            log(json.dumps(row))
+    del clip_inputs
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1069,13 +1524,18 @@ def smoke():
     # bfloat16; the NMS of 8 samples x 100 candidates) with the launches of
     # the b=8 forward; the backprojection's backward, its forward and B3's
     # forward and dx at the b=4 bfloat16 training shapes with their
-    # launches in the 5 timed training steps (B3's count holds both); and
-    # the indoor rows with the launches of their preset's b=8 forward
+    # launches in the 5 timed training steps (B3's count holds both); the
+    # indoor serving rows with the launches of their preset's b=8 forward;
+    # and the indoor training rows (B1 forward and backward, the clip's
+    # paired entry and its backward at b=4) with the launches of their
+    # preset's 5 timed b=4 training steps
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
             + [(r, train_counts[r['name']])
                for r in [bp_grad_row] + train_rows] \
-            + [(r, indoor_counts[p][r['name']]) for r, p in indoor_rows]:
+            + [(r, indoor_counts[p][r['name']]) for r, p in indoor_rows] \
+            + [(r, indoor_train_counts[p][r['name']])
+               for r, p in indoor_train_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

@@ -4,13 +4,14 @@ One wrapper module per source (``backproject``, ``rect_clip``,
 ``conv3x3x3``).  A wrapper takes CUDA tensors only: it checks device, dtype,
 shape and contiguity, launches on PyTorch's current stream, raises if the
 launch returned a CUDA error, and adds one to a plain-integer count of its
-module (``WRAPPERS`` names the count of each kernel; the clip's three entry
-points share one, the NMS scan and the backprojection's backward have their
-own).  The plain PyTorch versions live beside the ops that call the wrappers
-(``ops/backproject.py``, ``ops/iou.py``, ``ops/nms.py``, ``ops/conv3z.py``);
-those ops take the plain version only for CPU tensors.  The gradients of B1
-and B3 are ``torch.autograd.Function``s in ``ops/backproject.py`` and
-``ops/conv3z.py`` whose backward launches a kernel too.
+module (``WRAPPERS`` names the count of each kernel; the clip's three
+forward entry points share one, the clip's backward, the NMS scan and the
+backprojection's backward have their own).  The plain PyTorch versions live
+beside the ops that call the wrappers (``ops/backproject.py``,
+``ops/iou.py``, ``ops/nms.py``, ``ops/conv3z.py``); those ops take the plain version only for CPU tensors.  The gradients of
+B1, B2 (paired) and B3 are ``torch.autograd.Function``s in
+``ops/backproject.py``, ``ops/iou.py`` and ``ops/conv3z.py`` whose backward
+launches a kernel too.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from . import backproject, conv3x3x3, rect_clip
 WRAPPERS = {'backproject': (backproject, 'launches'),
             'backproject_grad': (backproject, 'grad_launches'),
             'rect_clip': (rect_clip, 'launches'),
+            'rect_clip_grad': (rect_clip, 'grad_launches'),
             'nms_scan': (rect_clip, 'scan_launches'),
             'conv3x3x3': (conv3x3x3, 'launches')}
 

@@ -12,8 +12,10 @@
 //   imvx_rect_clip_pairwise  pairwise: (G,N,4,2) x (G,M,4,2) -> (G,N,M)
 //   imvx_nms_mask            pairwise on one box set, with the IoU, the
 //                            threshold and i < j fused, one bit per pair
-// and imvx_nms_scan walks a mask in rank order (the greedy NMS itself; the
-// JAX package runs that step as a lax.while_loop fixpoint, not as a kernel).
+// imvx_rect_clip_grad is the paired entry's backward (the vector-Jacobian
+// product of the clip, for the IoU-3D training loss), and imvx_nms_scan
+// walks a mask in rank order (the greedy NMS itself; the JAX package runs
+// that step as a lax.while_loop fixpoint, not as a kernel).
 //
 // Design of the clip: the polygon lives in registers.  Every loop over
 // slots and edges is fully unrolled, so every array below is indexed by
@@ -22,7 +24,7 @@
 // unrolled select: the running position of each of the 16 candidates (8
 // vertices, 8 edge crossings, in emission order) is compared with each
 // packed slot it can reach.  ptxas must report 0 bytes of stack frame and 0
-// bytes of spills for every kernel of this file.
+// bytes of spills for every forward kernel of this file.
 //
 // Design of the pairwise kernels: a block of 4 warps owns a tile of 4 rows
 // (rect1, one per warp) by 32 columns (rect2, one per lane).  It stages the
@@ -101,62 +103,68 @@ __device__ __forceinline__ void put(float (&ox)[kSlots], float (&oy)[kSlots],
   pos += valid ? 1 : 0;
 }
 
-// Area of rect1 (corners px, py) clipped by the edges of rect2.
-__device__ __forceinline__ float clip_area(const float (&px)[4],
-                                           const float (&py)[4],
-                                           const Edges& ed) {
-  float vx[kSlots], vy[kSlots];
+// One step of the clip: the polygon (vx, vy, count) against the edge from
+// (ax, ay) along (abx, aby), `sign` putting rect2 on its non-negative side.
+__device__ __forceinline__ void clip_stage(float (&vx)[kSlots],
+                                           float (&vy)[kSlots], int& count,
+                                           float ax, float ay, float abx,
+                                           float aby, float sign) {
+  float s[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    s[k] = fmul(fsub(fmul(abx, fsub(vy[k], ay)), fmul(aby, fsub(vx[k], ax))),
+                sign);
+  float ox[kSlots], oy[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) ox[j] = oy[j] = 0.f;
+  int pos = 0;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int nk = (k + 1) % kSlots;
+    const bool active = k < count;
+    // the vertex after the last active one is vertex 0
+    const bool take_next = k + 1 < count;
+    const float nvx = take_next ? vx[nk] : vx[0];
+    const float nvy = take_next ? vy[nk] : vy[0];
+    const float s_nxt = take_next ? s[nk] : s[0];
+    const bool in_cur = s[k] >= 0.f;
+    const bool in_nxt = s_nxt >= 0.f;
+    const bool emit_int = active && (in_cur != in_nxt);
+    put(ox, oy, pos, 2 * k, active && in_cur, vx[k], vy[k]);
+    float ix = 0.f, iy = 0.f;
+    if (emit_int) {
+      const float denom = fsub(s[k], s_nxt);
+      const float t = __fdiv_rn(s[k], fabsf(denom) > 1e-12f ? denom : 1.f);
+      ix = fadd(vx[k], fmul(t, fsub(nvx, vx[k])));
+      iy = fadd(vy[k], fmul(t, fsub(nvy, vy[k])));
+    }
+    put(ox, oy, pos, 2 * k + 1, emit_int, ix, iy);
+  }
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    vx[j] = ox[j];
+    vy[j] = oy[j];
+  }
+  count = pos;                         // kept as emitted, also beyond 8
+}
+
+__device__ __forceinline__ void init_polygon(const float (&px)[4],
+                                             const float (&py)[4],
+                                             float (&vx)[kSlots],
+                                             float (&vy)[kSlots], int& count) {
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     vx[k] = k < 4 ? px[k % 4] : 0.f;
     vy[k] = k < 4 ? py[k % 4] : 0.f;
   }
-  int count = 4;
+  count = 4;
+}
 
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float ax = ed.ax[e], ay = ed.ay[e];
-    const float abx = ed.abx[e], aby = ed.aby[e], sign = ed.sign[e];
-    float s[kSlots];
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k)
-      s[k] = fmul(fsub(fmul(abx, fsub(vy[k], ay)), fmul(aby, fsub(vx[k], ax))),
-                  sign);
-    float ox[kSlots], oy[kSlots];
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) ox[j] = oy[j] = 0.f;
-    int pos = 0;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int nk = (k + 1) % kSlots;
-      const bool active = k < count;
-      // the vertex after the last active one is vertex 0
-      const bool take_next = k + 1 < count;
-      const float nvx = take_next ? vx[nk] : vx[0];
-      const float nvy = take_next ? vy[nk] : vy[0];
-      const float s_nxt = take_next ? s[nk] : s[0];
-      const bool in_cur = s[k] >= 0.f;
-      const bool in_nxt = s_nxt >= 0.f;
-      const bool emit_int = active && (in_cur != in_nxt);
-      put(ox, oy, pos, 2 * k, active && in_cur, vx[k], vy[k]);
-      float ix = 0.f, iy = 0.f;
-      if (emit_int) {
-        const float denom = fsub(s[k], s_nxt);
-        const float t = __fdiv_rn(s[k], fabsf(denom) > 1e-12f ? denom : 1.f);
-        ix = fadd(vx[k], fmul(t, fsub(nvx, vx[k])));
-        iy = fadd(vy[k], fmul(t, fsub(nvy, vy[k])));
-      }
-      put(ox, oy, pos, 2 * k + 1, emit_int, ix, iy);
-    }
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      vx[j] = ox[j];
-      vy[j] = oy[j];
-    }
-    count = pos;                       // kept as emitted, also beyond 8
-  }
-
-  // shoelace over all 8 slots; inactive slots repeat the first vertex
+// Twice the signed area by the shoelace formula over all 8 slots; inactive
+// slots repeat the first vertex.
+__device__ __forceinline__ float shoelace(const float (&vx)[kSlots],
+                                          const float (&vy)[kSlots],
+                                          int count) {
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
@@ -167,7 +175,21 @@ __device__ __forceinline__ float clip_area(const float (&px)[4],
     const float ny = nk < count ? vy[nk] : vy[0];
     sum = fadd(sum, fsub(fmul(cx, ny), fmul(cy, nx)));
   }
-  const float area = fmul(0.5f, fabsf(sum));
+  return sum;
+}
+
+// Area of rect1 (corners px, py) clipped by the edges of rect2.
+__device__ __forceinline__ float clip_area(const float (&px)[4],
+                                           const float (&py)[4],
+                                           const Edges& ed) {
+  float vx[kSlots], vy[kSlots];
+  int count;
+  init_polygon(px, py, vx, vy, count);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    clip_stage(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e], ed.aby[e],
+               ed.sign[e]);
+  const float area = fmul(0.5f, fabsf(shoelace(vx, vy, count)));
   return count > 2 ? area : 0.f;
 }
 
@@ -189,6 +211,243 @@ rect_clip_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
   Edges ed;
   make_edges(bx, by, ed);
   out[i] = clip_area(px, py, ed);
+}
+
+// --------------------------------------------------------- paired backward
+//
+// The vector-Jacobian product of the paired clip, as reverse-mode autodiff
+// of the plain version computes it (ops/iou.py:rect_intersection_area_plain;
+// the JAX package: jax.vjp of _rect_intersection_area_jnp,
+// imvoxelnet_tpu/ops/iou.py:206-274).  One thread per pair runs the forward
+// clip, keeping each edge's input polygon, then sweeps back through the
+// operations that forward took: the shoelace and |.| (whose derivative at 0
+// is 0), then for edges 3..0 the compaction (an emitted slot's adjoint goes
+// back to its one source, a vertex or a crossing), the crossing
+// ix = vx + t (nvx - vx), t = s / where(|denom| > 1e-12, denom, 1) and
+// s = (abx (vy - ay) - aby (vx - ax)) sign.  rect2's corners get their
+// gradient through ax, ay, abx and aby; the sign and rect2's centre carry
+// none (a `where` is differentiated through its taken branch only).  A pair
+// whose area gradient is 0, or whose clipped polygon has 2 vertices or
+// fewer, gets exact zeros.  The branch decisions are the forward's, so the
+// result differs from autograd of the plain version only in the order of
+// the sums.
+//
+// Bound on an H100: bytes.  A pair reads its 4 B area gradient and writes
+// 64 B; only a pair with a nonzero gradient reads its 64 B of corners and
+// runs the clip and the sweep.  In the IoU-3D loss only the positives have
+// one (the loss weight is centerness x positive): in a SUN RGB-D step about
+// 1% of the pairs.
+
+// The adjoint held by packed slot `pos` if `valid` (0 otherwise); `last` is
+// the highest slot the candidate can reach, as in put().
+__device__ __forceinline__ void take(const float (&gx)[kSlots],
+                                     const float (&gy)[kSlots], int& pos,
+                                     int last, bool valid, float& x,
+                                     float& y) {
+  x = 0.f;
+  y = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (j <= last) {
+      const bool here = valid && pos == j;
+      x = here ? gx[j] : x;
+      y = here ? gy[j] : y;
+    }
+  }
+  pos += valid ? 1 : 0;
+}
+
+// Add `g` to slot `k + 1` of `a` if `take_next`, else to slot 0 (where the
+// forward read the next vertex).
+__device__ __forceinline__ void add_next(float (&a)[kSlots], int k,
+                                         bool take_next, float g) {
+  const int nk = (k + 1) % kSlots;
+  a[nk] = fadd(a[nk], take_next ? g : 0.f);
+  a[0] = fadd(a[0], take_next ? 0.f : g);
+}
+
+// Reverse of clip_stage: (gx, gy) holds the adjoint of the stage's output
+// slots on entry and that of its input polygon (vx, vy, count) on return;
+// the edge's adjoints are added to gax, gay, gabx, gaby.
+__device__ __forceinline__ void clip_stage_grad(
+    const float (&vx)[kSlots], const float (&vy)[kSlots], int count,
+    float ax, float ay, float abx, float aby, float sign,
+    float (&gx)[kSlots], float (&gy)[kSlots], float& gax, float& gay,
+    float& gabx, float& gaby) {
+  float s[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    s[k] = fmul(fsub(fmul(abx, fsub(vy[k], ay)), fmul(aby, fsub(vx[k], ax))),
+                sign);
+  float hx[kSlots], hy[kSlots], hs[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) hx[k] = hy[k] = hs[k] = 0.f;
+  int pos = 0;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int nk = (k + 1) % kSlots;
+    const bool active = k < count;
+    const bool take_next = k + 1 < count;
+    const float nvx = take_next ? vx[nk] : vx[0];
+    const float nvy = take_next ? vy[nk] : vy[0];
+    const float s_nxt = take_next ? s[nk] : s[0];
+    const bool in_cur = s[k] >= 0.f;
+    const bool in_nxt = s_nxt >= 0.f;
+    const bool emit_int = active && (in_cur != in_nxt);
+    float gcx, gcy, gix, giy;
+    take(gx, gy, pos, 2 * k, active && in_cur, gcx, gcy);
+    take(gx, gy, pos, 2 * k + 1, emit_int, gix, giy);
+    hx[k] = fadd(hx[k], gcx);
+    hy[k] = fadd(hy[k], gcy);
+    if (emit_int) {
+      const float denom = fsub(s[k], s_nxt);
+      const bool big = fabsf(denom) > 1e-12f;
+      const float q = big ? denom : 1.f;
+      const float t = __fdiv_rn(s[k], q);
+      // ix = vx + t * (nvx - vx)
+      const float gdx = fmul(gix, t), gdy = fmul(giy, t);
+      const float gt = fadd(fmul(gix, fsub(nvx, vx[k])),
+                            fmul(giy, fsub(nvy, vy[k])));
+      hx[k] = fsub(fadd(hx[k], gix), gdx);
+      hy[k] = fsub(fadd(hy[k], giy), gdy);
+      add_next(hx, k, take_next, gdx);
+      add_next(hy, k, take_next, gdy);
+      // t = s / q, q = denom where |denom| > 1e-12 (else the constant 1)
+      const float gq = big ? -fmul(gt, __fdiv_rn(t, q)) : 0.f;
+      // denom = s - s_nxt
+      hs[k] = fadd(hs[k], fadd(__fdiv_rn(gt, q), gq));
+      add_next(hs, k, take_next, -gq);
+    }
+  }
+  // s = (abx (vy - ay) - aby (vx - ax)) sign
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const float gu = fmul(hs[k], sign);
+    const float gvy = fmul(gu, abx), gvx = fmul(gu, aby);
+    gabx = fadd(gabx, fmul(gu, fsub(vy[k], ay)));
+    gaby = fsub(gaby, fmul(gu, fsub(vx[k], ax)));
+    gay = fsub(gay, gvy);
+    gax = fadd(gax, gvx);
+    gx[k] = fsub(hx[k], gvx);
+    gy[k] = fadd(hy[k], gvy);
+  }
+}
+
+// Reverse of the shoelace: the adjoint (gx, gy) of the final polygon for an
+// area gradient g, given count > 2 (the area is 0.5 |sum|).
+__device__ __forceinline__ void shoelace_grad(const float (&vx)[kSlots],
+                                              const float (&vy)[kSlots],
+                                              int count, float sum, float g,
+                                              float (&gx)[kSlots],
+                                              float (&gy)[kSlots]) {
+  const float sgn = sum > 0.f ? 1.f : (sum < 0.f ? -1.f : 0.f);
+  const float gs = fmul(fmul(g, 0.5f), sgn);
+  float cx[kSlots], cy[kSlots], hx[kSlots], hy[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    cx[k] = k < count ? vx[k] : vx[0];
+    cy[k] = k < count ? vy[k] : vy[0];
+    hx[k] = hy[k] = 0.f;
+  }
+  // term k = cx[k] cy[k+1] - cy[k] cx[k+1]
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int nk = (k + 1) % kSlots;
+    hx[k] = fadd(hx[k], fmul(gs, cy[nk]));
+    hy[nk] = fadd(hy[nk], fmul(gs, cx[k]));
+    hy[k] = fsub(hy[k], fmul(gs, cx[nk]));
+    hx[nk] = fsub(hx[nk], fmul(gs, cy[k]));
+  }
+  // inactive slots read vertex 0
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) gx[k] = gy[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const bool active = k < count;
+    gx[k] = fadd(gx[k], active ? hx[k] : 0.f);
+    gy[k] = fadd(gy[k], active ? hy[k] : 0.f);
+    gx[0] = fadd(gx[0], active ? 0.f : hx[k]);
+    gy[0] = fadd(gy[0], active ? 0.f : hy[k]);
+  }
+}
+
+// The four edges' input polygons stay in registers from the forward (4 clip
+// stages; ptxas on sm_90a: 201 registers, no stack frame, no spills).
+// Recomputing edge e's input from rect1 for each e instead (10 stages) took
+// 128 registers and ran 27% slower at 934,400 pairs with 80% of them
+// carrying a gradient on an H100, so it was not kept.
+__global__ void __launch_bounds__(128)
+rect_clip_grad_kernel(const float* __restrict__ c1,
+                      const float* __restrict__ c2,
+                      const float* __restrict__ grad_areas,
+                      float* __restrict__ g1, float* __restrict__ g2,
+                      long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float g = grad_areas[i];
+  float gx[kSlots], gy[kSlots], gbx[4], gby[4];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) gx[k] = gy[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) gbx[k] = gby[k] = 0.f;
+
+  // a pair without an area gradient reads no corners and writes zeros
+  if (g != 0.f) {
+    float px[4], py[4], bx[4], by[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      px[k] = c1[i * 8 + 2 * k];
+      py[k] = c1[i * 8 + 2 * k + 1];
+      bx[k] = c2[i * 8 + 2 * k];
+      by[k] = c2[i * 8 + 2 * k + 1];
+    }
+    Edges ed;
+    make_edges(bx, by, ed);
+    float kx[4][kSlots], ky[4][kSlots];
+    int kc[4];
+    float vx[kSlots], vy[kSlots];
+    int count;
+    init_polygon(px, py, vx, vy, count);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        kx[e][k] = vx[k];
+        ky[e][k] = vy[k];
+      }
+      kc[e] = count;
+      clip_stage(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e], ed.aby[e],
+                 ed.sign[e]);
+    }
+    if (count > 2) {
+      shoelace_grad(vx, vy, count, shoelace(vx, vy, count), g, gx, gy);
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          vx[k] = kx[e][k];
+          vy[k] = ky[e][k];
+        }
+        count = kc[e];
+        float gax = 0.f, gay = 0.f, gabx = 0.f, gaby = 0.f;
+        clip_stage_grad(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e],
+                        ed.aby[e], ed.sign[e], gx, gy, gax, gay, gabx, gaby);
+        // ax = b[e], abx = b[e + 1] - b[e]
+        const int ne = (e + 1) % 4;
+        gbx[e] = fsub(fadd(gbx[e], gax), gabx);
+        gby[e] = fsub(fadd(gby[e], gay), gaby);
+        gbx[ne] = fadd(gbx[ne], gabx);
+        gby[ne] = fadd(gby[ne], gaby);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    g1[i * 8 + 2 * k] = gx[k];
+    g1[i * 8 + 2 * k + 1] = gy[k];
+    g2[i * 8 + 2 * k] = gbx[k];
+    g2[i * 8 + 2 * k + 1] = gby[k];
+  }
 }
 
 // -------------------------------------------------------------- pairwise
@@ -349,6 +608,22 @@ extern "C" int imvx_rect_clip(const void* corners1, const void* corners2,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(corners1), static_cast<const float*>(corners2),
       static_cast<float*>(areas), n);
+  return (int)cudaGetLastError();
+}
+
+// corners1, corners2: (n, 4, 2) float32; grad_areas: (n,) float32;
+// grad1, grad2: (n, 4, 2) float32, the gradients of sum(grad_areas * areas).
+extern "C" int imvx_rect_clip_grad(const void* corners1, const void* corners2,
+                                   const void* grad_areas, void* grad1,
+                                   void* grad2, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  rect_clip_grad_kernel<<<(unsigned)blocks, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(corners1), static_cast<const float*>(corners2),
+      static_cast<const float*>(grad_areas), static_cast<float*>(grad1),
+      static_cast<float*>(grad2), n);
   return (int)cudaGetLastError();
 }
 

@@ -5,10 +5,13 @@ One clip serves three entry points, which share the ``launches`` count:
 paired areas, pairwise areas of two box sets per group, and the pairwise NMS
 dominance mask (IoU, threshold and rank order fused, one bit per pair).
 ``nms_scan`` walks such a mask greedily; it counts in ``scan_launches``.
+The paired entry has a backward, ``rect_intersection_area_grad`` (the
+vector-Jacobian product of the clip), counted in ``grad_launches``;
+``ops/iou.py:RectClipFunction`` joins the two.
 
-Plain versions: ``ops/iou.py`` (``rect_intersection_area_plain``,
-``rect_intersection_area_pairwise_plain``, ``nms_dominance_mask_plain``) and
-``ops/nms.py`` (``nms_scan_plain``).  All forward only.
+Plain versions: ``ops/iou.py`` (``rect_intersection_area_plain``, whose
+autograd is the backward's, ``rect_intersection_area_pairwise_plain``,
+``nms_dominance_mask_plain``) and ``ops/nms.py`` (``nms_scan_plain``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ._checks import require, same_device, stream_of
 
 launches = 0
 scan_launches = 0
+grad_launches = 0
 
 _MAX_GRID_YZ = 65535
 # the scan keeps 33 words per 32 candidates in 48 KB of shared memory
@@ -33,8 +37,9 @@ def mask_words(n: int) -> int:
 
 def _corners(t, name, ndim):
     if t.requires_grad:
-        raise RuntimeError('the rect clip kernel has no backward yet; '
-                           'call it under torch.no_grad()')
+        raise RuntimeError('the rect clip kernel has no backward of its own; '
+                           'call it under torch.no_grad(), or take '
+                           'ops.iou.rect_intersection_area for gradients')
     require(t, name, (torch.float32,), ndim)
     if t.shape[-2:] != (4, 2):
         raise ValueError(f'{name} must end in (4, 2), got {tuple(t.shape)}')
@@ -46,8 +51,7 @@ def _launch(fn_name, *args):
     launches += 1
 
 
-def rect_intersection_area(corners1, corners2):
-    """Intersection areas of ``(n, 4, 2)`` float32 rect pairs -> ``(n,)``."""
+def _paired(corners1, corners2):
     _corners(corners1, 'corners1', 3)
     _corners(corners2, 'corners2', 3)
     same_device(corners1, corners2)
@@ -55,11 +59,39 @@ def rect_intersection_area(corners1, corners2):
     if corners2.shape[0] != n:
         raise ValueError(f'corners must both be (n, 4, 2), got '
                          f'{tuple(corners1.shape)}, {tuple(corners2.shape)}')
+    return n
+
+
+def rect_intersection_area(corners1, corners2):
+    """Intersection areas of ``(n, 4, 2)`` float32 rect pairs -> ``(n,)``."""
+    n = _paired(corners1, corners2)
     areas = torch.empty((n,), dtype=torch.float32, device=corners1.device)
     if n:
         _launch('imvx_rect_clip', corners1.data_ptr(), corners2.data_ptr(),
                 areas.data_ptr(), n, stream_of(corners1))
     return areas
+
+
+def rect_intersection_area_grad(corners1, corners2, grad_areas):
+    """The gradients of ``sum(grad_areas * areas)`` with respect to both
+    ``(n, 4, 2)`` float32 corner sets, for ``(n,)`` float32 ``grad_areas``:
+    the backward of :func:`rect_intersection_area`."""
+    n = _paired(corners1, corners2)
+    require(grad_areas, 'grad_areas', (torch.float32,), 1)
+    same_device(corners1, grad_areas)
+    if grad_areas.shape[0] != n:
+        raise ValueError(f'grad_areas must be ({n},), got '
+                         f'{tuple(grad_areas.shape)}')
+    grad1 = torch.empty_like(corners1)
+    grad2 = torch.empty_like(corners2)
+    if n:
+        global grad_launches
+        build.check(build.kernel('rect_clip', 'imvx_rect_clip_grad')(
+            corners1.data_ptr(), corners2.data_ptr(), grad_areas.data_ptr(),
+            grad1.data_ptr(), grad2.data_ptr(), n, stream_of(corners1)),
+            'imvx_rect_clip_grad')
+        grad_launches += 1
+    return grad1, grad2
 
 
 def _grid_fits(g, n):

@@ -5,7 +5,7 @@ Counterpart of ``imvoxelnet_tpu/models/detector.py`` (``ImVoxelNetConfig``,
 ``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``, ``imvoxelnet_loss``)
 for the KITTI configuration (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
 and the SUN RGB-D ones (``head_kind='indoor'``, ``neck.kind`` ``'imvoxel'``
-or ``'fast'``; forward and decode only).  ``model.train()`` is the JAX
+or ``'fast'``), forward, decode and training loss.  ``model.train()`` is the JAX
 ``train=True``: the 3D neck's batch norms use batch statistics and update
 their running ones; the backbone's ``FrozenBatchNorm`` ignores the mode.
 
@@ -61,6 +61,10 @@ class ImVoxelNetConfig:
     head_kind: str = 'anchor3d'    # anchor3d | indoor
     anchor_head: Optional[a3d.Anchor3DHeadConfig] = a3d.Anchor3DHeadConfig()
     indoor_head: Optional[ivh.IndoorHeadConfig] = None
+    # the indoor loss's positive-count normalization: 'per_image' (each
+    # image by its own count, the reference's reduce_mean on one card);
+    # the JAX package's multi-chip 'batch_mean' is not ported
+    dp_loss_norm: str = 'per_image'
     stride: int = 4                 # asserted == 4 in the reference
     compute_dtype: str = 'float32'  # conv-path dtype: float32 | bfloat16
     # Bottlenecks per stage; (3, 4, 6, 3) = ResNet-50.
@@ -153,14 +157,27 @@ def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
                                       cfg.indoor_head)
 
 
-def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch):
-    """Training losses (``imvoxelnet.py:82-87``): a dict of ``loss_cls``,
-    ``loss_bbox`` and ``loss_dir`` scalars (KITTI only so far)."""
-    if cfg.head_kind != 'anchor3d':
-        raise NotImplementedError('the indoor losses are not ported')
-    return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
-                                  batch['gt_labels'], batch['gt_mask'],
-                                  cfg.anchor_head)
+def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None):
+    """Training losses (``imvoxelnet.py:82-87``): a dict of scalars,
+    ``loss_cls``, ``loss_bbox`` and ``loss_dir`` (KITTI) or
+    ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` (indoor).  The
+    indoor loss also needs the forward's ``valid`` mask and
+    ``batch['origins']``."""
+    if cfg.head_kind == 'anchor3d':
+        return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
+                                      batch['gt_labels'], batch['gt_mask'],
+                                      cfg.anchor_head)
+    if cfg.dp_loss_norm == 'batch_mean':
+        raise NotImplementedError("dp_loss_norm='batch_mean' (the JAX "
+                                  "package's multi-chip normalization) is "
+                                  "not ported")
+    if cfg.dp_loss_norm != 'per_image':
+        raise ValueError(f'unknown dp_loss_norm {cfg.dp_loss_norm!r}')
+    if valid is None:
+        raise ValueError('the indoor loss needs the forward\'s valid mask')
+    return ivh.indoor_head_loss(head_outs, valid, batch['origins'],
+                                batch['gt_boxes'], batch['gt_labels'],
+                                batch['gt_mask'], cfg.indoor_head)
 
 
 def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:

@@ -1,13 +1,17 @@
-"""Anchor-free FCOS-style indoor 3D head (SUN RGB-D, v1 and v2) and its
-fixed-shape inference.
+"""Anchor-free FCOS-style indoor 3D head (SUN RGB-D, v1 and v2), its
+training targets and loss, and its fixed-shape inference.
 
 Counterpart of ``imvoxelnet_tpu/models/heads/imvoxel_heads.py``
-(``IndoorHeadConfig``, ``Scale``, ``IndoorHead``,
-``sunrgbd_bbox_pred_to_bbox``, ``mlvl_points``, ``resize_valid_to_levels``,
-``indoor_head_get_bboxes``).  The head keeps the reference's three separate
-prediction convs (``centerness_conv``, ``reg_conv``, ``cls_conv``); the JAX
-package fuses the first two into one conv only to fill the TPU's lanes, and
-each output channel's arithmetic is the same either way.
+(``IndoorHeadConfig``, ``Scale``, ``IndoorHead``, ``compute_centerness``,
+``sunrgbd_bbox_pred_to_bbox``, ``mlvl_points``, ``indoor_targets``,
+``resize_valid_to_levels``, ``_flatten_levels``, ``indoor_head_loss``,
+``indoor_head_get_bboxes``).  The JAX package ``vmap``s the targets and the
+losses over samples; here they carry the batch as a leading dim, with the
+same dense ``(B, P, G)`` tensors over the padded GT axis and no host read.
+The head keeps the reference's three separate prediction convs
+(``centerness_conv``, ``reg_conv``, ``cls_conv``); the JAX package fuses
+the first two into one conv only to fill the TPU's lanes, and each output
+channel's arithmetic is the same either way.
 
 Head outputs are channel-last float32 level lists ``(B, nx, ny, nz, C)``,
 flattened ``(nx, ny, nz)``-major as in the JAX package and the reference.
@@ -23,6 +27,7 @@ from torch import nn
 
 from ...ops import backproject as bp
 from ...ops import boxes as box_ops
+from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
 from ..layers import BatchNorm3d, Conv3d
 
@@ -120,6 +125,23 @@ class IndoorHead(nn.Module):
 # Geometry helpers
 # ---------------------------------------------------------------------------
 
+def _centerness(d):
+    """:func:`compute_centerness` of the six face distances ``d`` given as
+    separate tensors."""
+    c = (torch.minimum(d[0], d[1]) / torch.maximum(d[0], d[1]).clamp(min=1e-12)
+         * torch.minimum(d[2], d[3])
+         / torch.maximum(d[2], d[3]).clamp(min=1e-12)
+         * torch.minimum(d[4], d[5])
+         / torch.maximum(d[4], d[5]).clamp(min=1e-12))
+    return torch.sqrt(c.clamp(min=0.0))
+
+
+def compute_centerness(bbox_targets):
+    """sqrt of the per-axis min/max products of ``(..., 6+)`` face distances
+    (``imvoxel_head.py:563-571``)."""
+    return _centerness(bbox_targets[..., :6].unbind(-1))
+
+
 def sunrgbd_bbox_pred_to_bbox(points, bbox_pred):
     """Distances + angle -> gravity-center 7-DoF boxes
     (``imvoxel_head.py:432-449``): points ``(..., 3)``, predictions
@@ -157,6 +179,178 @@ def resize_valid_to_levels(valid, featmap_sizes):
                 vf, size=tuple(size), mode='trilinear',
                 align_corners=False))[:, 0] > 0
             for size in featmap_sizes]
+
+
+# ---------------------------------------------------------------------------
+# Training targets and loss
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def indoor_targets(points, scales, regress_ranges, gt_boxes, gt_labels,
+                   gt_mask, cfg: IndoorHeadConfig):
+    """FCOS-style 3D target assignment, v1 and v2, all samples at once
+    (``ImVoxelHead._get_target_single``, ``imvoxel_head_v2.py:357-374``).
+
+    Every point gets the smallest-volume GT box among those that contain it
+    and that the version's rule allows: v1 keeps boxes whose largest face
+    distance lies in the point's level's regress range; v2 keeps the
+    coarsest level that still holds ``limit`` points of the box.  With
+    ``centerness_topk > 0`` only the points whose centerness is strictly
+    above the box's k-th value (v1) or (k+1)-th value (v2) stay.  Ties of
+    volume go to the first box, as ``jnp.argmin`` gives them: a padded box
+    and a point inside no box both have volume ``INF``, so such a point
+    takes box 0's targets (and label -1).
+
+    Args:
+      points: ``(B, P, 3)`` all-level voxel centers (concatenated).
+      scales: ``(P,)`` int level of each point.
+      regress_ranges: ``(P, 2)`` per-point regress range (v1 only).
+      gt_boxes: ``(B, G, 7)`` bottom-center padded GT; ``gt_labels (B, G)``
+        int, ``gt_mask (B, G)`` bool.
+    Returns:
+      ``centerness_t (B, P)``, ``bbox_t (B, P, 7)`` gravity-center boxes and
+      ``labels (B, P)`` with -1 as background.
+    """
+    if cfg.dataset != 'sunrgbd':
+        raise NotImplementedError('only the SUN RGB-D targets are ported')
+    # every (B, P, G) quantity is its own tensor: stacking the face
+    # distances into one (B, P, G, 7) tensor, as the JAX package does, costs
+    # a strided copy of some 1.7 GB a step at b=4 for the v1 presets
+    b, n_points = points.shape[:2]
+    centers = box_ops.gravity_center(gt_boxes)                 # (B, G, 3)
+    vols = box_ops.volume(gt_boxes)                            # (B, G)
+
+    # into each box's frame: the offset rotated by -yaw about z (the
+    # arithmetic of ops/boxes.py:rotation_3d_in_axis)
+    dx, dy, dz = (points[:, :, None, i] - centers[:, None, :, i]
+                  for i in range(3))                           # (B, P, G)
+    c = torch.cos(-gt_boxes[..., 6])[:, None, :]
+    s = torch.sin(-gt_boxes[..., 6])[:, None, :]
+    rx, ry = dx * c + dy * s, dy * c - dx * s
+    hx, hy, hz = (gt_boxes[:, None, :, 3 + i] / 2.0 for i in range(3))
+    # to the min and max faces, x, y, z: (B, P, G) each
+    dist = (rx + hx, hx - rx, ry + hy, hy - ry, dz + hz, hz - dz)
+
+    def fold(fn):
+        out = dist[0]
+        for d in dist[1:]:
+            out = fn(out, d)
+        return out
+    inside = (fold(torch.minimum) > 0) & gt_mask[:, None, :]
+    inf = torch.full((), INF, device=points.device)
+    volumes = torch.where(inside, vols[:, None, :], inf)       # (B, P, G)
+
+    if cfg.version == 1:
+        max_dist = fold(torch.maximum)
+        in_range = ((max_dist >= regress_ranges[None, :, None, 0])
+                    & (max_dist <= regress_ranges[None, :, None, 1]))
+        volumes = torch.where(in_range, volumes, inf)
+        cond_mask = inside & in_range
+        kth = cfg.centerness_topk            # v1: k-th value, strictly above
+    else:
+        # the coarsest level holding >= limit points of the box
+        per_scale = torch.stack([
+            (inside & (scales[None, :, None] == i)).sum(1)
+            for i in range(cfg.n_scales)], dim=1)              # (B, S, G)
+        under = per_scale < cfg.limit
+        first_under = torch.argmax(under.to(torch.int32), dim=1)   # first
+        best = torch.where(under.any(1), (first_under - 1).clamp(min=0),
+                           cfg.n_scales - 1)                   # (B, G)
+        in_best = scales[None, :, None] == best[:, None, :]
+        volumes = torch.where(in_best, volumes, inf)
+        cond_mask = inside & in_best
+        kth = cfg.centerness_topk + 1        # v2: (k+1)-th value
+    if cfg.centerness_topk > 0:
+        cness = torch.where(cond_mask, _centerness(dist),
+                            torch.full((), -1.0, device=points.device))
+        # only the k-th value is used, so the order among ties is moot
+        top = torch.topk(cness, min(kth, n_points), dim=1).values[:, -1]
+        volumes = torch.where(cness > top[:, None, :], volumes, inf)
+
+    # first minimum, as jnp.argmin
+    min_inds = torch.argmin(volumes, dim=2)                    # (B, P)
+    min_vol = torch.gather(volumes, 2, min_inds[..., None])[..., 0]
+    labels = torch.where(min_vol < INF, torch.gather(gt_labels, 1, min_inds),
+                         -1)
+    assigned = [torch.gather(d, 2, min_inds[..., None])[..., 0] for d in dist]
+    gc_boxes = torch.cat([centers, gt_boxes[..., 3:]], dim=-1)
+    bbox_t = torch.gather(gc_boxes, 1, min_inds[..., None].expand(
+        b, n_points, gc_boxes.shape[-1]))
+    return _centerness(assigned), bbox_t, labels
+
+
+def _flatten_levels(levels):
+    """``[(B, nx, ny, nz, C)]`` -> ``(B, P, C)`` concatenated in level
+    order."""
+    return torch.cat([lv.reshape(lv.shape[0], -1, lv.shape[-1])
+                      for lv in levels], dim=1)
+
+
+def _level_constants(level_sizes, regress_ranges, device):
+    """``scales (P,)`` and ``regress_ranges (P, 2)`` of the concatenated
+    levels, filled on the device (a tensor made from a list would be a copy
+    from the host)."""
+    scales = torch.cat([torch.full((n,), i, dtype=torch.int32, device=device)
+                        for i, n in enumerate(level_sizes)])
+    rr = torch.cat([torch.stack([torch.full((n,), float(lo), device=device),
+                                 torch.full((n,), float(hi), device=device)],
+                                dim=-1)
+                    for n, (lo, hi) in zip(level_sizes, regress_ranges)])
+    return scales, rr
+
+
+def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
+                     cfg: IndoorHeadConfig):
+    """The batch loss (``ImVoxelHead.loss/_loss_single``,
+    ``imvoxel_head.py:86-224``) with each image normalized by its own
+    positive count, the reference's ``reduce_mean`` on one card
+    (``dp_loss_norm='per_image'``).
+
+    Per image: the focal loss over the seen voxels, the centerness BCE over
+    the positives, and the rotated IoU-3D loss weighted by the centerness
+    target; each is then averaged over the images.  The IoU loss clips every
+    voxel of every level and image in one call.
+
+    Args:
+      head_outs: ``(centernesses, bbox_preds, cls_scores)`` level lists,
+        channel-last ``(B, nx, ny, nz, C)``.
+      valid: ``(B, nx, ny, nz)`` bool seen mask (level-0 resolution).
+      origins: ``(B, 3)`` voxel grid origins.
+      gt_boxes: ``(B, G, 7)`` padded bottom-center boxes; ``gt_labels (B,
+        G)``; ``gt_mask (B, G)`` bool.
+    Returns:
+      dict of ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` scalars.
+    """
+    centernesses, bbox_preds, cls_scores = head_outs
+    b = valid.shape[0]
+    featmap_sizes = [tuple(x.shape[1:4]) for x in centernesses]
+    valids = resize_valid_to_levels(valid, featmap_sizes)
+    flat_center = _flatten_levels(centernesses)[..., 0]        # (B, P)
+    flat_bbox = _flatten_levels(bbox_preds)                    # (B, P, 7)
+    flat_cls = _flatten_levels(cls_scores)                     # (B, P, C)
+    flat_valid = torch.cat([v.reshape(b, -1) for v in valids], dim=1)
+
+    scales, rr = _level_constants([s[0] * s[1] * s[2] for s in featmap_sizes],
+                                  cfg.regress_ranges, valid.device)
+    points = torch.cat(mlvl_points(featmap_sizes, cfg.voxel_size, origins),
+                       dim=1)                                  # (B, P, 3)
+    centerness_t, bbox_t, labels_t = indoor_targets(
+        points, scales, rr, gt_boxes, gt_labels, gt_mask, cfg)
+    pos = (labels_t >= 0) & flat_valid
+    pred_boxes = sunrgbd_bbox_pred_to_bbox(points, flat_bbox)
+
+    n_pos = pos.sum(1).float().clamp(min=1.0)                  # (B,)
+    cls_labels = torch.where(labels_t >= 0, labels_t, cfg.n_classes)
+    loss_cls = loss_ops.sigmoid_focal_loss(
+        flat_cls, cls_labels, weight=flat_valid.float(), avg_factor=n_pos)
+    posf = pos.float()
+    loss_center = loss_ops.binary_cross_entropy(
+        flat_center, centerness_t, weight=posf, avg_factor=n_pos)
+    w = centerness_t * posf
+    loss_bbox = loss_ops.iou_3d_loss(pred_boxes, bbox_t, weight=w,
+                                     avg_factor=w.sum(1))
+    return dict(loss_centerness=loss_center.mean(),
+                loss_bbox=loss_bbox.mean(), loss_cls=loss_cls.mean())
 
 
 # ---------------------------------------------------------------------------

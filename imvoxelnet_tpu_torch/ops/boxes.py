@@ -34,6 +34,17 @@ def rotation_3d_in_axis(points, angles, axis: int = 2):
     return torch.stack([x * c + y * s, y * c - x * s, z], dim=-1)
 
 
+def volume(boxes):
+    """Per-box volume ``dx * dy * dz``."""
+    return boxes[..., 3] * boxes[..., 4] * boxes[..., 5]
+
+
+def gravity_center(boxes):
+    """Bottom-center boxes -> their gravity (true) centers ``(..., 3)``."""
+    return torch.cat([boxes[..., :2], boxes[..., 2:3] + boxes[..., 5:6] * 0.5],
+                     dim=-1)
+
+
 def to_bottom_center(boxes_gc):
     """Gravity-center boxes back to the bottom-center convention."""
     z_bottom = boxes_gc[..., 2:3] - boxes_gc[..., 5:6] * 0.5
@@ -73,4 +84,19 @@ def bev_corners(boxes_xywhr):
     c, s = torch.cos(r)[..., None], torch.sin(r)[..., None]
     rx = tx * c + ty * s
     ry = -tx * s + ty * c
+    return torch.stack([rx + x[..., None], ry + y[..., None]], dim=-1)
+
+
+def bev_corners_loss(boxes_xywhr):
+    """4 BEV corners ``(..., 4, 2)`` in the rotated-IoU *loss* extension's
+    yaw convention (``box2corners_th``): the template is rotated as
+    ``(tx, ty) @ [[c, s], [-s, c]]``, the opposite direction from
+    :func:`bev_corners`.  The IoU-3D training loss uses this convention,
+    :func:`bev_corners` everything else."""
+    x, y, w, h, r = boxes_xywhr.unbind(-1)
+    tx = torch.stack([w / 2, -w / 2, -w / 2, w / 2], dim=-1)
+    ty = torch.stack([h / 2, h / 2, -h / 2, -h / 2], dim=-1)
+    c, s = torch.cos(r)[..., None], torch.sin(r)[..., None]
+    rx = tx * c - ty * s
+    ry = tx * s + ty * c
     return torch.stack([rx + x[..., None], ry + y[..., None]], dim=-1)

@@ -1,15 +1,18 @@
-"""Axis-aligned BEV IoU for target assignment, and rotated BEV IoU by an
-exact rect-rect clip.
+"""Axis-aligned BEV IoU for target assignment, rotated BEV IoU by an exact
+rect-rect clip, and the differentiable rotated 3D IoU of the indoor loss.
 
 Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``bbox_overlaps_2d``,
 ``bbox_overlaps_nearest_3d``, ``rect_intersection_area``,
-``rotated_overlaps_bev``, ``rotated_iou_bev``).  On CUDA tensors, for every
-pair count, ``rect_intersection_area`` runs the paired entry of the clip
-kernel (``kernels/rect_clip.py``) and ``rotated_overlaps_bev`` /
-``rotated_iou_bev`` its pairwise entry, which reads each box once and makes
-no broadcast copy; CPU tensors take the plain versions.  The plain version
-of the kernel's fused NMS entry and the packing of its mask words are here
-too.
+``rotated_overlaps_bev``, ``rotated_iou_bev``, ``iou_3d_aligned``).  On CUDA
+tensors, for every pair count, ``rect_intersection_area`` runs
+:class:`RectClipFunction`: the paired entry of the clip kernel
+(``kernels/rect_clip.py``) forward and its backward kernel backward, as the
+JAX package's ``custom_vjp`` runs its Pallas clip forward and the vjp of its
+jnp clip backward.  ``rotated_overlaps_bev`` / ``rotated_iou_bev`` take the
+pairwise entry, which reads each box once and makes no broadcast copy.  CPU
+tensors take the plain versions, and autograd differentiates them.  The
+plain version of the kernel's fused NMS entry and the packing of its mask
+words are here too.
 """
 
 from __future__ import annotations
@@ -131,20 +134,42 @@ def rect_intersection_area_plain(corners1, corners2):
     return area.reshape(batch)
 
 
+class RectClipFunction(torch.autograd.Function):
+    """Paired clip areas of ``(n, 4, 2)`` float32 CUDA corner sets with a
+    gradient: the forward is the clip kernel's paired entry, the backward
+    its backward kernel (``kernels/rect_clip.py``), which computes what
+    autograd of :func:`rect_intersection_area_plain` computes, up to the
+    order of the sums."""
+
+    @staticmethod
+    def forward(ctx, corners1, corners2):
+        ctx.save_for_backward(corners1, corners2)
+        return clip_kernel.rect_intersection_area(corners1.detach(),
+                                                  corners2.detach())
+
+    @staticmethod
+    def backward(ctx, grad_areas):
+        corners1, corners2 = ctx.saved_tensors
+        return clip_kernel.rect_intersection_area_grad(
+            corners1.detach(), corners2.detach(),
+            grad_areas.detach().float().contiguous())
+
+
 def rect_intersection_area(corners1, corners2):
     """Exact intersection area of two rotated rects, ``(..., 4, 2)`` corner
     arrays with broadcastable batch dims -> ``(...,)`` float32.
 
-    CUDA tensors go through the clip kernel (forward only); CPU tensors
-    through :func:`rect_intersection_area_plain`.
+    CUDA tensors go through :class:`RectClipFunction` (the clip kernel and
+    its backward kernel); CPU tensors through
+    :func:`rect_intersection_area_plain`, differentiated by autograd.
     """
     if not corners1.is_cuda:
         return rect_intersection_area_plain(corners1, corners2)
     batch = torch.broadcast_shapes(corners1.shape[:-2], corners2.shape[:-2])
     c1 = corners1.float().broadcast_to(batch + (4, 2)).reshape(-1, 4, 2)
     c2 = corners2.float().broadcast_to(batch + (4, 2)).reshape(-1, 4, 2)
-    return clip_kernel.rect_intersection_area(
-        c1.contiguous(), c2.contiguous()).reshape(batch)
+    return RectClipFunction.apply(c1.contiguous(),
+                                  c2.contiguous()).reshape(batch)
 
 
 def rect_intersection_area_pairwise_plain(corners1, corners2):
@@ -189,6 +214,28 @@ def rotated_iou_bev(boxes_xywhr1, boxes_xywhr2):
     return iou_from_overlaps(inter,
                              boxes_xywhr1[..., 2] * boxes_xywhr1[..., 3],
                              boxes_xywhr2[..., 2] * boxes_xywhr2[..., 3])
+
+
+def iou_3d_aligned(boxes1_gc, boxes2_gc):
+    """Element-wise rotated 3D IoU of gravity-center boxes ``(..., 7)``
+    ``(x, y, z, dx, dy, dz, yaw)``, differentiable: the IoU-3D loss's core
+    (``cal_iou_3d``).  The BEV corners take the loss extension's yaw
+    convention (``boxes.bev_corners_loss``)."""
+    bev1 = torch.cat([boxes1_gc[..., 0:2], boxes1_gc[..., 3:5],
+                      boxes1_gc[..., 6:7]], dim=-1)
+    bev2 = torch.cat([boxes2_gc[..., 0:2], boxes2_gc[..., 3:5],
+                      boxes2_gc[..., 6:7]], dim=-1)
+    inter_bev = rect_intersection_area(box_ops.bev_corners_loss(bev1),
+                                       box_ops.bev_corners_loss(bev2))
+    zmax = torch.minimum(boxes1_gc[..., 2] + boxes1_gc[..., 5] * 0.5,
+                         boxes2_gc[..., 2] + boxes2_gc[..., 5] * 0.5)
+    zmin = torch.maximum(boxes1_gc[..., 2] - boxes1_gc[..., 5] * 0.5,
+                         boxes2_gc[..., 2] - boxes2_gc[..., 5] * 0.5)
+    inter = inter_bev * (zmax - zmin).clamp(min=0)
+    vol1 = boxes1_gc[..., 3] * boxes1_gc[..., 4] * boxes1_gc[..., 5]
+    vol2 = boxes2_gc[..., 3] * boxes2_gc[..., 4] * boxes2_gc[..., 5]
+    union = (vol1 + vol2 - inter).clamp(min=_EPS)
+    return inter / union
 
 
 def pack_mask(bits):

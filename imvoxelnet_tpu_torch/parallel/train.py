@@ -1,4 +1,5 @@
-"""Training step: AdamW + joint grad clip + step LR.
+"""Training step: AdamW + joint grad clip + step LR, for the KITTI and the
+SUN RGB-D presets.
 
 Counterpart of ``imvoxelnet_tpu/parallel/train.py`` (``param_labels``,
 ``make_optimizer``, ``make_train_step``) on one device:
@@ -99,8 +100,10 @@ def make_train_step(model, optimizer, scheduler):
     detector's layout with ``gt_boxes``, ``gt_labels``, ``gt_mask``).
 
     Puts the model in train mode and runs inside
-    ``compute_precision(model.cfg.compute_dtype)``.  ``metrics`` holds
-    ``loss_cls``, ``loss_bbox``, ``loss_dir`` and ``loss`` as device tensors.
+    ``compute_precision(model.cfg.compute_dtype)``.  ``metrics`` holds the
+    losses (KITTI: ``loss_cls``, ``loss_bbox``, ``loss_dir``; indoor:
+    ``loss_centerness``, ``loss_bbox``, ``loss_cls``) and their sum ``loss``
+    as device tensors.
     Every trainable parameter gets a zero gradient up front, so that one that
     does not reach the loss (the FPN's unused output convs) still decays, as
     under optax.
@@ -115,8 +118,8 @@ def make_train_step(model, optimizer, scheduler):
         with compute_precision(cfg.compute_dtype):
             model.train()
             optimizer.zero_grad(set_to_none=False)
-            head_outs, _ = model(batch)
-            losses = imvoxelnet_loss(cfg, head_outs, batch)
+            head_outs, valid = model(batch)
+            losses = imvoxelnet_loss(cfg, head_outs, batch, valid)
             total = sum(losses.values())
             total.backward()
             optimizer.step()

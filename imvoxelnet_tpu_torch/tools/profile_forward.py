@@ -1,24 +1,28 @@
-"""Where the time of a forward, or of a KITTI training step, goes on the
-card.
+"""Where the time of a forward, or of a training step, goes on the card.
 
     python -m imvoxelnet_tpu_torch.tools.profile_forward [--batch 8]
         [--dtype bfloat16] [--preset imvoxelnet_kitti]
         [--out work_dirs/profile_forward.json]
     python -m imvoxelnet_tpu_torch.tools.profile_forward --train [--batch 4]
+        [--preset imvoxelnet_sunrgbd]
 
 Runs the preset (``imvoxelnet_kitti`` by default, or a SUN RGB-D one such as
 ``imvoxelnet_sunrgbd``; random weights from a seed) on its synthetic batch
 (``utils/synthetic.py``: KITTI 1280x384 or SUN RGB-D 640x480): forward +
 decode/NMS (the cls bias at 0 so detections pass), or with ``--train`` the
-KITTI training step of ``parallel/train.py`` at the preset's padded train
-size (1408x416).  It reports:
+training step of ``parallel/train.py`` on the preset's synthetic training
+batch at its padded train size (KITTI 1408x416, SUN RGB-D 768x576).  It
+reports:
 
 * stage times from CUDA events recorded by forward hooks around the
   backbone, FPN, 3D neck and head; backprojection is the span between the
   FPN's end and the neck's start, decode + NMS the span after the head.
   With ``--train`` also the step's phases: forward, targets + loss (their
-  forward and backward, up to the gradient of the head's maps), the rest of
-  the backward, and the optimizer (clip + AdamW, up to its step's end);
+  forward and backward, up to the last gradient of the head's outputs), the
+  rest of the backward, and the optimizer (clip + AdamW, up to its step's
+  end); for an indoor preset also the forward of the pieces of targets +
+  loss (``indoor_targets``, the focal loss, the centerness BCE, the IoU-3D
+  loss);
 * the device's busy share over the timed iterations, the top device
   kernels by self time and the device time of the port's own kernels, from
   ``torch.profiler``;
@@ -44,17 +48,25 @@ from torch.autograd import DeviceType
 
 from ..configs.presets import get_preset
 from ..models.detector import build_model, imvoxelnet_predict
+from ..models.heads import imvoxel_heads as ivh
+from ..ops import losses as loss_ops
 from ..parallel import train as train_lib
 from ..utils.precision import compute_precision
-from ..utils.synthetic import kitti_train_batch, serving_batch
+from ..utils.synthetic import serving_batch, train_batch
 
 STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
 # name fragments of the kernels in kernels/csrc/*.cu
 OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
                'grad_sum', 'conv_wgmma', 'split3', 'rect_clip_kernel',
-               'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
+               'rect_clip_grad_kernel', 'pairwise_area_kernel',
+               'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
+# the indoor loss's pieces timed on their own: (span, module, function)
+INDOOR_LOSS_SPANS = (('indoor_targets', ivh, 'indoor_targets'),
+                     ('focal_loss', loss_ops, 'sigmoid_focal_loss'),
+                     ('centerness_bce', loss_ops, 'binary_cross_entropy'),
+                     ('iou_3d_loss', loss_ops, 'iou_3d_loss'))
 
 
 def zero_cls_bias(model):
@@ -88,15 +100,17 @@ def stage_events(model, events):
 
 def step_events(model, optimizer, events):
     """Events at the training step's phase boundaries: the model's forward,
-    the gradient of the head's class map (the loss's backward is done), and
-    the optimizer's step."""
+    the last gradient of the head's outputs to arrive (the loss's backward
+    is done), and the optimizer's step."""
     def grad_hook(_):
         record(events, ('backward', 'start'))
 
     def forward_end(_mod, _args, out):
         record(events, ('forward', 'end'))
         head_outs, _ = out
-        head_outs[0].register_hook(grad_hook)
+        for t in head_outs:
+            for leaf in (t if isinstance(t, (list, tuple)) else [t]):
+                leaf.register_hook(grad_hook)
 
     return [model.register_forward_pre_hook(
                 lambda *_: record(events, ('forward', 'start'))),
@@ -105,6 +119,23 @@ def step_events(model, optimizer, events):
                 lambda *_: record(events, ('optimizer', 'start'))),
             optimizer.register_step_post_hook(
                 lambda *_: record(events, ('optimizer', 'end')))]
+
+
+def span_events(events, spans):
+    """Wrap each ``(name, module, function)`` of ``spans`` so that CUDA
+    events bracket its calls; returns the originals to restore."""
+    saved = []
+    for name, mod, attr in spans:
+        fn = getattr(mod, attr)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            record(events, (_name, 'start'))
+            out = _fn(*a, **k)
+            record(events, (_name, 'end'))
+            return out
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, timed)
+    return saved
 
 
 def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
@@ -117,8 +148,7 @@ def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
     cfg = dataclasses.replace(preset.model, compute_dtype=dtype)
     model = build_model(cfg, device=device, seed=SEED)
     if train:
-        batch = kitti_train_batch(batch_size, device, seed=SEED,
-                                  size=preset.data.train_size)
+        batch = train_batch(preset.data, batch_size, device, seed=SEED)
         optimizer, scheduler = train_lib.make_optimizer(
             model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
             preset.grad_clip_norm, steps_per_epoch=1000,
@@ -148,8 +178,7 @@ def main(argv=None):
     ap.add_argument('--dtype', default='bfloat16',
                     choices=('float32', 'bfloat16'))
     ap.add_argument('--preset', default='imvoxelnet_kitti',
-                    help='a preset of configs/presets.py (--train: '
-                         'imvoxelnet_kitti only)')
+                    help='a preset of configs/presets.py')
     ap.add_argument('--out', default=None,
                     help='JSON path (default work_dirs/profile_forward.json '
                          'or work_dirs/profile_train.json)')
@@ -162,10 +191,7 @@ def main(argv=None):
                             else 'work_dirs/profile_forward.json')
 
     preset = get_preset(args.preset)
-    if args.train and preset.model.head_kind != 'anchor3d':
-        print('profile_forward: --train runs the KITTI step only',
-              file=sys.stderr)
-        return 1
+    indoor = preset.model.head_kind == 'indoor'
     model, optimizer, run = make_run(args.preset, args.train, batch_size,
                                      args.dtype)
     events = {}
@@ -176,43 +202,56 @@ def main(argv=None):
     handles += stage_events(model, events)
     if args.train:
         handles += step_events(model, optimizer, events)
+    loss_spans = INDOOR_LOSS_SPANS if args.train and indoor else ()
+    saved = span_events(events, loss_spans)
     spans = {k: [] for k in ('backbone', 'fpn', 'backprojection', 'neck_3d',
                              'head', 'total')}
     spans.update({k: [] for k in (
         ('forward', 'targets_loss', 'backward', 'optimizer') if args.train
         else ('decode_nms',))})
-    walls = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(ITERS):
-        t0 = time.perf_counter()
-        record(events, ('total', 'start'))
-        run()
-        record(events, ('total', 'end'))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    spans.update({name: [] for name, _, _ in loss_spans})
+    try:
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            record(events, ('total', 'start'))
+            run()
+            record(events, ('total', 'end'))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
 
-        e = events
-        pairs = [('backbone', e['backbone', 'start'], e['backbone', 'end']),
-                 ('fpn', e['neck', 'start'], e['neck', 'end']),
-                 ('backprojection', e['neck', 'end'], e['neck_3d', 'start']),
-                 ('neck_3d', e['neck_3d', 'start'], e['neck_3d', 'end']),
-                 ('head', e['bbox_head', 'start'], e['bbox_head', 'end']),
-                 ('total', e['total', 'start'], e['total', 'end'])]
-        if args.train:
-            pairs += [
-                ('forward', e['forward', 'start'], e['forward', 'end']),
-                ('targets_loss', e['forward', 'end'], e['backward', 'start']),
-                ('backward', e['backward', 'start'], e['optimizer', 'start']),
-                ('optimizer', e['optimizer', 'start'],
-                 e['optimizer', 'end'])]
-        else:
-            pairs.append(('decode_nms', e['bbox_head', 'end'],
-                          e['total', 'end']))
-        for span, a, b in pairs:
-            spans[span].append(a.elapsed_time(b))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for h in handles:
-        h.remove()
+            e = events
+            pairs = [
+                ('backbone', e['backbone', 'start'], e['backbone', 'end']),
+                ('fpn', e['neck', 'start'], e['neck', 'end']),
+                ('backprojection', e['neck', 'end'], e['neck_3d', 'start']),
+                ('neck_3d', e['neck_3d', 'start'], e['neck_3d', 'end']),
+                ('head', e['bbox_head', 'start'], e['bbox_head', 'end']),
+                ('total', e['total', 'start'], e['total', 'end'])]
+            if args.train:
+                pairs += [
+                    ('forward', e['forward', 'start'], e['forward', 'end']),
+                    ('targets_loss', e['forward', 'end'],
+                     e['backward', 'start']),
+                    ('backward', e['backward', 'start'],
+                     e['optimizer', 'start']),
+                    ('optimizer', e['optimizer', 'start'],
+                     e['optimizer', 'end'])]
+                pairs += [(name, e[name, 'start'], e[name, 'end'])
+                          for name, _, _ in loss_spans]
+            else:
+                pairs.append(('decode_nms', e['bbox_head', 'end'],
+                              e['total', 'end']))
+            for span, a, b in pairs:
+                spans[span].append(a.elapsed_time(b))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        # the hooks and the wrapped loss functions go, also on an error
+        for h in handles:
+            h.remove()
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -7,7 +7,8 @@ projects into the image; the grid center is nudged off the voxel lattice.
 Images are padded 1280x384 with ``ratio = ori_h / (img_h / stride) = 4``
 (``imvoxelnet.py:118``).
 
-SUN RGB-D (:func:`sunrgbd_batch`): a Kinect-like camera (fx = fy = 529.5 at
+SUN RGB-D (:func:`sunrgbd_batch`, :func:`sunrgbd_train_batch` with
+:func:`furniture_boxes`): a Kinect-like camera (fx = fy = 529.5 at
 640x480) tilted by a few degrees of pitch and roll, with the extrinsic built
 as the dataset builds it from the calibration's ``Rt``
 (``imvoxelnet_tpu/data/datasets.py:231-240``) and the dataset's grid origin
@@ -142,19 +143,20 @@ def _sunrgbd_extrinsic(rt):
 
 
 def sunrgbd_batch(b: int, device='cuda', seed: int = 0,
-                  size=(SUNRGBD_W, SUNRGBD_H)):
+                  size=(SUNRGBD_W, SUNRGBD_H), pitch=(2.0, 8.0)):
     """A ``b``-sample, one-view SUN RGB-D-like batch in the detector's
-    layout at image ``size (W, H)``: each sample's camera pitches by 2-8
-    degrees and rolls by -3..3; intrinsics scale with the size from fx = fy
-    = 529.5 at 640x480, the principal point nudged off the pixel grid;
-    ``ratio = 4`` (the images are not resized)."""
+    layout at image ``size (W, H)``: each sample's camera pitches by
+    ``pitch`` degrees (uniform; positive looks up) and rolls by -3..3;
+    intrinsics scale with the size from fx = fy = 529.5 at 640x480, the
+    principal point nudged off the pixel grid; ``ratio = 4`` (the images
+    are not resized)."""
     rng = np.random.RandomState(seed)
     w, h = size
     f = 529.5 * w / SUNRGBD_W
     k = np.array([[f, 0.0, (w - 1) / 2 + 0.137], [0.0, f, (h - 1) / 2 - 0.213],
                   [0.0, 0.0, 1.0]], np.float32)
     ext = np.stack([_sunrgbd_extrinsic(_rotation(
-        np.deg2rad(rng.uniform(2, 8)), np.deg2rad(rng.uniform(-3, 3))))[None]
+        np.deg2rad(rng.uniform(*pitch)), np.deg2rad(rng.uniform(-3, 3))))[None]
         for _ in range(b)])
     return dict(
         images=torch.tensor(rng.randn(b, 1, h, w, 3).astype(np.float32),
@@ -169,6 +171,67 @@ def sunrgbd_batch(b: int, device='cuda', seed: int = 0,
     )
 
 
+FLOOR_Z = (-1.75, -1.67)      # floor height below the camera (m)
+
+
+def furniture_boxes(rng, b: int, max_gt: int, n_classes: int = 10):
+    """Padded GT of ``b`` rooms: 4-16 furniture-sized boxes each, inside
+    the view of the SUN RGB-D synthetic camera and grid (1.5-5.2 m ahead,
+    within 60% of the image's half-width), bottoms within 2 cm of a floor
+    1.67-1.75 m below the camera, yaws uniform.  Every room holds one small
+    box (sides 0.3-0.9 m) and one medium (1.0-1.5 m), both 3.4-4.8 m ahead,
+    and one large (2.1-2.5 m across, 1.7-2.5 m tall, 3.2-5 m ahead), nearer
+    the middle of the view, so that the v1 regress ranges and the v2 level
+    rule (27 points of 0.64 m) each give every level positives; the rest
+    have sides of 0.3-2.5 m.
+
+    Returns numpy ``gt_boxes (b, max_gt, 7)`` float32 (bottom center,
+    padding zeros), ``gt_labels (b, max_gt)`` int32 and ``gt_mask`` bool.
+    """
+    boxes = np.zeros((b, max_gt, 7), np.float32)
+    labels = np.zeros((b, max_gt), np.int32)
+    mask = np.zeros((b, max_gt), bool)
+    half_tan = 0.6 * (SUNRGBD_W / 2) / 529.5
+    for s in range(b):
+        n = rng.randint(4, min(16, max_gt) + 1)
+        floor = rng.uniform(*FLOOR_Z)
+        for g in range(n):
+            y, x_share = rng.uniform(1.5, 5.2), 1.0
+            if g == 0:
+                size = rng.uniform(0.3, 0.9, 3)
+                y, x_share = rng.uniform(3.4, 4.8), 0.5
+            elif g == 1:
+                size = rng.uniform(1.0, 1.5, 3)
+                y, x_share = rng.uniform(3.4, 4.8), 0.5
+            elif g == 2:
+                size = np.r_[rng.uniform(2.1, 2.5, 2), rng.uniform(1.7, 2.5)]
+                y, x_share = rng.uniform(3.2, 5.0), 0.3
+            else:
+                size = rng.uniform(0.3, 2.5, 3)
+            x = rng.uniform(-1, 1) * x_share * half_tan * y
+            boxes[s, g] = (x, y, floor + rng.uniform(-0.02, 0.02), *size,
+                           rng.uniform(-np.pi, np.pi))
+            labels[s, g] = rng.randint(n_classes)
+        mask[s, :n] = True
+    return boxes, labels, mask
+
+
+def sunrgbd_train_batch(b: int, device='cuda', seed: int = 0,
+                        size=(768, 576), max_gt: int = 64,
+                        n_classes: int = 10):
+    """A ``b``-sample SUN RGB-D training batch: :func:`sunrgbd_batch`'s
+    camera, looking down by 2-8 degrees onto the room, at the presets'
+    padded train size ``(W, H)``, with :func:`furniture_boxes` padded to
+    ``max_gt``."""
+    rng = np.random.RandomState(seed + 1)
+    boxes, labels, mask = furniture_boxes(rng, b, max_gt, n_classes)
+    batch = sunrgbd_batch(b, device, seed=seed, size=size, pitch=(-8.0, -2.0))
+    batch.update(gt_boxes=torch.tensor(boxes, device=device),
+                 gt_labels=torch.tensor(labels, device=device),
+                 gt_mask=torch.tensor(mask, device=device))
+    return batch
+
+
 def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0):
     """The synthetic serving batch of a preset's ``data.dataset``."""
     if dataset == 'sunrgbd':
@@ -176,3 +239,16 @@ def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0):
     if dataset == 'kitti':
         return kitti_batch(b, device, seed=seed)
     raise NotImplementedError(f'no synthetic {dataset!r} batch')
+
+
+def train_batch(data, b: int, device='cuda', seed: int = 0):
+    """The synthetic training batch of a preset's ``data`` config
+    (``configs/presets.py:DataConfig``), at its padded train size."""
+    if data.dataset == 'sunrgbd':
+        return sunrgbd_train_batch(b, device, seed=seed,
+                                   size=data.train_size, max_gt=data.max_gt,
+                                   n_classes=len(data.classes))
+    if data.dataset == 'kitti':
+        return kitti_train_batch(b, device, seed=seed, size=data.train_size)
+    raise NotImplementedError(f'no synthetic {data.dataset!r} training '
+                              f'batch')

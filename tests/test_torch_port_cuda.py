@@ -26,6 +26,7 @@ from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.utils.synthetic import sunrgbd_batch
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
+from imvoxelnet_tpu_torch.ops import losses
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 
 pytestmark = pytest.mark.cuda
@@ -214,6 +215,106 @@ def test_rect_clip_kernel_bit_identical_to_plain(cuda):
     # and through the dispatching op, broadcast pairing included
     pairs = iou_ops.rect_intersection_area(corners[:, None], corners[None])
     assert torch.equal(pairs.reshape(-1), got)
+
+
+def _clip_grad_pairs(dev, rng, n=4000):
+    """Corner pairs ``(P, 4, 2)`` as the IoU-3D loss makes them (each
+    predicted rect near its target), then nested, identical, touching and
+    disjoint ones, and area gradients with zeros."""
+    a = np.concatenate([rng.uniform(-1, 1, (n, 2)),
+                        rng.uniform(0.3, 3.0, (n, 2)),
+                        rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    b = a + np.concatenate([0.5 * rng.randn(n, 2), 0.3 * rng.randn(n, 2),
+                            0.5 * rng.randn(n, 1)], -1)
+    b[:, 2:4] = np.abs(b[:, 2:4]) + 0.1
+    special = np.array([
+        [0, 0, 2, 2, .3, 0, 0, 2, 2, .3], [0, 0, 4, 3, .2, .1, .2, 1, 1, 1.1],
+        [.1, .2, 1, 1, 1.1, 0, 0, 4, 3, .2], [0, 0, 2, 2, 0, 2, 0, 2, 2, 0],
+        [0, 0, 2, 2, 0, 2, 2, 2, 2, 0], [0, 0, 2, 2, 0, 9, 9, 2, 2, .4]] * 8)
+    a = np.concatenate([a, special[:, :5]]).astype(np.float32)
+    b = np.concatenate([b, special[:, 5:]]).astype(np.float32)
+    g = rng.randn(len(a)).astype(np.float32)
+    g[::5] = 0.0
+    return (box_ops.bev_corners(torch.tensor(a, device=dev)).contiguous(),
+            box_ops.bev_corners(torch.tensor(b, device=dev)).contiguous(),
+            torch.tensor(g, device=dev))
+
+
+def _zero_pairs(grad):
+    return (grad.reshape(grad.shape[0], -1) == 0).all(1)
+
+
+def test_rect_clip_function_matches_plain_autograd(cuda):
+    """``RectClipFunction`` (the paired entry forward, the backward kernel
+    backward) against autograd of the plain clip on the same CUDA tensors:
+    the areas bit for bit, the gradients within 1e-5 of their max-abs and
+    exactly zero for the same pairs; one launch of each kernel."""
+    c1, c2, g = _clip_grad_pairs(cuda, np.random.RandomState(8))
+    x1, x2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    area = iou_ops.rect_intersection_area(x1, x2)
+    (area * g).sum().backward()
+    counts = kernels.launch_counts()
+    assert counts['rect_clip'] == 1 and counts['rect_clip_grad'] == 1
+    y1, y2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
+    ref = iou_ops.rect_intersection_area_plain(y1, y2)
+    (ref * g).sum().backward()
+    assert torch.equal(area.detach().view(torch.int32), ref.view(torch.int32))
+    for got, want in ((x1.grad, y1.grad), (x2.grad, y2.grad)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        assert torch.equal(_zero_pairs(got), _zero_pairs(want))
+    assert int(_zero_pairs(y1.grad).sum()) > len(g) // 5
+
+
+def test_rect_clip_grad_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    c = torch.zeros((5, 4, 2), device=cuda)
+    g = torch.zeros(5, device=cuda)
+    clip_kernel.rect_intersection_area_grad(c, c, g)      # well-formed
+    before = kernels.launch_counts()
+    for args in ((c.cpu(), c, g), (c, c, g.cpu()), (c, c, g[:4]),
+                 (c, c[:4], g), (c, c, g.double()), (c[:, :3], c, g)):
+        with pytest.raises((ValueError, TypeError)):
+            clip_kernel.rect_intersection_area_grad(*args)
+    with pytest.raises(RuntimeError, match='no backward'):
+        clip_kernel.rect_intersection_area_grad(c.clone().requires_grad_(),
+                                                c, g)
+    assert kernels.launch_counts() == before
+
+
+def test_iou_3d_loss_backward_through_the_kernels_matches_plain(cuda):
+    """The IoU-3D loss's gradient on the card through the clip kernels and
+    through autograd of the plain clip, from the same boxes."""
+    rng = np.random.RandomState(9)
+    n = 3000
+    target = np.concatenate([rng.uniform(-3, 3, (n, 3)),
+                             rng.uniform(0.3, 2.5, (n, 3)),
+                             rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    pred = target + np.concatenate([0.2 * rng.randn(n, 3),
+                                    0.1 * rng.randn(n, 3),
+                                    0.3 * rng.randn(n, 1)], -1)
+    weight = torch.tensor(rng.uniform(size=n) > 0.6, device=cuda).float()
+    target = torch.tensor(target, dtype=torch.float32, device=cuda)
+    grads = []
+    for route in ('kernel', 'plain'):
+        p = torch.tensor(pred, dtype=torch.float32, device=cuda,
+                         requires_grad=True)
+        if route == 'plain':
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(iou_ops, 'rect_intersection_area',
+                           iou_ops.rect_intersection_area_plain)
+                loss = losses.iou_3d_loss(p, target, weight=weight,
+                                          avg_factor=weight.sum())
+        else:
+            loss = losses.iou_3d_loss(p, target, weight=weight,
+                                      avg_factor=weight.sum())
+        loss.backward()
+        grads.append(p.grad)
+    scale = grads[1].abs().max().item()
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-5 * scale)
+    assert torch.equal(_zero_pairs(grads[0]), _zero_pairs(grads[1]))
+    assert scale > 0
 
 
 def _boxes(rng, g, n):
@@ -558,16 +659,20 @@ def test_wrappers_count_launches(cuda):
         c[None], torch.zeros((1, 4), device=cuda), 0.5)
     assert kernels.launch_counts() == {'backproject': 0,
                                        'backproject_grad': 0, 'rect_clip': 3,
-                                       'nms_scan': 0, 'conv3x3x3': 0}
+                                       'rect_clip_grad': 0, 'nms_scan': 0,
+                                       'conv3x3x3': 0}
     clip_kernel.nms_scan(mask, torch.ones((1, 4), dtype=torch.bool,
                                           device=cuda))
     points, proj, hw = _bp_geometry(cuda, 1, 1, 6, 8)
     bp_kernel.backproject_batch_grad(
         torch.zeros((points.shape[1], 1, 4), device=cuda), points, proj, hw,
         6, 8)
+    clip_kernel.rect_intersection_area_grad(c, c, torch.zeros(4,
+                                                              device=cuda))
     assert kernels.launch_counts() == {'backproject': 0,
                                        'backproject_grad': 1, 'rect_clip': 3,
-                                       'nms_scan': 1, 'conv3x3x3': 0}
+                                       'rect_clip_grad': 1, 'nms_scan': 1,
+                                       'conv3x3x3': 0}
 
 
 def test_backproject_grad_wrapper_refuses_what_the_kernel_does_not_take(

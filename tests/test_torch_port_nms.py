@@ -338,7 +338,7 @@ def test_rotated_nms_presorted_matches_jax_rotated_nms_bev():
 def test_clip_wrappers_refuse_cpu_tensors(call):
     before = kernels.launch_counts()
     assert set(before) == {'backproject', 'backproject_grad', 'rect_clip',
-                           'nms_scan', 'conv3x3x3'}
+                           'rect_clip_grad', 'nms_scan', 'conv3x3x3'}
     with pytest.raises(ValueError, match='CUDA tensor'):
         call()
     assert kernels.launch_counts() == before

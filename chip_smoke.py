@@ -4,8 +4,8 @@
 
 Phases, each failing the run on its own error:
   1. build   -- nvcc builds the kernel libraries from the sources in
-                imvoxelnet_tpu_torch/kernels/csrc, in parallel; the clip
-                library must need no stack frame and spill nothing, and the
+                imvoxelnet_tpu_torch/kernels/csrc, in parallel; no kernel
+                of the clip library may need a stack frame or spill, and the
                 conv library's SASS must hold tensor-core (HGMMA)
                 instructions;
   2. kernels -- each kernel against its plain PyTorch version on the card at
@@ -40,13 +40,17 @@ Phases, each failing the run on its own error:
                 versions.
   6. indoor train -- the SUN RGB-D training step (imvoxelnet_sunrgbd and
                 imvoxelnet_sunrgbd_fast, full width and depth, 768x576):
-                the clip's paired entry and its backward kernel against
+                the clip's paired entry and its backward kernels against
                 autograd of the plain clip at the b=4 IoU-3D loss shapes
                 (934,400 and 116,800 pairs; a stress input with 80% of the
                 pairs carrying an area gradient, and the corners and area
-                gradient of a b=4 step, timed), B1's forward and backward at
-                the training shapes (b=4 bfloat16, b=1 float32, with the
-                backward's segment-length histogram); per preset one b=1
+                gradient of a b=4 step, timed, with the time of each of the
+                backward's passes and the live count its kernels found;
+                then every area gradient nonzero, none, NaN at known pairs,
+                1 and 129 pairs; two launches bit-identical), B1's forward
+                and backward at the training shapes (b=4 bfloat16, b=1
+                float32, with the backward's segment-length histogram);
+                per preset one b=1
                 float32 step through the kernels held against the plain
                 path (losses, every gradient, the neck's BN statistics;
                 positives at every level, a nonzero gradient into the
@@ -206,8 +210,10 @@ CLIP_FLOPS = 4 * 8 * 14 + 8 * 4
 # The clip and scan kernels take microseconds: `ms` is their time on the
 # device with the launches queued ahead, `launch_bound_ms` the time per call
 # when the host launches them back to back (what a caller in a loop sees).
+# QUEUE_US is generous: a call of the clip's backward costs the host three
+# allocations, a memset and two launches.
 SMALL_REPS = 200
-QUEUE_US = 60
+QUEUE_US = 150
 
 
 def car_boxes(rng, g, n):
@@ -306,16 +312,15 @@ def stress_area_grad(rng, n):
     return g
 
 
-def check_rect_clip_grad(c1, c2, g, label, min_live):
-    """B2's paired entry and its backward on ``(n, 4, 2)`` corners ``c1``,
-    ``c2`` and the area gradient ``g``: the areas bit for bit against the
-    plain clip, the gradients against autograd of the plain clip on the
-    same CUDA tensors (1e-5 x max-abs, the same pairs exactly zero); at
-    least ``min_live`` pairs must get a gradient.  Returns the forward and
-    the backward row.  The backward's bound counts what this input needs:
-    every pair reads its gradient and writes 64 B, and only a pair with a
-    nonzero gradient reads its corners and runs the sweep."""
-    n = c1.shape[0]
+def clip_grad_vs_autograd(c1, c2, g, label):
+    """The clip's backward kernel (through ``RectClipFunction``) against
+    autograd of the plain clip on the same CUDA tensors: the areas bit for
+    bit, the gradients within 1e-5 x max-abs and exactly zero for the same
+    pairs.  Pairs whose area gradient is NaN are live: they must hold a NaN
+    where their clipped area is positive, and are left out of the
+    comparison (the plain version's masked sums spread a NaN where the
+    kernel's selects do not).  Returns the kernel's area and gradients, the
+    plain graph's area and leaves, and the comparison's numbers."""
     x1, x2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
     area = iou_ops.RectClipFunction.apply(x1, x2)
     area.backward(g)
@@ -325,9 +330,15 @@ def check_rect_clip_grad(c1, c2, g, label, min_live):
     torch.cuda.synchronize()
     assert_same_bits(f'rect_clip paired {label} vs its plain version',
                      area.detach(), ref.detach())
+    finite = ~g.isnan()
+    swept = ~finite & (area.detach() > 0)
+    if not x1.grad[swept].reshape(-1, 8).isnan().any(1).all():
+        raise AssertionError(f'rect_clip_grad {label}: a pair with a NaN '
+                             f'area gradient was not swept')
     errs, abs_errs, zeros = [], [], {}
     for name, got, want in (('corners1', x1.grad, y1.grad),
                             ('corners2', x2.grad, y2.grad)):
+        got, want = got[finite], want[finite]
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         errs.append(err / scale if scale > 0 else err)
@@ -346,10 +357,43 @@ def check_rect_clip_grad(c1, c2, g, label, min_live):
                            their_max_abs=float((got - want)[flips].abs()
                                                .max()) if flips.any()
                            else 0.0)
+    again = clip_kernel.rect_intersection_area_grad(c1, c2, g)
+    assert_same_bits(f'rect_clip_grad {label}, second launch vs first',
+                     torch.stack(again), torch.stack((x1.grad, x2.grad)))
     live = int((~(zero_pairs(y1.grad) & zero_pairs(y2.grad))).sum())
-    if live < min_live:
-        raise AssertionError(f'rect_clip_grad {label}: only {live} pairs '
-                             f'with a gradient')
+    return area, x1.grad, x2.grad, ref, y1, y2, dict(
+        max_abs_err=max(abs_errs), max_err_over_max_abs=max(errs),
+        zeros=zeros, nan_area_gradients=int((~finite).sum()),
+        pairs_with_a_gradient=live, repeats_bit_for_bit=True)
+
+
+def live_count(c1, c2, g):
+    """The live count that the backward kernel's counter holds after a
+    call; it must equal the nonzero (NaN included) area gradients."""
+    _, _, n_live = clip_kernel.rect_intersection_area_grad_live(c1, c2, g)
+    got, want = int(n_live.item()), int((g != 0).sum())
+    if got != want:
+        raise AssertionError(f'rect_clip_grad: the kernel counted {got} '
+                             f'live pairs, the gradient has {want}')
+    return got
+
+
+def check_rect_clip_grad(c1, c2, g, label, min_live):
+    """B2's paired entry and its backward on ``(n, 4, 2)`` corners ``c1``,
+    ``c2`` and the area gradient ``g`` (``clip_grad_vs_autograd``); at
+    least ``min_live`` pairs must get a gradient.  Returns the forward and
+    the backward row, the backward's with the device time of its passes
+    and its kernels' ``ptxas`` lines.  The backward's bound counts what
+    this input needs: every pair reads its gradient and writes 64 B, and
+    only a pair with a nonzero gradient reads its corners and runs the
+    sweep (its 8 B in the live list are left out)."""
+    n = c1.shape[0]
+    area, grad1, grad2, ref, y1, y2, info = clip_grad_vs_autograd(
+        c1, c2, g, label)
+    if info['pairs_with_a_gradient'] < min_live:
+        raise AssertionError(f'rect_clip_grad {label}: only '
+                             f'{info["pairs_with_a_gradient"]} pairs with a '
+                             f'gradient')
     overlap = float((area > 0).float().mean())
 
     def fwd():
@@ -367,28 +411,57 @@ def check_rect_clip_grad(c1, c2, g, label, min_live):
         time_ms(fwd, 20), time_ms(
             lambda: iou_ops.rect_intersection_area_plain(c1, c2), 3),
         nbytes(c1, c2, area), n * CLIP_FLOPS, overlapping_share=overlap)
-    t_bound, by = bound(nbytes(g, x1.grad, x2.grad) + n_live_g * 64,
+    t_bound, by = bound(nbytes(g, grad1, grad2) + n_live_g * 64,
                         n_live_g * CLIP_GRAD_FLOPS, torch.float32)
     bwd_row = dict(
         name='rect_clip_grad', route='cuda', source=CLIP_SOURCE,
         replaces=CLIP_GRAD_REPLACES,
         shape=f'paired backward, {label}, {n} pairs float32',
-        max_abs_err=max(abs_errs), max_err_over_max_abs=max(errs),
-        zeros=zeros, nonzero_area_gradients=n_live_g,
-        nonzero_share=n_live_g / n, pairs_with_a_gradient=live,
+        **info, nonzero_area_gradients=n_live_g, nonzero_share=n_live_g / n,
         ms=time_ms(bwd, SMALL_REPS, queue_us=QUEUE_US),
         launch_bound_ms=time_ms(bwd, SMALL_REPS),
         # the same call with no area gradient at all: what the pairs
-        # without one cost (their load, their zeros, their block's slot)
+        # without one cost (the zero pass, and a sweep that finds no work)
         all_zero_gradient_ms=time_ms(
             lambda: clip_kernel.rect_intersection_area_grad(c1, c2, g0),
             SMALL_REPS, queue_us=QUEUE_US),
+        pass_ms=device_ms_by_name(bwd, CLIP_GRAD_PASSES),
+        live_count=live_count(c1, c2, g),
         plain_ms=time_ms(plain_bwd, 3),
         plain='autograd of rect_intersection_area_plain (backward only)',
-        bound_ms=t_bound, bound_by=by, library_ms=None,
-        ptxas=clip_grad_ptxas())
+        bound_ms=t_bound, bound_by=by, live_list_bytes=8 * n_live_g,
+        library_ms=None, ptxas=clip_grad_ptxas())
     del ref, y1, y2
     return fwd_row, bwd_row
+
+
+def check_rect_clip_grad_cases(rng):
+    """The backward kernel on the inputs a step does not send: every area
+    gradient nonzero, none, NaN at known pairs, and 1 and 129 pairs; each
+    against autograd of the plain clip (``clip_grad_vs_autograd``), with
+    the kernels' live count."""
+    n = 116800
+    c1, c2 = loss_pairs(rng, n)
+    g = stress_area_grad(rng, n)
+    nan_g = g.clone()
+    nan_g[7::97] = float('nan')
+    cases = {'100% live': (c1, c2, torch.where(g == 0, 0.5, g)),
+             'all-zero gradient': (c1, c2, torch.zeros_like(g)),
+             'NaN at every 97th pair': (c1, c2, nan_g)}
+    # 400 pairs: 0-19 disjoint, 20-39 identical, 40-59 nested, then plain
+    c1s, c2s = loss_pairs(rng, 400)
+    for m, first in ((1, 100), (129, 10)):
+        cases[f'n={m}'] = (c1s[first:first + m], c2s[first:first + m],
+                           torch.tensor(rng.randn(m).astype(np.float32),
+                                        device='cuda'))
+    out = {}
+    for label, (a, b, grad) in cases.items():
+        *_, info = clip_grad_vs_autograd(a, b, grad, label)
+        out[label] = dict(pairs=a.shape[0], live_count=live_count(a, b, grad),
+                          ms=time_ms(lambda: clip_kernel.
+                                     rect_intersection_area_grad(a, b, grad),
+                                     SMALL_REPS, queue_us=QUEUE_US), **info)
+    return out
 
 
 def ptxas_functions(log):
@@ -417,10 +490,29 @@ def ptxas_functions(log):
     return out
 
 
+CLIP_GRAD_KERNELS = ('rect_clip_grad_zero_kernel',
+                     'rect_clip_grad_sweep_kernel')
+CLIP_GRAD_PASSES = CLIP_GRAD_KERNELS + ('Memset',)
+
+
 def clip_grad_ptxas():
-    return {k: v for k, v in ptxas_functions(
-        build.ptxas_log.get('rect_clip', '')).items()
-        if 'rect_clip_grad_kernel' in k}
+    """The ``ptxas -v`` lines of the backward's two kernels (when this run
+    built the library): registers, and no stack frame and no spills."""
+    log = build.ptxas_log.get('rect_clip')
+    if log is None:
+        return None
+    out = {}
+    for fn, info in ptxas_functions(log).items():
+        for name in CLIP_GRAD_KERNELS:
+            if name in fn:
+                if info.get('stack', 1) or info.get('spill_stores', 1) or \
+                        info.get('spill_loads', 1):
+                    raise AssertionError(f'rect_clip: {name}: {info}')
+                out[name] = info
+    if len(out) != len(CLIP_GRAD_KERNELS):
+        raise AssertionError(f'rect_clip: ptxas lines for {sorted(out)} '
+                             f'only')
+    return out
 
 
 def check_rect_clip_pairwise(g, n, rng):
@@ -1418,8 +1510,8 @@ def smoke():
     for name, text in build.ptxas_log.items():
         for fn, info in ptxas_functions(text).items():
             log(f'ptxas {name}: {fn}: {json.dumps(info)}')
-            # the forward clips' polygon must live in registers
-            if name == 'rect_clip' and 'grad' not in fn and (
+            # the clip's polygons must live in registers
+            if name == 'rect_clip' and (
                     info.get('stack', 1) or info.get('spill_stores', 1)
                     or info.get('spill_loads', 1)):
                 raise AssertionError(f'rect_clip: {fn}: {info}')
@@ -1493,6 +1585,8 @@ def smoke():
                 *loss_pairs(rng, n), stress_area_grad(rng, n),
                 'stress input, 80% nonzero area gradients', n // 2):
             log(json.dumps(row))
+    log(json.dumps({'rect_clip_grad_cases':
+                    check_rect_clip_grad_cases(rng)}))
     indoor_train_rows = [
         (check_backproject(4, torch.bfloat16, 2e-2, rng, p, train=True), p)
         for p in INDOOR_TRAIN_PRESETS] + [

@@ -46,7 +46,7 @@ SIGNATURES = {
         'imvx_backproject_grad_scratch': [_I, _I, _I, _I, _L]},
     'rect_clip': {
         'imvx_rect_clip': [_P, _P, _P, _L, _P],
-        'imvx_rect_clip_grad': [_P, _P, _P, _P, _P, _L, _P],
+        'imvx_rect_clip_grad': [_P, _P, _P, _P, _P, _P, _L, _P],
         'imvx_rect_clip_pairwise': [_P, _P, _P, _I, _I, _I, _P],
         'imvx_nms_mask': [_P, _P, _F, _P, _I, _I, _P],
         'imvx_nms_scan': [_P, _P, _P, _I, _I, _P]},

@@ -13,8 +13,10 @@
 //   imvx_nms_mask            pairwise on one box set, with the IoU, the
 //                            threshold and i < j fused, one bit per pair
 // imvx_rect_clip_grad is the paired entry's backward (the vector-Jacobian
-// product of the clip, for the IoU-3D training loss), and imvx_nms_scan
-// walks a mask in rank order (the greedy NMS itself; the JAX package runs
+// product of the clip, for the IoU-3D training loss) in two passes: a light
+// one over every pair that writes zeros and lists the pairs with an area
+// gradient, then the clip and its reverse sweep over those alone.
+// imvx_nms_scan walks a mask in rank order (the greedy NMS itself; the JAX package runs
 // that step as a lax.while_loop fixpoint, not as a kernel).
 //
 // Design of the clip: the polygon lives in registers.  Every loop over
@@ -24,7 +26,7 @@
 // unrolled select: the running position of each of the 16 candidates (8
 // vertices, 8 edge crossings, in emission order) is compared with each
 // packed slot it can reach.  ptxas must report 0 bytes of stack frame and 0
-// bytes of spills for every forward kernel of this file.
+// bytes of spills for every kernel of this file.
 //
 // Design of the pairwise kernels: a block of 4 warps owns a tile of 4 rows
 // (rect1, one per warp) by 32 columns (rect2, one per lane).  It stages the
@@ -51,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -218,8 +222,8 @@ rect_clip_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
 // The vector-Jacobian product of the paired clip, as reverse-mode autodiff
 // of the plain version computes it (ops/iou.py:rect_intersection_area_plain;
 // the JAX package: jax.vjp of _rect_intersection_area_jnp,
-// imvoxelnet_tpu/ops/iou.py:206-274).  One thread per pair runs the forward
-// clip, keeping each edge's input polygon, then sweeps back through the
+// imvoxelnet_tpu/ops/iou.py:206-274).  One thread per live pair (one
+// whose area gradient is not 0) runs the forward clip, keeping each edge's input polygon, then sweeps back through the
 // operations that forward took: the shoelace and |.| (whose derivative at 0
 // is 0), then for edges 3..0 the compaction (an emitted slot's adjoint goes
 // back to its one source, a vertex or a crossing), the crossing
@@ -234,9 +238,17 @@ rect_clip_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
 //
 // Bound on an H100: bytes.  A pair reads its 4 B area gradient and writes
 // 64 B; only a pair with a nonzero gradient reads its 64 B of corners and
-// runs the clip and the sweep.  In the IoU-3D loss only the positives have
-// one (the loss weight is centerness x positive): in a SUN RGB-D step about
-// 1% of the pairs.
+// runs the clip and the sweep (and costs 8 B of the live list, written and
+// read once).  In the IoU-3D loss only the positives have one (the loss
+// weight is centerness x positive): in a SUN RGB-D step about 1% of the
+// pairs.  So the live pairs are not left where they lie: a thread of the
+// sweep holds ~200 registers (2 blocks of 128 an SM), and a grid of one
+// thread a pair made every dead pair pay a dependent load and 16 scalar
+// stores at the sweep's occupancy, ~28 waves at 934,400 pairs.  Instead a
+// light pass at full occupancy reads the gradients coalesced, writes the
+// zeros as 16 B stores and compacts the live indices (one ballot and one
+// atomicAdd a warp); the sweep then runs on a fixed grid of resident blocks
+// over the list, its length read on the device.
 
 // The adjoint held by packed slot `pos` if `valid` (0 otherwise); `last` is
 // the highest slot the candidate can reach, as in put().
@@ -371,83 +383,172 @@ __device__ __forceinline__ void shoelace_grad(const float (&vx)[kSlots],
   }
 }
 
-// The four edges' input polygons stay in registers from the forward (4 clip
-// stages; ptxas on sm_90a: 201 registers, no stack frame, no spills).
-// Recomputing edge e's input from rect1 for each e instead (10 stages) took
-// 128 registers and ran 27% slower at 934,400 pairs with 80% of them
-// carrying a gradient on an H100, so it was not kept.
-__global__ void __launch_bounds__(128)
-rect_clip_grad_kernel(const float* __restrict__ c1,
-                      const float* __restrict__ c2,
-                      const float* __restrict__ grad_areas,
-                      float* __restrict__ g1, float* __restrict__ g2,
-                      long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float g = grad_areas[i];
-  float gx[kSlots], gy[kSlots], gbx[4], gby[4];
+// Pair i's corners: rect1 (px, py) from c1, rect2 (bx, by) from c2.
+__device__ __forceinline__ void load_corners(const float* __restrict__ c1,
+                                             const float* __restrict__ c2,
+                                             long long i, float (&px)[4],
+                                             float (&py)[4], float (&bx)[4],
+                                             float (&by)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    px[k] = c1[i * 8 + 2 * k];
+    py[k] = c1[i * 8 + 2 * k + 1];
+    bx[k] = c2[i * 8 + 2 * k];
+    by[k] = c2[i * 8 + 2 * k + 1];
+  }
+}
+
+// The gradients of a pair, (gx, gy) for rect1 (px, py) and (gbx, gby) for
+// rect2 (bx, by), for its area gradient g: the forward clip keeping each
+// edge's input polygon, then the shoelace's adjoint and each edge's adjoint
+// from the last to the first.  The four edges' input polygons stay in
+// registers from the forward (4 clip stages; ptxas on sm_90a: ~200
+// registers, no stack frame, no spills).  Recomputing edge e's input from
+// rect1 for each e instead (10 stages) took 128 registers and ran 27% slower
+// at 934,400 pairs with 80% of them carrying a gradient on an H100, so it
+// was not kept.
+__device__ __forceinline__ void pair_grad(const float (&px)[4],
+                                          const float (&py)[4],
+                                          const float (&bx)[4],
+                                          const float (&by)[4], float g,
+                                          float (&gx)[kSlots],
+                                          float (&gy)[kSlots], float (&gbx)[4],
+                                          float (&gby)[4]) {
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) gx[k] = gy[k] = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) gbx[k] = gby[k] = 0.f;
+  Edges ed;
+  make_edges(bx, by, ed);
+  float kx[4][kSlots], ky[4][kSlots];
+  int kc[4];
+  float vx[kSlots], vy[kSlots];
+  int count;
+  init_polygon(px, py, vx, vy, count);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      kx[e][k] = vx[k];
+      ky[e][k] = vy[k];
+    }
+    kc[e] = count;
+    clip_stage(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e], ed.aby[e],
+               ed.sign[e]);
+  }
+  if (count <= 2) return;
+  shoelace_grad(vx, vy, count, shoelace(vx, vy, count), g, gx, gy);
+#pragma unroll
+  for (int e = 3; e >= 0; --e) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      vx[k] = kx[e][k];
+      vy[k] = ky[e][k];
+    }
+    count = kc[e];
+    float gax = 0.f, gay = 0.f, gabx = 0.f, gaby = 0.f;
+    clip_stage_grad(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e], ed.aby[e],
+                    ed.sign[e], gx, gy, gax, gay, gabx, gaby);
+    // ax = b[e], abx = b[e + 1] - b[e]
+    const int ne = (e + 1) % 4;
+    gbx[e] = fsub(fadd(gbx[e], gax), gabx);
+    gby[e] = fsub(fadd(gby[e], gay), gaby);
+    gbx[ne] = fadd(gbx[ne], gabx);
+    gby[ne] = fadd(gby[ne], gaby);
+  }
+}
 
-  // a pair without an area gradient reads no corners and writes zeros
-  if (g != 0.f) {
-    float px[4], py[4], bx[4], by[4];
+// Pass 1 of 2, over every pair: a warp takes 32 consecutive pairs, reads
+// their area gradients (128 B), appends the indices of those whose gradient
+// is not 0 (NaN included) to `live` with one ballot and one atomicAdd on
+// `n_live`, and writes the 32 pairs' zeros into both gradients, 16 B a lane
+// (each store instruction covers 512 contiguous bytes).  Few registers, full
+// occupancy, a grid-stride loop over the warps.  The order of `live`
+// follows the atomics; each live pair is computed alone in pass 2, so the
+// result does not depend on it.
+constexpr int kZeroThreads = 256;
+__global__ void __launch_bounds__(kZeroThreads)
+rect_clip_grad_zero_kernel(const float* __restrict__ grad_areas,
+                           float4* __restrict__ g1, float4* __restrict__ g2,
+                           int* __restrict__ live, int* __restrict__ n_live,
+                           long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kZeroThreads;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long base = (blockIdx.x * (long long)kZeroThreads + threadIdx.x)
+                        - lane;
+       base < n; base += stride) {              // uniform over the warp
+    const long long i = base + lane;
+    const bool is_live = i < n && grad_areas[i] != 0.f;
+    const unsigned ballot = __ballot_sync(kFull, is_live);
+    int first = 0;
+    if (lane == 0 && ballot) first = atomicAdd(n_live, __popc(ballot));
+    first = __shfl_sync(kFull, first, 0);
+    if (is_live)
+      live[first + __popc(ballot & ((1u << lane) - 1u))] = (int)i;
+    // the 32 pairs' 64 float4s of each gradient
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      px[k] = c1[i * 8 + 2 * k];
-      py[k] = c1[i * 8 + 2 * k + 1];
-      bx[k] = c2[i * 8 + 2 * k];
-      by[k] = c2[i * 8 + 2 * k + 1];
-    }
-    Edges ed;
-    make_edges(bx, by, ed);
-    float kx[4][kSlots], ky[4][kSlots];
-    int kc[4];
-    float vx[kSlots], vy[kSlots];
-    int count;
-    init_polygon(px, py, vx, vy, count);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        kx[e][k] = vx[k];
-        ky[e][k] = vy[k];
-      }
-      kc[e] = count;
-      clip_stage(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e], ed.aby[e],
-                 ed.sign[e]);
-    }
-    if (count > 2) {
-      shoelace_grad(vx, vy, count, shoelace(vx, vy, count), g, gx, gy);
-#pragma unroll
-      for (int e = 3; e >= 0; --e) {
-#pragma unroll
-        for (int k = 0; k < kSlots; ++k) {
-          vx[k] = kx[e][k];
-          vy[k] = ky[e][k];
-        }
-        count = kc[e];
-        float gax = 0.f, gay = 0.f, gabx = 0.f, gaby = 0.f;
-        clip_stage_grad(vx, vy, count, ed.ax[e], ed.ay[e], ed.abx[e],
-                        ed.aby[e], ed.sign[e], gx, gy, gax, gay, gabx, gaby);
-        // ax = b[e], abx = b[e + 1] - b[e]
-        const int ne = (e + 1) % 4;
-        gbx[e] = fsub(fadd(gbx[e], gax), gabx);
-        gby[e] = fsub(fadd(gby[e], gay), gaby);
-        gbx[ne] = fadd(gbx[ne], gabx);
-        gby[ne] = fadd(gby[ne], gaby);
+    for (int h = 0; h < 2; ++h) {
+      const long long f = 2 * base + 32 * h + lane;
+      if (f < 2 * n) {
+        g1[f] = zero;
+        g2[f] = zero;
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    g1[i * 8 + 2 * k] = gx[k];
-    g1[i * 8 + 2 * k + 1] = gy[k];
-    g2[i * 8 + 2 * k] = gbx[k];
-    g2[i * 8 + 2 * k + 1] = gby[k];
+}
+
+// Pass 2 of 2, over the live pairs alone: a fixed grid of resident blocks
+// loops up to the count that pass 1 left on the device (no host read), and
+// writes each live pair's 64 B after pass 1's zeros.  Measured against it
+// on an H100 (tools/compare_clip_grad.py, a training step's inputs): a
+// ceil(n / 128) grid whose blocks past the count exit at once ran as fast,
+// and 0.005 ms slower with no live pair; warps taking 32 list entries at a
+// time from a second counter ran 5-13% slower.
+constexpr int kSweepThreads = 128;
+__global__ void __launch_bounds__(kSweepThreads)
+rect_clip_grad_sweep_kernel(const float* __restrict__ c1,
+                            const float* __restrict__ c2,
+                            const float* __restrict__ grad_areas,
+                            const int* __restrict__ live,
+                            const int* __restrict__ n_live,
+                            float4* __restrict__ g1, float4* __restrict__ g2) {
+  const int count = *n_live;
+  for (int j = blockIdx.x * kSweepThreads + threadIdx.x; j < count;
+       j += gridDim.x * kSweepThreads) {
+    const long long i = live[j];
+    float px[4], py[4], bx[4], by[4], gx[kSlots], gy[kSlots], gbx[4], gby[4];
+    load_corners(c1, c2, i, px, py, bx, by);
+    pair_grad(px, py, bx, by, grad_areas[i], gx, gy, gbx, gby);
+    g1[2 * i] = make_float4(gx[0], gy[0], gx[1], gy[1]);
+    g1[2 * i + 1] = make_float4(gx[2], gy[2], gx[3], gy[3]);
+    g2[2 * i] = make_float4(gbx[0], gby[0], gbx[1], gby[1]);
+    g2[2 * i + 1] = make_float4(gbx[2], gby[2], gbx[3], gby[3]);
   }
+}
+
+// `blocks`: how many blocks of `kernel` at `threads` a block the current
+// device holds at once, found once per device.
+constexpr int kMaxDevices = 64;
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int (&cache)[kMaxDevices],
+                            int& blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads, 0)) != cudaSuccess)
+      return err;
+    if (per_sm == 0) return cudaErrorLaunchOutOfResources;
+    cache[dev] = sms * per_sm;
+  }
+  blocks = cache[dev];
+  return cudaSuccess;
 }
 
 // -------------------------------------------------------------- pairwise
@@ -612,18 +713,44 @@ extern "C" int imvx_rect_clip(const void* corners1, const void* corners2,
 }
 
 // corners1, corners2: (n, 4, 2) float32; grad_areas: (n,) float32;
-// grad1, grad2: (n, 4, 2) float32, the gradients of sum(grad_areas * areas).
+// grad1, grad2: (n, 4, 2) float32, 16-byte aligned, the gradients of
+// sum(grad_areas * areas); scratch: n + 1 int32 (the live count, then the
+// live list).  n must be below 2^31.  One memset of the count, then the two
+// passes; returns the first CUDA error code (0 on success).
 extern "C" int imvx_rect_clip_grad(const void* corners1, const void* corners2,
                                    const void* grad_areas, void* grad1,
-                                   void* grad2, long long n, void* stream) {
+                                   void* grad2, void* scratch, long long n,
+                                   void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  rect_clip_grad_kernel<<<(unsigned)blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  if (n >= (1LL << 31) || reinterpret_cast<uintptr_t>(grad1) % 16 ||
+      reinterpret_cast<uintptr_t>(grad2) % 16)
+    return (int)cudaErrorInvalidValue;
+  static int zero_cache[kMaxDevices], sweep_cache[kMaxDevices];
+  int zero_grid = 0, sweep_grid = 0;
+  int err = (int)resident_blocks(rect_clip_grad_zero_kernel, kZeroThreads,
+                                 zero_cache, zero_grid);
+  if (!err)
+    err = (int)resident_blocks(rect_clip_grad_sweep_kernel, kSweepThreads,
+                               sweep_cache, sweep_grid);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* n_live = static_cast<int*>(scratch);
+  int* live = n_live + 1;
+  if ((err = (int)cudaMemsetAsync(n_live, 0, sizeof(int), s))) return err;
+  const long long zero_blocks = (n + kZeroThreads - 1) / kZeroThreads;
+  rect_clip_grad_zero_kernel<<<(unsigned)std::min<long long>(zero_blocks,
+                                                             zero_grid),
+                               kZeroThreads, 0, s>>>(
+      static_cast<const float*>(grad_areas), static_cast<float4*>(grad1),
+      static_cast<float4*>(grad2), live, n_live, n);
+  if ((err = (int)cudaGetLastError())) return err;
+  const long long sweep_blocks = (n + kSweepThreads - 1) / kSweepThreads;
+  rect_clip_grad_sweep_kernel<<<(unsigned)std::min<long long>(sweep_blocks,
+                                                              sweep_grid),
+                                kSweepThreads, 0, s>>>(
       static_cast<const float*>(corners1), static_cast<const float*>(corners2),
-      static_cast<const float*>(grad_areas), static_cast<float*>(grad1),
-      static_cast<float*>(grad2), n);
+      static_cast<const float*>(grad_areas), live, n_live,
+      static_cast<float4*>(grad1), static_cast<float4*>(grad2));
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ paired areas, pairwise areas of two box sets per group, and the pairwise NMS
 dominance mask (IoU, threshold and rank order fused, one bit per pair).
 ``nms_scan`` walks such a mask greedily; it counts in ``scan_launches``.
 The paired entry has a backward, ``rect_intersection_area_grad`` (the
-vector-Jacobian product of the clip), counted in ``grad_launches``;
-``ops/iou.py:RectClipFunction`` joins the two.
+vector-Jacobian product of the clip: a zero pass over every pair, then a
+sweep over the pairs with an area gradient), counted in ``grad_launches``,
+one a call; ``ops/iou.py:RectClipFunction`` joins the two.
 
 Plain versions: ``ops/iou.py`` (``rect_intersection_area_plain``, whose
 autograd is the backward's, ``rect_intersection_area_pairwise_plain``,
@@ -75,23 +76,49 @@ def rect_intersection_area(corners1, corners2):
 def rect_intersection_area_grad(corners1, corners2, grad_areas):
     """The gradients of ``sum(grad_areas * areas)`` with respect to both
     ``(n, 4, 2)`` float32 corner sets, for ``(n,)`` float32 ``grad_areas``:
-    the backward of :func:`rect_intersection_area`."""
+    the backward of :func:`rect_intersection_area`.
+
+    One call is one memset and two kernel launches (``csrc/rect_clip.cu``).
+    The memset zeroes a live count on the device.  The zero pass
+    (``rect_clip_grad_zero_kernel``) writes zeros for every pair and lists
+    the pairs whose area gradient is not 0 (NaN included).  The sweep
+    (``rect_clip_grad_sweep_kernel``), on a grid of resident blocks, runs
+    the clip and its reverse sweep for the listed pairs alone, up to the
+    count it reads on the device.  Nothing is
+    read back to the host.  Each pair is computed alone, so the result does
+    not depend on the list's order and repeats bit for bit."""
+    grad1, grad2, _ = rect_intersection_area_grad_live(corners1, corners2,
+                                                       grad_areas)
+    return grad1, grad2
+
+
+def rect_intersection_area_grad_live(corners1, corners2, grad_areas):
+    """:func:`rect_intersection_area_grad`, also returning the kernels' live
+    count: ``(grad1, grad2, n_live)``, ``n_live`` a ``(1,)`` int32 CUDA
+    tensor, the number of pairs that the sweep ran."""
+    global grad_launches
     n = _paired(corners1, corners2)
     require(grad_areas, 'grad_areas', (torch.float32,), 1)
     same_device(corners1, grad_areas)
     if grad_areas.shape[0] != n:
         raise ValueError(f'grad_areas must be ({n},), got '
                          f'{tuple(grad_areas.shape)}')
+    if n >= 2 ** 31:
+        raise ValueError(f'{n} pairs exceed the 32-bit live list')
+    # fresh allocations: 16-byte aligned, as the zero pass's stores need
     grad1 = torch.empty_like(corners1)
     grad2 = torch.empty_like(corners2)
+    scratch = torch.empty((n + 1,), dtype=torch.int32,
+                          device=corners1.device)
     if n:
-        global grad_launches
         build.check(build.kernel('rect_clip', 'imvx_rect_clip_grad')(
             corners1.data_ptr(), corners2.data_ptr(), grad_areas.data_ptr(),
-            grad1.data_ptr(), grad2.data_ptr(), n, stream_of(corners1)),
-            'imvx_rect_clip_grad')
+            grad1.data_ptr(), grad2.data_ptr(), scratch.data_ptr(), n,
+            stream_of(corners1)), 'imvx_rect_clip_grad')
         grad_launches += 1
-    return grad1, grad2
+    else:
+        scratch.zero_()
+    return grad1, grad2, scratch[:1]
 
 
 def _grid_fits(g, n):

@@ -59,8 +59,8 @@ ITERS = 5
 # name fragments of the kernels in kernels/csrc/*.cu
 OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
                'grad_sum', 'conv_wgmma', 'split3', 'rect_clip_kernel',
-               'rect_clip_grad_kernel', 'pairwise_area_kernel',
-               'nms_mask_kernel', 'nms_scan_kernel')
+               'rect_clip_grad_zero_kernel', 'rect_clip_grad_sweep_kernel',
+               'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
 # the indoor loss's pieces timed on their own: (span, module, function)
 INDOOR_LOSS_SPANS = (('indoor_targets', ivh, 'indoor_targets'),

@@ -267,6 +267,47 @@ def test_rect_clip_function_matches_plain_autograd(cuda):
     assert int(_zero_pairs(y1.grad).sum()) > len(g) // 5
 
 
+@pytest.mark.parametrize('case', ['all_zero', 'all_live', 'n1', 'n129',
+                                  'nan', 'repeat'])
+def test_rect_clip_grad_kernel_cases(cuda, case):
+    """The backward kernel's two passes (zeros and the live list, then the
+    sweep over the listed pairs) against autograd of the plain clip: within
+    1e-5 of the max-abs gradient and exactly zero for the same pairs, with
+    the kernels' live count equal to the nonzero area gradients.  A NaN area
+    gradient is live (its pair's gradient holds a NaN where the clipped
+    polygon has 3 vertices or more); two launches give the same bits."""
+    c1, c2, g = _clip_grad_pairs(cuda, np.random.RandomState(10))
+    if case == 'all_zero':
+        g = torch.zeros_like(g)
+    elif case == 'all_live':
+        g = torch.where(g == 0, 0.5, g)
+    elif case in ('n1', 'n129'):
+        n = 1 if case == 'n1' else 129
+        c1, c2, g = (x[1:1 + n].clone() for x in (c1, c2, g))
+    elif case == 'nan':
+        g[3::40] = float('nan')
+    g1, g2, n_live = clip_kernel.rect_intersection_area_grad_live(c1, c2, g)
+    assert int(n_live.item()) == int((g != 0).sum())
+    if case == 'repeat':
+        again = clip_kernel.rect_intersection_area_grad(c1, c2, g)
+        assert _same_bits(g1, again[0]) and _same_bits(g2, again[1])
+    y1, y2 = c1.clone().requires_grad_(), c2.clone().requires_grad_()
+    ref = iou_ops.rect_intersection_area_plain(y1, y2)
+    (ref * g).sum().backward()
+    finite = ~g.isnan()
+    for got, want in ((g1, y1.grad), (g2, y2.grad)):
+        got, want = got[finite], want[finite]
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        assert torch.equal(_zero_pairs(got), _zero_pairs(want))
+    if case == 'nan':
+        swept = ~finite & (ref.detach() > 0)
+        assert swept.any() and g1[swept].reshape(-1, 8).isnan().any(1).all()
+    if case == 'all_zero':
+        assert (g1.view(torch.int32) == 0).all()
+        assert (g2.view(torch.int32) == 0).all()
+
+
 def test_rect_clip_grad_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     c = torch.zeros((5, 4, 2), device=cuda)
     g = torch.zeros(5, device=cuda)

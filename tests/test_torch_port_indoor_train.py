@@ -14,10 +14,12 @@ weights (``from_jax_variables``) and the same numpy batch
 The clip's backward on the card is a kernel (``kernels/csrc/rect_clip.cu``,
 ``imvx_rect_clip_grad``); here a plain-PyTorch emulation of its reverse
 sweep is held to autograd of the plain clip, which is held to ``jax.vjp`` of
-the JAX package's jnp clip.  One known difference: at a clipped area of
-exactly 0 with 3 or more vertices (touching rects), PyTorch takes the
-derivative of ``|x|`` at 0 as 0, JAX (``jax.grad(jnp.abs)(0.)``) as 1; the
-port, kernel included, follows PyTorch.
+the JAX package's jnp clip, and the kernel's two passes (zeros, then the
+sweep over the listed live pairs) are held to the sweep over every pair.
+One known difference: at a clipped area of exactly 0 with 3 or more
+vertices (touching rects), PyTorch takes the derivative of ``|x|`` at 0 as
+0, JAX (``jax.grad(jnp.abs)(0.)``) as 1; the port, kernel included, follows
+PyTorch.
 """
 
 import dataclasses
@@ -332,8 +334,9 @@ def _stage_grad(vx, vy, count, edge, gx, gy):
 
 
 def _clip_grad_emulated(c1, c2, g):
-    """Kernel B2's backward (``rect_clip_grad_kernel``) in plain PyTorch,
-    the same operations in the same order: the forward clip keeping each
+    """Kernel B2's backward sweep (``pair_grad`` of
+    ``rect_clip_grad_sweep_kernel``) in plain PyTorch, over every pair, the
+    same operations in the same order: the forward clip keeping each
     edge's input polygon, the shoelace's adjoint, then each edge's adjoint
     from the last to the first."""
     px, py = list(c1[:, :, 0].unbind(1)), list(c1[:, :, 1].unbind(1))
@@ -390,9 +393,40 @@ def _clip_grad_emulated(c1, c2, g):
     return g1, g2
 
 
+def _clip_grad_compacted(c1, c2, g, rng):
+    """The kernel's two passes in plain PyTorch: zeros for every pair, then
+    :func:`_clip_grad_emulated` over the pairs whose area gradient is not 0
+    (NaN included) alone, taken in a shuffled order as the zero pass's
+    atomics hand them out, and scattered back."""
+    g1, g2 = torch.zeros_like(c1), torch.zeros_like(c2)
+    live = torch.nonzero(g != 0).squeeze(1)
+    live = live[torch.from_numpy(rng.permutation(len(live)))]
+    g1[live], g2[live] = _clip_grad_emulated(c1[live], c2[live], g[live])
+    return g1, g2
+
+
 def zero_pairs(grad):
     """Pairs whose ``(4, 2)`` gradient is exactly zero."""
     return (grad.reshape(grad.shape[0], -1) == 0).all(1)
+
+
+@pytest.mark.parametrize('with_nan', [False, True], ids=['finite', 'nan'])
+def test_rect_clip_grad_compacted_sweep_bit_identical_to_full_sweep(with_nan):
+    """The sweep over the compacted live list, in any order, gives the bits
+    of the sweep over every pair; the dead pairs are exactly zero, and a NaN
+    area gradient counts as live."""
+    c1, c2, g = _clip_pairs(np.random.RandomState(5))
+    if with_nan:
+        g[3::50] = float('nan')
+    full1, full2 = _clip_grad_emulated(c1, c2, g)
+    got1, got2 = _clip_grad_compacted(c1, c2, g, np.random.RandomState(6))
+    dead = g == 0
+    for got, full in ((got1, full1), (got2, full2)):
+        assert torch.equal(got.view(torch.int32), full.view(torch.int32))
+        assert (got[dead].view(torch.int32) == 0).all()
+    assert dead.sum() > 50 and (~dead).sum() > 500
+    if with_nan:
+        assert got1[g.isnan()].isnan().any()
 
 
 def test_rect_clip_grad_algorithm_matches_plain_autograd():

@@ -58,6 +58,27 @@ Phases, each failing the run on its own error:
                 and one step forbidden to wait for the device; then one
                 b=4 bfloat16 step of each other SUN RGB-D preset (_top27
                 and the perspective family), with its launch counts.
+  7. total3d -- the Total3D presets (imvoxelnet_total_sunrgbd and _fast,
+                full width and depth): serving with the extrinsics the
+                layout head predicts, b=1 float32 held against the plain
+                path (angles and layout too) and b=8 bfloat16 timed with a
+                decode that must not wait for the device; the NMS mask + scan
+                at 33 x 8 = 264 groups of 256; training (768x576, camera
+                angles and room layout as GT) b=1 float32 held against the
+                plain path (head_2d's gradients included), 5 timed b=4
+                bfloat16 steps, one step forbidden to wait for the device;
+                one b=4 step of _top27; launches asserted (the IoU-3D loss
+                and the layout loss each take the clip and its backward).
+  8. scannet -- multi-view ScanNet (imvoxelnet_scannet and _fast, 640x480):
+                serving with 50 views, b=1 float32 held against the plain
+                path and b=1 bfloat16 timed (class-aware axis-aligned NMS:
+                a plain mask and the scan kernel over ~3,000 candidates,
+                which it records and checks); training with 20 views, b=1
+                float32 held against the plain path, 5 timed b=1 bfloat16
+                steps, one step forbidden to wait for the device; one step
+                of _top27; the backprojection with 20 and 50 views (C=64 and
+                256) and its backward with 20 views, bit for bit against the
+                plain version on the CPU.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -93,7 +114,8 @@ from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
-from imvoxelnet_tpu_torch.tools.profile_forward import zero_cls_bias
+from imvoxelnet_tpu_torch.tools.profile_forward import (level_angle_head,
+                                                        zero_cls_bias)
 from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
                                                   kitti_train_batch,
@@ -156,19 +178,31 @@ def copy_rate_tb_s():
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def gathered_rows(points, proj, hw, hf, wf):
+    """How many distinct feature rows (sample, view, pixel) the gather
+    reads, and how many (sample, view, voxel) pairs see one."""
+    idx, valid = bp._view_indices(points, proj, hw, hf, wf)     # (B, V, P)
+    b, v = idx.shape[:2]
+    keys = (torch.arange(b * v, device=idx.device).reshape(b, v, 1)
+            * (hf * wf) + idx)[valid]
+    return int(torch.unique(keys).numel()), int(valid.sum())
+
+
 def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
                       train=False):
     """B1 at the main-path shapes of preset ``name``: its feature map,
-    channels and voxel grid; ``train``: the preset's padded training size."""
+    channels, views and voxel grid; ``train``: the preset's padded training
+    size and training views."""
     preset = get_preset(name)
     cfg = preset.model
     if train:
         batch = train_batch(preset.data, b, 'cuda', seed=SEED)
     else:
-        batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED)
-    h, w = batch['images'].shape[2:4]
+        batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED,
+                              views=preset.data.n_images_test)
+    v, h, w = batch['images'].shape[1:4]
     hf, wf, c = h // 4, w // 4, cfg.fpn_out_channels
-    feats = torch.tensor(rng.randn(b, 1, hf, wf, c).astype(np.float32),
+    feats = torch.tensor(rng.randn(b, v, hf, wf, c).astype(np.float32),
                          device='cuda').to(dtype)
     points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
                            batch['origins']).reshape(b, -1, 3).contiguous()
@@ -185,8 +219,13 @@ def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
     if err > tol:
         raise AssertionError(f'backproject: max abs err {err} > {tol}')
     p = points.shape[1]
-    n_flops = b * p * (18 + 2 + c)      # 3 projections, 2 divides, C adds
-    t_bound, by = bound(nbytes(feats, points, proj, hw, acc, cnt), n_flops,
+    # what this input needs: the feature rows that some voxel reads, each
+    # once; per voxel and view 3 projections and 2 divides, per seen pair C
+    # adds
+    rows_read, n_valid = gathered_rows(points, proj, hw, hf, wf)
+    n_flops = b * v * p * (18 + 2) + n_valid * c
+    t_bound, by = bound(rows_read * c * feats.element_size()
+                        + nbytes(points, proj, hw, acc, cnt), n_flops,
                         torch.float32)
     return dict(
         name='backproject', route='cuda',
@@ -194,8 +233,10 @@ def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
         replaces='imvoxelnet_tpu/ops/backproject_pallas.py:155',
         shape=f'{name}{" training" if train else ""} b={b} '
               f'{str(dtype)[6:]} features {tuple(feats.shape)} P={p}',
-        max_abs_err=err,
+        max_abs_err=err, views=v,
         seen_frac=float((cnt > 0).float().mean()),
+        max_view_count=int(cnt.float().max()), feature_rows_read=rows_read,
+        feature_rows=b * v * hf * wf,
         ms=time_ms(lambda: bp_kernel.backproject_batch(feats, points, proj, hw),
                    10),
         plain_ms=time_ms(
@@ -696,10 +737,11 @@ def segment_histogram(segments):
 
 def check_backproject_grad(b, dtype, rng, name='imvoxelnet_kitti'):
     """The backward kernel at the training shapes of preset ``name`` (its
-    padded train size): bit for bit against its plain version run on CPU
-    copies, two launches bit-identical, with the device time of each of its
-    passes, the histogram of its segment lengths, and the library time of
-    ``index_add_`` over the forward's precomputed pixels."""
+    padded train size and training views): bit for bit against its plain
+    version run on CPU copies, two launches bit-identical, with the device
+    time of each of its passes, the histogram of its segment lengths, and
+    the library time of ``index_add_`` over the forward's precomputed
+    pixels."""
     preset = get_preset(name)
     cfg, size = preset.model, preset.data.train_size
     batch = train_batch(preset.data, b, 'cuda', seed=SEED)
@@ -726,25 +768,30 @@ def check_backproject_grad(b, dtype, rng, name='imvoxelnet_kitti'):
 
     # the same function as one library call: index_add_ of the float32
     # gradient rows at the forward's pixels (unseen rows to a spare row)
-    idx, valid = bp._view_indices(points, proj, hw, hf, wf)     # (B, 1, P)
+    v = proj.shape[1]
+    idx, valid = bp._view_indices(points, proj, hw, hf, wf)     # (B, V, P)
     n_valid = int(valid.sum())
-    if not 0 < n_valid < b * p:
-        raise AssertionError(f'backproject_grad: {n_valid} of {b * p} rows '
-                             f'seen')
-    base = torch.arange(b, device='cuda')[:, None] * (hf * wf)
-    flat = torch.where(valid[:, 0], base + idx[:, 0], b * hf * wf)
-    segments = torch.bincount(flat.reshape(-1), minlength=b * hf * wf + 1
-                              )[:-1]
-    flat = flat.t().reshape(-1).contiguous()                   # (P * B,)
-    src = g.float().reshape(p * b, c)
-    table = torch.zeros((b * hf * wf + 1, c), device='cuda')
+    if not 0 < n_valid < b * v * p:
+        raise AssertionError(f'backproject_grad: {n_valid} of {b * v * p} '
+                             f'rows seen')
+    n_pix = b * v * hf * wf
+    base = torch.arange(b * v, device='cuda').reshape(b, v, 1) * (hf * wf)
+    flat = torch.where(valid, base + idx, n_pix)
+    segments = torch.bincount(flat.reshape(-1), minlength=n_pix + 1)[:-1]
+    flat = flat.permute(2, 0, 1).reshape(-1).contiguous()     # (P * B * V,)
+    src = g.float()[:, :, None].expand(p, b, v, c).reshape(-1, c)
+    table = torch.zeros((n_pix + 1, c), device='cuda')
     lib = torch.zeros_like(table).index_add_(0, flat, src)[:-1]
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(lib.reshape(got.shape), ref.float().cuda(),
                                rtol=tol, atol=tol)
-    # per row: 3 projections of 6 operations, 2 divides; per seen row C adds
-    n_flops = b * p * (18 + 2) + n_valid * c
-    t_bound, by = bound(nbytes(g, points, proj, hw, got), n_flops,
+    # per row and view: 3 projections of 6 operations, 2 divides; per seen
+    # row C adds; bytes: the gradient rows of the voxels some view sees,
+    # each read once, and the whole output written once
+    rows_seen = int(valid.any(1).sum())
+    n_flops = b * v * p * (18 + 2) + n_valid * c
+    t_bound, by = bound(rows_seen * c * g.element_size()
+                        + nbytes(points, proj, hw, got), n_flops,
                         torch.float32)
     reps = 10
 
@@ -758,8 +805,9 @@ def check_backproject_grad(b, dtype, rng, name='imvoxelnet_kitti'):
                  'imvoxelnet_tpu/ops/backproject.py:166)',
         shape=f'{name} training b={b} {str(dtype)[6:]} grad_acc '
               f'{tuple(g.shape)} -> {tuple(got.shape)}', max_abs_err=err,
+        views=v,
         bit_identical_to_plain_on_cpu=True, repeats_bit_for_bit=True,
-        seen_rows=n_valid,
+        seen_rows=n_valid, grad_rows_read=rows_seen,
         pixels_read=int((segments > 0).sum()), pixels=int(segments.numel()),
         longest_segment=int(segments.max()),
         mean_segment=n_valid / max(1, int((segments > 0).sum())),
@@ -798,6 +846,8 @@ PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
           iou_ops.rect_intersection_area_pairwise_plain),
          (nms_ops, 'rotated_nms_presorted',
           nms_ops.rotated_nms_presorted_plain),
+         (nms_ops, 'aligned_nms_presorted',
+          nms_ops.aligned_nms_presorted_plain),
          (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
 
 
@@ -808,16 +858,18 @@ def plain_path():
 
 
 def forward(m, c, batch, sync_debug='default'):
-    """The forward + decode of model ``m`` (config ``c``).  ``sync_debug=
-    'error'`` makes PyTorch raise if decode + NMS waits for the device (an
-    ``.item()``, a ``bool(tensor)``, a copy to the host) between the head's
-    output and the result."""
+    """The forward + decode of model ``m`` (config ``c``; with a layout
+    head, on the extrinsics it predicts, as the reference serves Total3D).
+    ``sync_debug='error'`` makes PyTorch raise if decode + NMS waits for the
+    device (an ``.item()``, a ``bool(tensor)``, a copy to the host) between
+    the head's output and the result."""
     with torch.no_grad():
-        head_outs, valid = m(batch)
+        head_outs, valid, *features_2d = m(
+            batch, use_predicted_extrinsics=c.layout_head is not None)
         torch.cuda.set_sync_debug_mode(sync_debug)
         try:
-            return imvoxelnet_predict(c, head_outs, valid,
-                                      batch['origins']), valid
+            return imvoxelnet_predict(c, head_outs, valid, batch['origins'],
+                                      *features_2d), valid
         finally:
             torch.cuda.set_sync_debug_mode('default')
 
@@ -845,13 +897,14 @@ def compare_with_plain_path(tag, model, cfg, batch):
             res['labels'], ref['labels']):
         raise AssertionError(f'{tag}: valid/labels differ from the plain '
                              f'path')
-    for key in ('boxes', 'scores'):
+    # with a layout head also the predicted angles and room layout
+    keys = [k for k in ('boxes', 'scores', 'angles', 'layout') if k in res]
+    for key in keys:
         torch.testing.assert_close(res[key], ref[key], rtol=2e-3, atol=2e-3)
     if seen_diff or int(res['valid'].sum()) == 0:
         raise AssertionError(f'{tag}: seen differs at {seen_diff} voxels or '
                              f'no valid detection')
-    err = max((res[k] - ref[k]).abs().max().item() for k in ('boxes',
-                                                             'scores'))
+    err = max((res[k] - ref[k]).abs().max().item() for k in keys)
     log(f'{tag}: {int(res["valid"].sum())} detections, max abs err vs '
         f'plain path {err:.3g}')
     return counts, dict(detections=int(res['valid'].sum()),
@@ -1233,30 +1286,39 @@ INDOOR_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 0,
                    'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
 
 
+def serve_vs_plain(name, b1, b_timed, launches):
+    """Preset ``name`` served at full width and depth: ``b1`` (a b=1
+    batch) float32 through the kernels against the plain path, then
+    ``b_timed`` bfloat16 timed with a decode that must not wait for the
+    device; launches per forward asserted at both sizes."""
+    cfg = get_preset(name).model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    zero_cls_bias(model)
+    level_angle_head(model)
+    c1, res1 = compare_with_plain_path(f'{name} b=1 float32', model, cfg, b1)
+    cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
+    model16 = build_model(cfg16, device='cuda', seed=SEED)
+    model16.load_state_dict(model.state_dict())
+    del model
+    b = b_timed['images'].shape[0]
+    c8, res8 = timed_forward(f'{name} b={b} bfloat16', model16, cfg16,
+                             b_timed)
+    del model16
+    for tag, c in (('b1_f32', c1), (f'b{b}_bf16', c8)):
+        assert_launches(f'{name} {tag}', c, launches)
+    return dict(b1_float32_vs_plain=res1, timed_bfloat16=res8,
+                launches_b1=c1, launches_timed=c8), c8
+
+
 def run_indoor():
     """Each indoor preset at full width and depth: b=1 float32 kernel path
     against the plain path, b=8 bfloat16 timed; launches per forward
     asserted at both sizes (B3's gate keeps it off these volumes)."""
     out, counts = {}, {}
     for name in INDOOR_PRESETS:
-        cfg = get_preset(name).model
-        model = build_model(cfg, device='cuda', seed=SEED)
-        zero_cls_bias(model)
-        c1, res1 = compare_with_plain_path(
-            f'{name} b=1 float32', model, cfg,
-            sunrgbd_batch(1, 'cuda', seed=SEED))
-        cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
-        model16 = build_model(cfg16, device='cuda', seed=SEED)
-        model16.load_state_dict(model.state_dict())
-        del model
-        c8, res8 = timed_forward(f'{name} b=8 bfloat16', model16, cfg16,
-                                 sunrgbd_batch(8, 'cuda', seed=SEED + 1))
-        del model16
-        for tag, c in (('b1_f32', c1), ('b8_bf16', c8)):
-            assert_launches(f'{name} {tag}', c, INDOOR_LAUNCHES)
-        out[name] = dict(b1_float32_vs_plain=res1, b8_bfloat16=res8,
-                         launches_b1=c1, launches_b8=c8)
-        counts[name] = c8
+        out[name], counts[name] = serve_vs_plain(
+            name, sunrgbd_batch(1, 'cuda', seed=SEED),
+            sunrgbd_batch(8, 'cuda', seed=SEED + 1), INDOOR_LAUNCHES)
     log(f'indoor launch counts per forward: {json.dumps(counts)}')
     return out, counts
 
@@ -1299,7 +1361,7 @@ def positives_per_level(model, cfg, batch):
     (labels >= 0 on voxels the camera sees), as the loss finds them."""
     hc = cfg.indoor_head
     with torch.no_grad():
-        head_outs, valid = model(batch)
+        head_outs, valid = model(batch)[:2]
         sizes = [tuple(x.shape[1:4]) for x in head_outs[0]]
         b = valid.shape[0]
         flat_valid = torch.cat([v.reshape(b, -1) for v in
@@ -1329,6 +1391,176 @@ def clip_grad_probe(seen):
         yield
 
 
+def train_vs_plain(name, launches, must_learn):
+    """One b=1 float32 training step of preset ``name`` through the kernels
+    against one through the plain path, from the same weights and batch:
+    positives on every level, the launches, the losses (2e-3), every
+    gradient (2e-2 x its max-abs; the conv biases before a batch-statistics
+    BN are float noise in both), the neck's BN statistics (2e-3), a nonzero
+    gradient into ``must_learn``; where the box loss clips, a nonzero area
+    gradient into the clip."""
+    preset = get_preset(name)
+    cfg = preset.model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    noise = biases_before_bn(model)
+    batch1 = train_batch(preset.data, 1, 'cuda', seed=SEED,
+                         layout=cfg.layout_head is not None)
+    pos = positives_per_level(model, cfg, batch1)
+    if not bool((pos > 0).all()):
+        raise AssertionError(f'{name} b=1: a level without positives '
+                             f'{pos.tolist()}')
+    plain_model = copy.deepcopy(model)
+    step, grads = trainer(model, preset)
+    plain_step, plain_grads = trainer(plain_model, preset)
+    seen = []
+    kernels.reset_launch_counts()
+    with clip_grad_probe(seen):
+        metrics = step(batch1)
+    torch.cuda.synchronize()
+    counts_b1 = kernels.launch_counts()
+    with plain_path():
+        plain_metrics = plain_step(batch1)
+    torch.cuda.synchronize()
+    assert_launches(f'{name} b=1 train step', counts_b1, launches)
+    # (the detections' IoU-3D loss clips the most pairs; with a layout
+    # head the layout loss clips one a sample)
+    clip_grad_max = (float(max(seen, key=lambda t: t[2].numel())[2].abs()
+                           .max()) if seen else None)
+    if not float(metrics['loss_bbox']) > 0 or (
+            launches['rect_clip_grad'] and not (clip_grad_max or 0) > 0):
+        raise AssertionError(f'{name}: the box loss sends no gradient '
+                             f'({metrics["loss_bbox"]}, clip {clip_grad_max})')
+    loss_err = {k: abs(float(metrics[k]) - float(plain_metrics[k]))
+                for k in metrics}
+    gaps = {}
+    for gname, ref in plain_grads.items():
+        got = grads[gname]
+        if gname in noise:
+            scale = plain_grads[gname.replace('bias', 'weight')].abs(
+                ).max().item()
+            gaps[gname] = max(got.abs().max().item(),
+                              ref.abs().max().item()) / scale
+            continue
+        scale = ref.abs().max().item()
+        gaps[gname] = ((got - ref).abs().max().item() / scale
+                       if scale > 0 else 0.0)
+    noise_gap = max((gaps[k] for k in noise), default=0.0)
+    worst = max((k for k in gaps if k not in noise), key=gaps.get)
+    stats, plain_stats = bn_stats(model), bn_stats(plain_model)
+    stats_err = max((stats[k] - v).abs().max().item()
+                    for k, v in plain_stats.items())
+    log(f'{name} train b=1 float32: loss {float(metrics["loss"]):.6g} '
+        f'(kernel - plain: {json.dumps(loss_err)}); worst gradient gap '
+        f'{gaps[worst]:.3g} of max-abs on {worst}; conv biases before '
+        f'BN {noise_gap:.3g} of their weight gradient; BN stats within '
+        f'{stats_err:.3g}; largest area gradient at the clip '
+        f'{clip_grad_max}; positives per level {pos.tolist()}')
+    for k in metrics:
+        torch.testing.assert_close(metrics[k], plain_metrics[k],
+                                   rtol=2e-3, atol=2e-3)
+    for k, v in plain_stats.items():
+        torch.testing.assert_close(stats[k], v, rtol=2e-3, atol=2e-3)
+    if gaps[worst] > 2e-2 or noise_gap > 1e-4:
+        raise AssertionError(f'{name}: gradient gap {gaps[worst]} on '
+                             f'{worst} (bias noise {noise_gap})')
+    for gname in must_learn:
+        if not float(grads[gname].abs().max()) > 0:
+            raise AssertionError(f'{gname}: zero gradient')
+    return dict(
+        loss=float(metrics['loss']), loss_abs_err=loss_err,
+        grads_compared=len(plain_grads), max_grad_err_over_max_abs=
+        gaps[worst], worst_grad=worst, bias_before_bn_noise=noise_gap,
+        bn_stats_max_abs_err=stats_err, positives_per_level=pos.tolist(),
+        clip_grad_max=clip_grad_max, launches=counts_b1)
+
+
+def timed_steps(name, launches):
+    """The preset's batch per card (``samples_per_device``) at its padded
+    train size in bfloat16: a warm-up step, whose clip-backward inputs are
+    recorded, then ``TRAIN_STEPS`` pipelined steps with their launch counts
+    and peak memory, then one step that must not wait for the device.
+    Returns the results, the timed steps' launches and the recorded clip
+    inputs (the first call's, with the batch's positive count)."""
+    preset = get_preset(name)
+    b = preset.data.samples_per_device
+    cfg16 = dataclasses.replace(preset.model, compute_dtype='bfloat16')
+    model16 = build_model(cfg16, device='cuda', seed=SEED)
+    step16, _ = trainer(model16, preset)
+    batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1,
+                        layout=cfg16.layout_head is not None)
+    pos4 = positives_per_level(model16, cfg16, batch)
+    if not bool((pos4 > 0).all()):
+        raise AssertionError(f'{name} b={b}: a level without positives '
+                             f'{pos4.tolist()}')
+    seen = []
+    with clip_grad_probe(seen):
+        step16(batch)                           # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    clip_input = seen[0] + (int(pos4.sum()),) if seen else None
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step16(batch)['loss'] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'{name} b={b} train: non-finite loss '
+                             f'{losses}')
+    per_step = {k: v / TRAIN_STEPS for k, v in c.items()}
+    assert_launches(f'{name} b={b} train, per step', per_step, launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        metrics = step16(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    if not np.isfinite(float(metrics['loss'])):
+        raise AssertionError(f'{name}: non-finite loss in the sync-free '
+                             f'step')
+    views = batch['images'].shape[1]
+    log(f'{name} train b={b} bfloat16 ({views} view(s)): '
+        f'{TRAIN_STEPS / dt:.4g} steps/s, {b * TRAIN_STEPS / dt:.4g} '
+        f'scenes/s, {dt * 1e3 / TRAIN_STEPS:.4g} ms a step, peak memory '
+        f'{peak_gb:.4g} GB, losses {losses}')
+    del model16, step16, seen
+    return dict(
+        size=list(preset.data.train_size), views=views, steps=TRAIN_STEPS,
+        losses=losses, steps_per_s=TRAIN_STEPS / dt,
+        scenes_per_s=b * TRAIN_STEPS / dt,
+        ms_per_step=dt * 1e3 / TRAIN_STEPS, peak_memory_gb=peak_gb,
+        positives_per_level=pos4.tolist(), launches=c,
+        launches_per_step=per_step, sync_free_step=True), c, clip_input
+
+
+def one_step(name, launches):
+    """One bfloat16 training step of an untimed preset at its batch per
+    card, with its launch counts; every sample must have positives."""
+    preset = get_preset(name)
+    cfg16 = dataclasses.replace(preset.model, compute_dtype='bfloat16')
+    model16 = build_model(cfg16, device='cuda', seed=SEED)
+    step16, _ = trainer(model16, preset)
+    b = preset.data.samples_per_device
+    batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1,
+                        layout=cfg16.layout_head is not None)
+    pos4 = positives_per_level(model16, cfg16, batch)
+    if not bool((pos4.sum(1) > 0).all()):
+        raise AssertionError(f'{name} b={b}: a sample without '
+                             f'positives {pos4.tolist()}')
+    kernels.reset_launch_counts()
+    metrics = {k: float(v) for k, v in step16(batch).items()}
+    c = kernels.launch_counts()
+    assert_launches(f'{name} b={b} train step', c, launches)
+    if not all(np.isfinite(list(metrics.values()))) or not \
+            metrics['loss_bbox'] > 0:
+        raise AssertionError(f'{name} b={b} train: losses {metrics}')
+    log(f'{name} train b={b} bfloat16: one step, losses '
+        f'{json.dumps(metrics)}, positives per level {pos4.tolist()}')
+    return dict(b4_bfloat16_one_step=dict(
+        losses=metrics, positives_per_level=pos4.tolist(), launches=c))
+
+
 def run_indoor_train():
     """Each indoor training preset at full width and depth: one b=1 float32
     step through the kernels against one through the plain path (same
@@ -1338,154 +1570,144 @@ def run_indoor_train():
     steps and, per preset, the clip backward's inputs in a b=4 step."""
     out, counts, clip_inputs = {}, {}, {}
     for name in INDOOR_TRAIN_PRESETS:
-        preset = get_preset(name)
-        cfg = preset.model
-        res = {}
-        model = build_model(cfg, device='cuda', seed=SEED)
-        noise = biases_before_bn(model)
-        batch1 = train_batch(preset.data, 1, 'cuda', seed=SEED)
-        pos = positives_per_level(model, cfg, batch1)
-        if not bool((pos > 0).all()):
-            raise AssertionError(f'{name} b=1: a level without positives '
-                                 f'{pos.tolist()}')
-        plain_model = copy.deepcopy(model)
-        step, grads = trainer(model, preset)
-        plain_step, plain_grads = trainer(plain_model, preset)
-        seen = []
-        kernels.reset_launch_counts()
-        with clip_grad_probe(seen):
-            metrics = step(batch1)
-        torch.cuda.synchronize()
-        counts_b1 = kernels.launch_counts()
-        with plain_path():
-            plain_metrics = plain_step(batch1)
-        torch.cuda.synchronize()
-        assert_launches(f'{name} b=1 train step', counts_b1,
-                        INDOOR_TRAIN_LAUNCHES)
-        clip_grad_max = float(seen[0][2].abs().max())
-        if not clip_grad_max > 0 or not float(metrics['loss_bbox']) > 0:
-            raise AssertionError(f'{name}: the IoU loss sends no gradient to '
-                                 f'the clip ({clip_grad_max})')
-        loss_err = {k: abs(float(metrics[k]) - float(plain_metrics[k]))
-                    for k in metrics}
-        gaps = {}
-        for gname, ref in plain_grads.items():
-            got = grads[gname]
-            if gname in noise:
-                scale = plain_grads[gname.replace('bias', 'weight')].abs(
-                    ).max().item()
-                gaps[gname] = max(got.abs().max().item(),
-                                  ref.abs().max().item()) / scale
-                continue
-            scale = ref.abs().max().item()
-            gaps[gname] = ((got - ref).abs().max().item() / scale
-                           if scale > 0 else 0.0)
-        noise_gap = max((gaps[k] for k in noise), default=0.0)
-        worst = max((k for k in gaps if k not in noise), key=gaps.get)
-        stats, plain_stats = bn_stats(model), bn_stats(plain_model)
-        stats_err = max((stats[k] - v).abs().max().item()
-                        for k, v in plain_stats.items())
-        log(f'{name} train b=1 float32: loss {float(metrics["loss"]):.6g} '
-            f'(kernel - plain: {json.dumps(loss_err)}); worst gradient gap '
-            f'{gaps[worst]:.3g} of max-abs on {worst}; conv biases before '
-            f'BN {noise_gap:.3g} of their weight gradient; BN stats within '
-            f'{stats_err:.3g}; largest area gradient at the clip '
-            f'{clip_grad_max:.3g}; positives per level {pos.tolist()}')
-        for k in metrics:
-            torch.testing.assert_close(metrics[k], plain_metrics[k],
-                                       rtol=2e-3, atol=2e-3)
-        for k, v in plain_stats.items():
-            torch.testing.assert_close(stats[k], v, rtol=2e-3, atol=2e-3)
-        if gaps[worst] > 2e-2 or noise_gap > 1e-4:
-            raise AssertionError(f'{name}: gradient gap {gaps[worst]} on '
-                                 f'{worst} (bias noise {noise_gap})')
-        for gname in INDOOR_MUST_LEARN:
-            if not float(grads[gname].abs().max()) > 0:
-                raise AssertionError(f'{gname}: zero gradient')
-        res['b1_float32_vs_plain'] = dict(
-            loss=float(metrics['loss']), loss_abs_err=loss_err,
-            grads_compared=len(plain_grads), max_grad_err_over_max_abs=
-            gaps[worst], worst_grad=worst, bias_before_bn_noise=noise_gap,
-            bn_stats_max_abs_err=stats_err, positives_per_level=pos.tolist(),
-            clip_grad_max=clip_grad_max, launches=counts_b1)
-        del model, plain_model, step, plain_step, grads, plain_grads
-
-        # --- b=4 bfloat16 at the padded train size: throughput
-        b = preset.data.samples_per_device
-        cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
-        model16 = build_model(cfg16, device='cuda', seed=SEED)
-        step16, _ = trainer(model16, preset)
-        batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1)
-        pos4 = positives_per_level(model16, cfg16, batch)
-        if not bool((pos4 > 0).all()):
-            raise AssertionError(f'{name} b={b}: a level without positives '
-                                 f'{pos4.tolist()}')
-        seen = []
-        with clip_grad_probe(seen):
-            step16(batch)                       # warm-up (cuDNN plans)
-        torch.cuda.synchronize()
-        clip_inputs[name] = seen[0] + (int(pos4.sum()),)
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses = [step16(batch)['loss'] for _ in range(TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = kernels.launch_counts()
-        losses = [float(v) for v in losses]
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f'{name} b={b} train: non-finite loss '
-                                 f'{losses}')
-        per_step = {k: v / TRAIN_STEPS for k, v in c.items()}
-        assert_launches(f'{name} b={b} train, per step', per_step,
-                        INDOOR_TRAIN_LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        torch.cuda.set_sync_debug_mode('error')
-        try:
-            metrics = step16(batch)
-        finally:
-            torch.cuda.set_sync_debug_mode('default')
-        if not np.isfinite(float(metrics['loss'])):
-            raise AssertionError(f'{name}: non-finite loss in the sync-free '
-                                 f'step')
-        res[f'b{b}_bfloat16'] = dict(
-            size=list(preset.data.train_size), steps=TRAIN_STEPS,
-            losses=losses, steps_per_s=TRAIN_STEPS / dt,
-            scenes_per_s=b * TRAIN_STEPS / dt,
-            ms_per_step=dt * 1e3 / TRAIN_STEPS, peak_memory_gb=peak_gb,
-            positives_per_level=pos4.tolist(), launches=c,
-            launches_per_step=per_step, sync_free_step=True)
-        log(f'{name} train b={b} bfloat16: {TRAIN_STEPS / dt:.4g} steps/s, '
-            f'{b * TRAIN_STEPS / dt:.4g} scenes/s, '
-            f'{dt * 1e3 / TRAIN_STEPS:.4g} ms a step, peak memory '
-            f'{peak_gb:.4g} GB, losses {losses}')
-        del model16, step16, seen
+        res = {'b1_float32_vs_plain': train_vs_plain(
+            name, INDOOR_TRAIN_LAUNCHES, INDOOR_MUST_LEARN)}
+        res['b4_bfloat16'], counts[name], clip_inputs[name] = timed_steps(
+            name, INDOOR_TRAIN_LAUNCHES)
         out[name] = res
-        counts[name] = c
     for name in INDOOR_TRAIN_OTHERS:
-        preset = get_preset(name)
-        cfg16 = dataclasses.replace(preset.model, compute_dtype='bfloat16')
-        model16 = build_model(cfg16, device='cuda', seed=SEED)
-        step16, _ = trainer(model16, preset)
-        b = preset.data.samples_per_device
-        batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1)
-        pos4 = positives_per_level(model16, cfg16, batch)
-        if not bool((pos4.sum(1) > 0).all()):
-            raise AssertionError(f'{name} b={b}: a sample without '
-                                 f'positives {pos4.tolist()}')
-        kernels.reset_launch_counts()
-        metrics = {k: float(v) for k, v in step16(batch).items()}
-        c = kernels.launch_counts()
-        assert_launches(f'{name} b={b} train step', c, INDOOR_TRAIN_LAUNCHES)
-        if not all(np.isfinite(list(metrics.values()))) or not \
-                metrics['loss_bbox'] > 0:
-            raise AssertionError(f'{name} b={b} train: losses {metrics}')
-        out[name] = dict(b4_bfloat16_one_step=dict(
-            losses=metrics, positives_per_level=pos4.tolist(), launches=c))
-        log(f'{name} train b={b} bfloat16: one step, losses '
-            f'{json.dumps(metrics)}, positives per level {pos4.tolist()}')
-        del model16, step16
+        out[name] = one_step(name, INDOOR_TRAIN_LAUNCHES)
     return out, counts, clip_inputs
+
+
+# --------------------------------------------------------------------------
+# phase 7: Total3D (layout head, predicted extrinsics)
+# --------------------------------------------------------------------------
+
+TOTAL3D_PRESETS = ('imvoxelnet_total_sunrgbd', 'imvoxelnet_total_sunrgbd_fast')
+TOTAL3D_LAUNCHES = INDOOR_LAUNCHES
+# the detections' IoU-3D loss and the layout loss each clip once and take
+# the clip's backward once
+TOTAL3D_TRAIN_LAUNCHES = dict(INDOOR_TRAIN_LAUNCHES, rect_clip=2,
+                              rect_clip_grad=2)
+TOTAL3D_MUST_LEARN = INDOOR_MUST_LEARN + ('head_2d.angle_mlp.0.weight',
+                                          'head_2d.layout_mlp.6.weight')
+
+
+def run_total3d():
+    """The Total3D presets: serving on predicted extrinsics (b=1 float32
+    against the plain path, b=8 bfloat16 timed) and training (b=1 float32
+    against the plain path, 5 timed b=4 bfloat16 steps); one step of
+    _top27."""
+    out, serve_counts, train_counts = {}, {}, {}
+    for name in TOTAL3D_PRESETS:
+        out[name], serve_counts[name] = serve_vs_plain(
+            name, sunrgbd_batch(1, 'cuda', seed=SEED),
+            sunrgbd_batch(8, 'cuda', seed=SEED + 1), TOTAL3D_LAUNCHES)
+        out[name]['b1_float32_train_vs_plain'] = train_vs_plain(
+            name, TOTAL3D_TRAIN_LAUNCHES, TOTAL3D_MUST_LEARN)
+        out[name]['b4_bfloat16_train'], train_counts[name], _ = timed_steps(
+            name, TOTAL3D_TRAIN_LAUNCHES)
+    out['imvoxelnet_total_sunrgbd_top27'] = one_step(
+        'imvoxelnet_total_sunrgbd_top27', TOTAL3D_TRAIN_LAUNCHES)
+    log(f'total3d launch counts: serving {json.dumps(serve_counts)}, '
+        f'training {json.dumps(train_counts)}')
+    return out, serve_counts, train_counts
+
+
+# --------------------------------------------------------------------------
+# phase 8: multi-view ScanNet (50 views served, 20 in training)
+# --------------------------------------------------------------------------
+
+SCANNET_PRESETS = ('imvoxelnet_scannet', 'imvoxelnet_scannet_fast')
+SCANNET_LAUNCHES = dict(INDOOR_LAUNCHES, rect_clip=0)
+SCANNET_TRAIN_LAUNCHES = dict(INDOOR_TRAIN_LAUNCHES, rect_clip=0,
+                              rect_clip_grad=0)
+
+
+@contextlib.contextmanager
+def scan_probe(seen):
+    """Record copies of the mask and the valid rows that reach the scan
+    kernel in its first call, ``(mask, valid)`` in ``seen``."""
+    wrapped = clip_kernel.nms_scan
+
+    def probe(mask, valid):
+        if not seen:            # the first call only: later ones are timed
+            seen.append((mask.clone(), valid.clone()))
+        return wrapped(mask, valid)
+    with swapped((clip_kernel, 'nms_scan', probe)):
+        yield
+
+
+def check_aligned_scan(mask, valid, n_expected, name):
+    """The scan kernel on the class-aware axis-aligned dominance mask that
+    a ScanNet forward sent it (``(1, N, ceil(N / 32))``, N = the decode's
+    candidates): bit for bit against its plain version and the fixpoint
+    keep, with times."""
+    g, n = valid.shape
+    if n != n_expected or n > clip_kernel._MAX_SCAN_N:
+        raise AssertionError(f'{name}: the scan got {n} candidates, the '
+                             f'decode makes {n_expected} (limit '
+                             f'{clip_kernel._MAX_SCAN_N})')
+    keep = clip_kernel.nms_scan(mask, valid)
+    ref = nms_ops.nms_scan_plain(mask, valid)
+    dominates = iou_ops.unpack_mask(mask, n)
+    fix = nms_ops.greedy_nms_from_iou_batched(
+        dominates.float(), valid.float(), valid, 0.5, presorted=True)
+    torch.cuda.synchronize()
+    if not torch.equal(keep, ref) or not torch.equal(keep, fix):
+        raise AssertionError(f'{name}: nms scan differs from its plain '
+                             f'version or the fixpoint')
+    n_keep = int(keep.sum())
+    if not 0 < n_keep < int(valid.sum()):
+        raise AssertionError(f'{name}: the scan suppresses nothing')
+
+    def run():
+        return clip_kernel.nms_scan(mask, valid)
+    return clip_row(
+        'nms_scan', 'imvoxelnet_tpu/ops/nms.py:75',
+        f'nms scan, {name} class-aware axis-aligned, G={g} N={n}',
+        time_ms(run, SMALL_REPS, queue_us=QUEUE_US),
+        time_ms(lambda: nms_ops.nms_scan_plain(mask, valid), 1),
+        nbytes(mask, valid, keep), 0,
+        launch_bound_ms=time_ms(run, SMALL_REPS),
+        note='no Pallas counterpart: the JAX package runs the greedy step '
+             'as a lax.while_loop fixpoint; the mask is plain PyTorch (XLA '
+             'in the JAX package)', kept=n_keep, offered=int(valid.sum()),
+        mask_bits_set=int(dominates.sum()))
+
+
+def run_scannet():
+    """The ScanNet presets: serving with 50 views (b=1 float32 against the
+    plain path, b=1 bfloat16 timed), training with 20 views (b=1 float32
+    against the plain path, 5 timed b=1 bfloat16 steps); one step of
+    _top27; the scan kernel on the mask each preset's forward sent it."""
+    out, serve_counts, train_counts, scan_rows = {}, {}, {}, []
+    for name in SCANNET_PRESETS:
+        preset = get_preset(name)
+        views = preset.data.n_images_test
+        seen = []
+        with scan_probe(seen):
+            out[name], serve_counts[name] = serve_vs_plain(
+                name, serving_batch('scannet', 1, 'cuda', seed=SEED,
+                                    views=views),
+                serving_batch('scannet', 1, 'cuda', seed=SEED + 1,
+                              views=views), SCANNET_LAUNCHES)
+        hc = preset.model.indoor_head
+        sizes = [int(np.prod(preset.model.n_voxels)) >> (3 * i)
+                 for i in range(hc.n_scales)]
+        scan_rows.append((check_aligned_scan(
+            *seen[0], sum(min(hc.nms_pre, s) for s in sizes), name), name))
+        del seen
+        out[name]['b1_float32_train_vs_plain'] = train_vs_plain(
+            name, SCANNET_TRAIN_LAUNCHES, INDOOR_MUST_LEARN)
+        out[name]['b1_bfloat16_train'], train_counts[name], _ = timed_steps(
+            name, SCANNET_TRAIN_LAUNCHES)
+    out['imvoxelnet_scannet_top27'] = one_step('imvoxelnet_scannet_top27',
+                                               SCANNET_TRAIN_LAUNCHES)
+    log(f'scannet launch counts: serving {json.dumps(serve_counts)}, '
+        f'training {json.dumps(train_counts)}')
+    return out, serve_counts, train_counts, scan_rows
 
 
 def main():
@@ -1609,6 +1831,29 @@ def smoke():
         for row in rows:
             log(json.dumps(row))
     del clip_inputs
+
+    # Total3D: serving on predicted extrinsics and training, then the NMS
+    # mask + scan at its 33 classes x 8 samples
+    total3d, total3d_serve, total3d_train = run_total3d()
+    log(json.dumps({'total3d': total3d}))
+    total3d_rows = [(row, 'imvoxelnet_total_sunrgbd') for row in
+                    check_nms_kernels(264, 256, indoor_thr, rng,
+                                      plain_reps=3)]
+
+    # ScanNet: 50 views served, 20 in training; then the backprojection
+    # and its backward at those views, both widths
+    scannet, scannet_serve, scannet_train, scan_rows = run_scannet()
+    log(json.dumps({'scannet': scannet}))
+    scannet_rows = [
+        (check_backproject(1, torch.bfloat16, 2e-2, rng, p, train=train),
+         p, train) for train in (False, True) for p in SCANNET_PRESETS] + [
+        (check_backproject_grad(1, torch.bfloat16, rng, p), p, True)
+        for p in SCANNET_PRESETS]
+    for row in [check_backproject_grad(1, torch.float32, rng, p)
+                for p in SCANNET_PRESETS] + \
+            [row for row, _ in total3d_rows + scan_rows] + \
+            [row for row, _, _ in scannet_rows]:
+        log(json.dumps(row))
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1622,14 +1867,22 @@ def smoke():
     # indoor serving rows with the launches of their preset's b=8 forward;
     # and the indoor training rows (B1 forward and backward, the clip's
     # paired entry and its backward at b=4) with the launches of their
-    # preset's 5 timed b=4 training steps
+    # preset's 5 timed b=4 training steps; the Total3D mask + scan with the
+    # launches of its b=8 forward; the ScanNet rows (B1 with 50 views, the
+    # scan of its forward's ~3,000 candidates) with those of its b=1
+    # bfloat16 forward, and B1 and its backward with 20 views with those of
+    # its 5 timed b=1 steps
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
             + [(r, train_counts[r['name']])
                for r in [bp_grad_row] + train_rows] \
             + [(r, indoor_counts[p][r['name']]) for r, p in indoor_rows] \
             + [(r, indoor_train_counts[p][r['name']])
-               for r, p in indoor_train_rows]:
+               for r, p in indoor_train_rows] \
+            + [(r, total3d_serve[p][r['name']]) for r, p in total3d_rows] \
+            + [(r, scannet_serve[p][r['name']]) for r, p in scan_rows] \
+            + [(r, (scannet_train if train else scannet_serve)[p][r['name']])
+               for r, p, train in scannet_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

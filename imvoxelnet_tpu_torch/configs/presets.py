@@ -1,10 +1,11 @@
-"""Named presets of the port: ``imvoxelnet_kitti``, ``tiny_kitti_test`` and
-the SUN RGB-D votenet and perspective families (``imvoxelnet_sunrgbd``,
-``_top27``, ``_fast`` and the same three of
-``imvoxelnet_perspective_sunrgbd``).
+"""Named presets of the port: ``imvoxelnet_kitti``, ``tiny_kitti_test``,
+the SUN RGB-D votenet, perspective and Total3D families
+(``imvoxelnet_sunrgbd``, ``_top27``, ``_fast`` and the same three of
+``imvoxelnet_perspective_sunrgbd`` and ``imvoxelnet_total_sunrgbd``) and the
+multi-view ScanNet family (``imvoxelnet_scannet``, ``_top27``, ``_fast``).
 
-Counterpart of ``imvoxelnet_tpu/configs/presets.py``; the other presets come
-with their model families.  Field values equal the JAX package's.
+Counterpart of ``imvoxelnet_tpu/configs/presets.py``; ``imvoxelnet_nuscenes``
+comes with its model family.  Field values equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..core.target_assign import AssignerConfig
 from ..models.detector import ImVoxelNetConfig, NeckConfig
 from ..models.heads.anchor3d_head import Anchor3DHeadConfig
 from ..models.heads.imvoxel_heads import IndoorHeadConfig
+from ..models.heads.layout_head import LayoutHeadConfig
 
 KITTI_CLASSES = ('Car',)
 SUNRGBD_VOTENET_CLASSES = (
@@ -28,6 +30,17 @@ SUNRGBD_PERSPECTIVE_CLASSES = (
     'night_stand', 'endtable', 'drawer', 'sink', 'monitor', 'computer',
     'cabinet', 'shelf', 'lamp', 'garbage_bin', 'box', 'bed', 'sofa',
     'sofa_chair', 'pillow', 'desk', 'table', 'chair')
+SCANNET_CLASSES = (
+    'cabinet', 'bed', 'chair', 'sofa', 'table', 'door', 'window', 'bookshelf',
+    'picture', 'counter', 'desk', 'curtain', 'refrigerator', 'showercurtrain',
+    'toilet', 'sink', 'bathtub', 'garbagebin')
+# Total3DUnderstanding benchmark: 33 trained (+layout) of 37 reported
+TOTAL_SUNRGBD_CLASSES = (
+    'cabinet', 'bed', 'chair', 'sofa', 'table', 'door', 'window', 'bookshelf',
+    'picture', 'counter', 'blinds', 'desk', 'shelves', 'curtain', 'dresser',
+    'pillow', 'mirror', 'clothes', 'books', 'fridge', 'tv', 'paper', 'towel',
+    'shower_curtain', 'box', 'whiteboard', 'person', 'night_stand', 'toilet',
+    'sink', 'lamp', 'bathtub', 'bag')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,42 +75,56 @@ class Preset:
 
 
 def _indoor_model(n_classes, fast: bool, topk: int, n_voxels, voxel_size,
+                  dataset: str, layout: bool = False,
                   score_thr: float = 0.05, fast_score_thr: float = 0.0,
-                  fast_iou_thr: float = 0.15) -> ImVoxelNetConfig:
-    """A SUN RGB-D model: v1 (ImVoxelNeck, head v1) or ``fast`` (the fast
-    neck, head v2)."""
+                  fast_iou_thr: float = 0.15,
+                  regress_ranges=None) -> ImVoxelNetConfig:
+    """An indoor model of ``dataset`` (``'sunrgbd'``, 7 regression outputs
+    with yaw, or ``'scannet'``, 6): v1 (ImVoxelNeck, head v1) or ``fast``
+    (the fast neck, head v2); ``layout`` adds Total3D's layout head."""
+    n_reg_outs = 7 if dataset == 'sunrgbd' else 6
     if fast:
         neck = NeckConfig(kind='fast', in_channels=256, out_channels=128,
                           n_blocks=(1, 1, 1))
         head = IndoorHeadConfig(
-            n_classes=n_classes, n_reg_outs=7, voxel_size=voxel_size,
-            dataset='sunrgbd', version=2, centerness_topk=18, limit=27,
+            n_classes=n_classes, n_reg_outs=n_reg_outs, voxel_size=voxel_size,
+            dataset=dataset, version=2, centerness_topk=18, limit=27,
             nms_pre=1000, score_thr=fast_score_thr, iou_thr=fast_iou_thr)
         fpn_out = 256
     else:
         neck = NeckConfig(kind='imvoxel', channels=(64, 128, 256, 512),
                           out_channels=64, down_layers=(1, 2, 3, 4),
                           up_layers=(3, 2, 1))
+        extra = {} if regress_ranges is None else dict(
+            regress_ranges=regress_ranges)
         head = IndoorHeadConfig(
-            n_classes=n_classes, n_reg_outs=7, voxel_size=voxel_size,
-            dataset='sunrgbd', version=1, n_convs=0, centerness_topk=topk,
+            n_classes=n_classes, n_reg_outs=n_reg_outs, voxel_size=voxel_size,
+            dataset=dataset, version=1, n_convs=0, centerness_topk=topk,
             nms_pre=1000, score_thr=(0.0 if topk > 0 else score_thr),
-            iou_thr=0.15)
+            iou_thr=0.15, **extra)
         fpn_out = 64
     return ImVoxelNetConfig(
         n_voxels=n_voxels, voxel_size=voxel_size, fpn_out_channels=fpn_out,
-        neck=neck, head_kind='indoor', anchor_head=None, indoor_head=head)
+        neck=neck, head_kind='indoor', anchor_head=None, indoor_head=head,
+        layout_head=LayoutHeadConfig() if layout else None)
 
 
-def _sunrgbd_family(prefix, classes, fast_score_thr=0.0, repeat_times=2):
-    """The v1 / top27 / fast triple of a SUN RGB-D benchmark
-    (``imvoxelnet_sunrgbd.py``, ``repeat_times`` at :76)."""
+def _sunrgbd_family(prefix, classes, layout=False, fast_score_thr=0.0,
+                    repeat_times=2, top27_regress_ranges=None):
+    """The v1 / top27 / fast triple of a SUN RGB-D benchmark.
+
+    ``repeat_times``: 2 for the votenet and perspective benchmarks
+    (``imvoxelnet_sunrgbd.py:76``), 1 for Total3D
+    (``imvoxelnet_total_sunrgbd.py:85``), whose data come flipped already
+    (``flip_ratio`` 0).  ``top27_regress_ranges``: the Total3D ``_top27``
+    head's regress ranges (``imvoxelnet_total_sunrgbd_top27.py:39``).
+    """
     presets = {}
     common = dict(dataset='sunrgbd', classes=classes, samples_per_device=4,
                   repeat_times=repeat_times,
                   train_size=(768, 576), test_size=(640, 480),
                   train_scales=((512, 384), (768, 576)),
-                  flip_ratio=0.5, max_gt=64)
+                  flip_ratio=0.0 if layout else 0.5, max_gt=64)
     for suffix, fast, topk, nvox, vsize in (
             ('', False, -1, (80, 80, 32), (.08, .08, .08)),
             ('_top27', False, 28, (80, 80, 32), (.08, .08, .08)),
@@ -105,8 +132,11 @@ def _sunrgbd_family(prefix, classes, fast_score_thr=0.0, repeat_times=2):
         name = prefix + suffix
         presets[name] = Preset(
             name=name,
-            model=_indoor_model(len(classes), fast, topk, nvox, vsize,
-                                fast_score_thr=fast_score_thr),
+            model=_indoor_model(
+                len(classes), fast, topk, nvox, vsize, 'sunrgbd',
+                layout=layout, fast_score_thr=fast_score_thr,
+                regress_ranges=(top27_regress_ranges
+                                if suffix == '_top27' else None)),
             data=DataConfig(**common))
     return presets
 
@@ -145,6 +175,30 @@ def build_presets():
     presets.update(_sunrgbd_family('imvoxelnet_perspective_sunrgbd',
                                    SUNRGBD_PERSPECTIVE_CLASSES,
                                    fast_score_thr=0.01))
+    presets.update(_sunrgbd_family(
+        'imvoxelnet_total_sunrgbd', TOTAL_SUNRGBD_CLASSES, layout=True,
+        repeat_times=1,
+        top27_regress_ranges=((-1e8, .6), (.4, 1.1), (0.9, 1e8))))
+
+    # --- ScanNet multi-view (imvoxelnet_scannet.py + variants): 20 views in
+    # training, 50 at test; repeat_times=3 (imvoxelnet_scannet.py:81)
+    scan_common = dict(dataset='scannet', classes=SCANNET_CLASSES,
+                       n_images_train=20, n_images_test=50,
+                       samples_per_device=1, repeat_times=3,
+                       train_size=(640, 480), test_size=(640, 480),
+                       max_gt=64)
+    for suffix, fast, topk, nvox, vsize in (
+            ('', False, -1, (80, 80, 32), (.08, .08, .08)),
+            ('_top27', False, 28, (80, 80, 32), (.08, .08, .08)),
+            ('_fast', True, 18, (40, 40, 16), (.16, .16, .16))):
+        name = 'imvoxelnet_scannet' + suffix
+        # scannet_fast test_cfg: iou_thr .25, score_thr .01
+        presets[name] = Preset(
+            name=name,
+            model=_indoor_model(len(SCANNET_CLASSES), fast, topk, nvox, vsize,
+                                'scannet', score_thr=0.0,
+                                fast_score_thr=0.01, fast_iou_thr=0.25),
+            data=DataConfig(**scan_common))
 
     # --- tiny smoke-test preset (not one of the reference configs): the
     # real structure at toy sizes, for tests on the CPU

@@ -4,10 +4,12 @@ head, its test-time decode (``simple_test``) and its training loss.
 Counterpart of ``imvoxelnet_tpu/models/detector.py`` (``ImVoxelNetConfig``,
 ``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``, ``imvoxelnet_loss``)
 for the KITTI configuration (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
-and the SUN RGB-D ones (``head_kind='indoor'``, ``neck.kind`` ``'imvoxel'``
-or ``'fast'``), forward, decode and training loss.  ``model.train()`` is the JAX
-``train=True``: the 3D neck's batch norms use batch statistics and update
-their running ones; the backbone's ``FrozenBatchNorm`` ignores the mode.
+and the indoor ones (``head_kind='indoor'``, ``neck.kind`` ``'imvoxel'`` or
+``'fast'``): SUN RGB-D, Total3D (with the layout head ``head_2d``) and
+multi-view ScanNet; forward, decode and training loss.  ``model.train()``
+is the JAX ``train=True``: the 3D neck's batch norms use batch statistics
+and update their running ones; the backbone's ``FrozenBatchNorm`` ignores
+the mode.
 
 Batch layout, as in the JAX package (all tensors on one device):
   images      (B, V, H, W, 3)   normalized, padded
@@ -20,6 +22,7 @@ and for training
   gt_boxes    (B, G, 7)         padded GT boxes, bottom center
   gt_labels   (B, G) int
   gt_mask     (B, G) bool
+  gt_angles   (B, 2), gt_layout (B, 7)   (Total3D only)
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from . import necks3d
 from . import resnet as resnet_lib
 from .heads import anchor3d_head as a3d
 from .heads import imvoxel_heads as ivh
+from .heads import layout_head as lh
 from .layers import lecun_normal_
 
 
@@ -61,6 +65,7 @@ class ImVoxelNetConfig:
     head_kind: str = 'anchor3d'    # anchor3d | indoor
     anchor_head: Optional[a3d.Anchor3DHeadConfig] = a3d.Anchor3DHeadConfig()
     indoor_head: Optional[ivh.IndoorHeadConfig] = None
+    layout_head: Optional[lh.LayoutHeadConfig] = None
     # the indoor loss's positive-count normalization: 'per_image' (each
     # image by its own count, the reference's reduce_mean on one card);
     # the JAX package's multi-chip 'batch_mean' is not ported
@@ -85,7 +90,8 @@ def build_neck(cfg: NeckConfig) -> nn.Module:
 
 class ImVoxelNet(nn.Module):
     """Parameters carry the reference's mmdet ``state_dict`` names
-    (``backbone.*``, ``neck.*``, ``neck_3d.*``, ``bbox_head.*``).
+    (``backbone.*``, ``neck.*``, ``neck_3d.*``, ``bbox_head.*``, and
+    ``head_2d.*`` for a layout head).
 
     The module sets no precision flag of its own: run a ``'float32'`` model
     inside ``utils.precision.compute_precision(cfg.compute_dtype)`` (the
@@ -95,10 +101,10 @@ class ImVoxelNet(nn.Module):
 
     def __init__(self, cfg: ImVoxelNetConfig):
         super().__init__()
-        if getattr(cfg, 'layout_head', None) is not None:
-            raise NotImplementedError('the layout head is not ported')
         self.cfg = cfg
         self.backbone = resnet_lib.ResNet(tuple(cfg.backbone_stage_blocks))
+        if cfg.layout_head is not None:
+            self.head_2d = lh.LayoutHead(cfg.layout_head)
         self.neck = fpn_lib.FPN(out_channels=cfg.fpn_out_channels)
         self.neck_3d = build_neck(cfg.neck)
         if cfg.head_kind == 'anchor3d':
@@ -114,25 +120,42 @@ class ImVoxelNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
-    def forward(self, batch):
+    def forward(self, batch, use_predicted_extrinsics: bool = False):
         """Returns ``(head_outs, valid)``: the head's float32 channel-last
         outputs (KITTI: ``(cls_score, bbox_pred, dir_pred)`` maps; indoor:
         ``(centernesses, bbox_preds, cls_scores)`` level lists) and the
-        ``(B, nx, ny, nz)`` bool mask of voxels seen by at least one view."""
+        ``(B, nx, ny, nz)`` bool mask of voxels seen by at least one view.
+        With a layout head: ``(head_outs, valid, features_2d)``, where
+        ``features_2d`` is the head's ``(angles, layout)`` from view 0's
+        C5 features.
+
+        ``use_predicted_extrinsics`` (the reference's test-time switch,
+        ``imvoxelnet.py:59-61, 120-126``): with a layout head, every view
+        is projected with the extrinsic built from the predicted pitch and
+        roll instead of ``batch['extrinsics']``."""
         cfg = self.cfg
         images = batch['images']
         b, v, h, w, _ = images.shape
         # NHWC images viewed as NCHW: channels_last memory, no copy
         x = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).to(self.dtype)
-        x = self.neck(self.backbone(x))[0]
+        c = self.backbone(x)
+        features_2d = None
+        if cfg.layout_head is not None:
+            c5 = c[-1].reshape((b, v) + c[-1].shape[1:])[:, 0]
+            features_2d = self.head_2d(c5)
+        x = self.neck(c)[0]
         hf, wf = x.shape[2:]
         if h // hf != cfg.stride:
             raise ValueError(f'feature stride {h // hf} != {cfg.stride}')
         feats = x.permute(0, 2, 3, 1).reshape(b, v, hf, wf, -1)
 
         nx, ny, nz = cfg.n_voxels
+        extrinsics = batch['extrinsics']
+        if use_predicted_extrinsics and features_2d is not None:
+            extrinsics = lh.predicted_extrinsics(features_2d[0])[
+                :, None].expand(extrinsics.shape)
         projections = bp.compute_projection(
-            batch['intrinsics'], batch['extrinsics'], batch['ratios'])
+            batch['intrinsics'], extrinsics, batch['ratios'])
         points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
                                batch['origins']).reshape(b, -1, 3)
         valid_hw = (batch['img_shape'] // cfg.stride).to(torch.int32)
@@ -141,27 +164,37 @@ class ImVoxelNet(nn.Module):
         volume = vol.view(nx, ny, nz, b, -1).permute(3, 4, 0, 1, 2)
         valid = seen.view(nx, ny, nz, b).permute(3, 0, 1, 2)
 
-        return self.bbox_head(self.neck_3d(volume.to(self.dtype))), valid
+        head_outs = self.bbox_head(self.neck_3d(volume.to(self.dtype)))
+        if cfg.layout_head is None:
+            return head_outs, valid
+        return head_outs, valid, features_2d
 
 
 def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
-                       origins=None):
+                       origins=None, features_2d=None):
     """Test-time detections (``imvoxelnet.py:93-106``), fixed-shape.  The
     indoor decode also needs the forward's ``valid`` mask and the batch's
-    ``origins``."""
+    ``origins``; with a layout head, the forward's ``features_2d`` become
+    the outputs ``angles`` ``(B, 2)`` and ``layout`` ``(B, 7)``."""
     if cfg.head_kind == 'anchor3d':
         return a3d.anchor3d_head_get_bboxes(head_outs, cfg.anchor_head)
     if valid is None or origins is None:
         raise ValueError('the indoor decode needs valid and origins')
-    return ivh.indoor_head_get_bboxes(head_outs, valid, origins,
-                                      cfg.indoor_head)
+    results = ivh.indoor_head_get_bboxes(head_outs, valid, origins,
+                                         cfg.indoor_head)
+    if cfg.layout_head is not None and features_2d is not None:
+        results['angles'], results['layout'] = features_2d
+    return results
 
 
-def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None):
+def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None,
+                    features_2d=None):
     """Training losses (``imvoxelnet.py:82-87``): a dict of scalars,
     ``loss_cls``, ``loss_bbox`` and ``loss_dir`` (KITTI) or
-    ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` (indoor).  The
-    indoor loss also needs the forward's ``valid`` mask and
+    ``loss_centerness``, ``loss_bbox`` and ``loss_cls`` (indoor), then, with
+    a layout head and the forward's ``features_2d``, ``angle_loss`` and
+    ``layout_loss`` (from ``batch['gt_angles']`` and ``batch['gt_layout']``).
+    The indoor loss also needs the forward's ``valid`` mask and
     ``batch['origins']``."""
     if cfg.head_kind == 'anchor3d':
         return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
@@ -175,14 +208,20 @@ def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None):
         raise ValueError(f'unknown dp_loss_norm {cfg.dp_loss_norm!r}')
     if valid is None:
         raise ValueError('the indoor loss needs the forward\'s valid mask')
-    return ivh.indoor_head_loss(head_outs, valid, batch['origins'],
-                                batch['gt_boxes'], batch['gt_labels'],
-                                batch['gt_mask'], cfg.indoor_head)
+    losses = ivh.indoor_head_loss(head_outs, valid, batch['origins'],
+                                  batch['gt_boxes'], batch['gt_labels'],
+                                  batch['gt_mask'], cfg.indoor_head)
+    if cfg.layout_head is not None and features_2d is not None:
+        losses.update(lh.layout_head_loss(*features_2d, batch['gt_angles'],
+                                          batch['gt_layout'],
+                                          cfg.layout_head))
+    return losses
 
 
 def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:
     """Seeded random weights in the JAX package's init scheme: lecun-normal
-    convs, normal(0.01) head convs (every conv of the indoor head), identity
+    convs and layout-head linears with zero biases, normal(0.01) head convs
+    (every conv of the indoor head), identity
     batch norms but for the encoder-decoder blocks' zero ``bn2`` scales,
     ``Scale`` at 1, and the head's cls bias at ``CLS_BIAS_INIT``
     (``anchor3d_head.py:62-63``, ``imvoxel_heads.py:95-97``)."""
@@ -193,7 +232,8 @@ def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:
     else:
         small = {m for m in head.modules() if isinstance(m, nn.Conv3d)}
         cls_conv, cls_bias = head.cls_conv, ivh.CLS_BIAS_INIT
-    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, necks3d.Conv3x3x3)
+    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, necks3d.Conv3x3x3,
+             nn.Linear)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, convs):

@@ -1,9 +1,11 @@
-"""Anchor-free FCOS-style indoor 3D head (SUN RGB-D, v1 and v2), its
-training targets and loss, and its fixed-shape inference.
+"""Anchor-free FCOS-style indoor 3D head (SUN RGB-D with yaw, ScanNet
+axis-aligned; v1 and v2), its training targets and loss, and its
+fixed-shape inference.
 
 Counterpart of ``imvoxelnet_tpu/models/heads/imvoxel_heads.py``
 (``IndoorHeadConfig``, ``Scale``, ``IndoorHead``, ``compute_centerness``,
-``sunrgbd_bbox_pred_to_bbox``, ``mlvl_points``, ``indoor_targets``,
+``sunrgbd_bbox_pred_to_bbox``, ``scannet_bbox_pred_to_bbox``,
+``mlvl_points``, ``indoor_targets``,
 ``resize_valid_to_levels``, ``_flatten_levels``, ``indoor_head_loss``,
 ``indoor_head_get_bboxes``).  The JAX package ``vmap``s the targets and the
 losses over samples; here they carry the batch as a leading dim, with the
@@ -51,7 +53,7 @@ class IndoorHeadConfig:
     # test cfg
     nms_pre: int = 1000
     score_thr: float = 0.05
-    iou_thr: float = 0.15           # rotated nms_thr (sunrgbd)
+    iou_thr: float = 0.15           # rotated (sunrgbd) / aligned (scannet)
     # fixed-size detection output; the reference caps at max_num = nms_pre
     max_out: int = 1000
     # per-class candidate cap of the rotated NMS (<= 0, the JAX package's
@@ -157,6 +159,22 @@ def sunrgbd_bbox_pred_to_bbox(points, bbox_pred):
     return torch.cat([points + shift, size, d[..., 6:7]], dim=-1)
 
 
+def scannet_bbox_pred_to_bbox(points, bbox_pred):
+    """Face distances -> axis-aligned corner boxes ``(x1, y1, z1, x2, y2,
+    z2)`` (``imvoxel_head.py:552-560``): points ``(..., 3)``, distances
+    ``(..., 6)`` -> ``(..., 6)``."""
+    d = bbox_pred
+    return torch.stack(
+        [points[..., 0] - d[..., 0], points[..., 1] - d[..., 2],
+         points[..., 2] - d[..., 4], points[..., 0] + d[..., 1],
+         points[..., 1] + d[..., 3], points[..., 2] + d[..., 5]], dim=-1)
+
+
+# the box decode of each dataset: distances (and yaw) -> the loss's boxes
+BBOX_PRED_TO_BBOX = {'sunrgbd': sunrgbd_bbox_pred_to_bbox,
+                     'scannet': scannet_bbox_pred_to_bbox}
+
+
 def mlvl_points(featmap_sizes, voxel_size, origins):
     """Per-level voxel centers ``(B, P_l, 3)``, level ``i`` at
     ``voxel_size * 2**i`` (``imvoxel_head.py:226-235``); ``origins (B,
@@ -192,8 +210,10 @@ def indoor_targets(points, scales, regress_ranges, gt_boxes, gt_labels,
     (``ImVoxelHead._get_target_single``, ``imvoxel_head_v2.py:357-374``).
 
     Every point gets the smallest-volume GT box among those that contain it
-    and that the version's rule allows: v1 keeps boxes whose largest face
-    distance lies in the point's level's regress range; v2 keeps the
+    (in the box's frame, turned by its yaw, for SUN RGB-D; axis-aligned for
+    ScanNet) and that the version's rule allows: v1 keeps boxes whose
+    largest face distance lies in the point's level's regress range; v2
+    keeps the
     coarsest level that still holds ``limit`` points of the box.  With
     ``centerness_topk > 0`` only the points whose centerness is strictly
     above the box's k-th value (v1) or (k+1)-th value (v2) stay.  Ties of
@@ -208,11 +228,11 @@ def indoor_targets(points, scales, regress_ranges, gt_boxes, gt_labels,
       gt_boxes: ``(B, G, 7)`` bottom-center padded GT; ``gt_labels (B, G)``
         int, ``gt_mask (B, G)`` bool.
     Returns:
-      ``centerness_t (B, P)``, ``bbox_t (B, P, 7)`` gravity-center boxes and
-      ``labels (B, P)`` with -1 as background.
+      ``centerness_t (B, P)``, ``bbox_t`` (SUN RGB-D: ``(B, P, 7)``
+      gravity-center boxes; ScanNet: ``(B, P, 6)`` the assigned box's face
+      distances as corners around the point) and ``labels (B, P)`` with -1
+      as background.
     """
-    if cfg.dataset != 'sunrgbd':
-        raise NotImplementedError('only the SUN RGB-D targets are ported')
     # every (B, P, G) quantity is its own tensor: stacking the face
     # distances into one (B, P, G, 7) tensor, as the JAX package does, costs
     # a strided copy of some 1.7 GB a step at b=4 for the v1 presets
@@ -220,13 +240,15 @@ def indoor_targets(points, scales, regress_ranges, gt_boxes, gt_labels,
     centers = box_ops.gravity_center(gt_boxes)                 # (B, G, 3)
     vols = box_ops.volume(gt_boxes)                            # (B, G)
 
-    # into each box's frame: the offset rotated by -yaw about z (the
-    # arithmetic of ops/boxes.py:rotation_3d_in_axis)
     dx, dy, dz = (points[:, :, None, i] - centers[:, None, :, i]
                   for i in range(3))                           # (B, P, G)
-    c = torch.cos(-gt_boxes[..., 6])[:, None, :]
-    s = torch.sin(-gt_boxes[..., 6])[:, None, :]
-    rx, ry = dx * c + dy * s, dy * c - dx * s
+    rx, ry = dx, dy
+    if cfg.with_yaw:
+        # into each box's frame: the offset rotated by -yaw about z (the
+        # arithmetic of ops/boxes.py:rotation_3d_in_axis)
+        c = torch.cos(-gt_boxes[..., 6])[:, None, :]
+        s = torch.sin(-gt_boxes[..., 6])[:, None, :]
+        rx, ry = dx * c + dy * s, dy * c - dx * s
     hx, hy, hz = (gt_boxes[:, None, :, 3 + i] / 2.0 for i in range(3))
     # to the min and max faces, x, y, z: (B, P, G) each
     dist = (rx + hx, hx - rx, ry + hy, hy - ry, dz + hz, hz - dz)
@@ -273,9 +295,13 @@ def indoor_targets(points, scales, regress_ranges, gt_boxes, gt_labels,
     labels = torch.where(min_vol < INF, torch.gather(gt_labels, 1, min_inds),
                          -1)
     assigned = [torch.gather(d, 2, min_inds[..., None])[..., 0] for d in dist]
-    gc_boxes = torch.cat([centers, gt_boxes[..., 3:]], dim=-1)
-    bbox_t = torch.gather(gc_boxes, 1, min_inds[..., None].expand(
-        b, n_points, gc_boxes.shape[-1]))
+    if cfg.dataset == 'sunrgbd':
+        gc_boxes = torch.cat([centers, gt_boxes[..., 3:]], dim=-1)
+        bbox_t = torch.gather(gc_boxes, 1, min_inds[..., None].expand(
+            b, n_points, gc_boxes.shape[-1]))
+    else:
+        bbox_t = scannet_bbox_pred_to_bbox(points,
+                                           torch.stack(assigned, dim=-1))
     return _centerness(assigned), bbox_t, labels
 
 
@@ -307,9 +333,10 @@ def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
     (``dp_loss_norm='per_image'``).
 
     Per image: the focal loss over the seen voxels, the centerness BCE over
-    the positives, and the rotated IoU-3D loss weighted by the centerness
-    target; each is then averaged over the images.  The IoU loss clips every
-    voxel of every level and image in one call.
+    the positives, and the box loss weighted by the centerness target (SUN
+    RGB-D: the rotated IoU-3D loss, which clips every voxel of every level
+    and image in one call; ScanNet: the axis-aligned IoU loss on corner
+    boxes); each is then averaged over the images.
 
     Args:
       head_outs: ``(centernesses, bbox_preds, cls_scores)`` level lists,
@@ -337,7 +364,7 @@ def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
     centerness_t, bbox_t, labels_t = indoor_targets(
         points, scales, rr, gt_boxes, gt_labels, gt_mask, cfg)
     pos = (labels_t >= 0) & flat_valid
-    pred_boxes = sunrgbd_bbox_pred_to_bbox(points, flat_bbox)
+    pred_boxes = BBOX_PRED_TO_BBOX[cfg.dataset](points, flat_bbox)
 
     n_pos = pos.sum(1).float().clamp(min=1.0)                  # (B,)
     cls_labels = torch.where(labels_t >= 0, labels_t, cfg.n_classes)
@@ -347,8 +374,9 @@ def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
     loss_center = loss_ops.binary_cross_entropy(
         flat_center, centerness_t, weight=posf, avg_factor=n_pos)
     w = centerness_t * posf
-    loss_bbox = loss_ops.iou_3d_loss(pred_boxes, bbox_t, weight=w,
-                                     avg_factor=w.sum(1))
+    box_loss = (loss_ops.iou_3d_loss if cfg.dataset == 'sunrgbd'
+                else loss_ops.axis_aligned_iou_loss)
+    loss_bbox = box_loss(pred_boxes, bbox_t, weight=w, avg_factor=w.sum(1))
     return dict(loss_centerness=loss_center.mean(),
                 loss_bbox=loss_bbox.mean(), loss_cls=loss_cls.mean())
 
@@ -365,16 +393,18 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
 
     Per level the class scores are multiplied by the centerness and by the
     level's seen mask and the ``nms_pre`` best voxels (ties lowest index
-    first) become candidates; the levels' candidates go through one batched
-    per-class rotated NMS.  On CUDA tensors nothing here waits for the
-    device.
+    first) become candidates.  SUN RGB-D: the levels' candidates go through
+    one batched per-class rotated NMS.  ScanNet (``_nms``,
+    ``imvoxel_head.py:533-550``): each candidate takes its best class and
+    score, those above ``score_thr`` go through one batched class-aware
+    axis-aligned NMS, and the ``max_out`` best kept ones (ties lowest index
+    first) are the detections, as centre-size boxes with yaw 0.  On CUDA
+    tensors nothing here waits for the device.
 
     Returns a dict of ``boxes (B, max_out, 7)`` bottom-center, ``scores``,
     ``labels`` and ``valid`` (``(B, max_out)``).
     """
-    if cfg.dataset != 'sunrgbd':
-        raise NotImplementedError('only the SUN RGB-D decode is ported')
-    if cfg.pre_nms_k <= 0:
+    if cfg.dataset == 'sunrgbd' and cfg.pre_nms_k <= 0:
         raise NotImplementedError('the untruncated NMS is not ported')
     centernesses, bbox_preds, cls_scores = head_outs
     b = valid.shape[0]
@@ -390,13 +420,15 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
         s = s * c[..., None] * valid_l.reshape(b, -1, 1).to(s.dtype)
         k = min(cfg.nms_pre, s.shape[1])
         _, ids = nms_ops.top_k(s.max(dim=-1).values, k)          # (B, k)
-        cand_boxes.append(sunrgbd_bbox_pred_to_bbox(
+        cand_boxes.append(BBOX_PRED_TO_BBOX[cfg.dataset](
             nms_ops.take_per_sample(pts, ids),
             nms_ops.take_per_sample(
                 bbox_pred.reshape(b, -1, bbox_pred.shape[-1]), ids)))
         cand_scores.append(nms_ops.take_per_sample(s, ids))
-    boxes = torch.cat(cand_boxes, dim=1)                         # (B, N, 7)
+    boxes = torch.cat(cand_boxes, dim=1)                         # (B, N, 7|6)
     scores = torch.cat(cand_scores, dim=1)                       # (B, N, C)
+    if cfg.dataset != 'sunrgbd':
+        return _scannet_nms(boxes, scores, cfg)
 
     out = nms_ops.multiclass_nms_3d(
         boxes, box_ops.bev(boxes), scores,
@@ -406,3 +438,26 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
     return dict(boxes=box_ops.to_bottom_center(out['boxes']),
                 scores=out['scores'], labels=out['labels'],
                 valid=out['valid'])
+
+
+def _scannet_nms(boxes, scores, cfg: IndoorHeadConfig):
+    """The ScanNet decode's NMS and output (``imvoxel_heads.py:529-546`` of
+    the JAX package): ``boxes (B, N, 6)`` corners, ``scores (B, N, C)``."""
+    s = scores.max(dim=-1).values
+    lab = torch.argmax(scores, dim=-1)                 # the first maximum
+    keep = nms_ops.aligned_3d_nms(boxes, s, lab, s > cfg.score_thr,
+                                  cfg.iou_thr)
+    masked = torch.where(keep, s, torch.full((), -1.0, device=s.device))
+    top_s, idx = nms_ops.top_k(masked, cfg.max_out)
+    corner = nms_ops.take_per_sample(boxes, idx)
+    center_size = torch.stack([
+        (corner[..., 0] + corner[..., 3]) / 2,
+        (corner[..., 1] + corner[..., 4]) / 2,
+        corner[..., 2],                                # bottom z
+        corner[..., 3] - corner[..., 0],
+        corner[..., 4] - corner[..., 1],
+        corner[..., 5] - corner[..., 2],
+        torch.zeros_like(corner[..., 0])], dim=-1)
+    return dict(boxes=center_size, scores=top_s.clamp(min=0.0),
+                labels=nms_ops.take_per_sample(lab, idx).to(torch.int32),
+                valid=top_s > 0)

@@ -1,4 +1,5 @@
-"""Functional 3D box geometry (the subset the KITTI and SUN RGB-D paths use).
+"""Functional 3D box geometry (the subset the KITTI, SUN RGB-D, Total3D and
+ScanNet paths use).
 
 Counterpart of ``imvoxelnet_tpu/ops/boxes.py``.  Boxes are ``(N, 7)``
 tensors ``(x, y, z, dx, dy, dz, yaw)`` with the bottom-center convention.
@@ -43,6 +44,12 @@ def gravity_center(boxes):
     """Bottom-center boxes -> their gravity (true) centers ``(..., 3)``."""
     return torch.cat([boxes[..., :2], boxes[..., 2:3] + boxes[..., 5:6] * 0.5],
                      dim=-1)
+
+
+def with_gravity_center(boxes):
+    """Bottom-center boxes ``(..., 7)`` -> the same boxes with their
+    gravity center ``(cx, cy, cz, dx, dy, dz, yaw)``."""
+    return torch.cat([gravity_center(boxes), boxes[..., 3:]], dim=-1)
 
 
 def to_bottom_center(boxes_gc):

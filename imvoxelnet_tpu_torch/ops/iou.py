@@ -1,9 +1,11 @@
-"""Axis-aligned BEV IoU for target assignment, rotated BEV IoU by an exact
-rect-rect clip, and the differentiable rotated 3D IoU of the indoor loss.
+"""Axis-aligned BEV IoU for target assignment, axis-aligned 3D IoU for the
+ScanNet head, rotated BEV IoU by an exact rect-rect clip, and the
+differentiable rotated 3D IoU of the indoor loss.
 
 Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``bbox_overlaps_2d``,
-``bbox_overlaps_nearest_3d``, ``rect_intersection_area``,
-``rotated_overlaps_bev``, ``rotated_iou_bev``, ``iou_3d_aligned``).  On CUDA
+``axis_aligned_bbox_overlaps_3d``, ``bbox_overlaps_nearest_3d``,
+``rect_intersection_area``, ``rotated_overlaps_bev``, ``rotated_iou_bev``,
+``iou_3d_aligned``).  On CUDA
 tensors, for every pair count, ``rect_intersection_area`` runs
 :class:`RectClipFunction`: the paired entry of the clip kernel
 (``kernels/rect_clip.py``) forward and its backward kernel backward, as the
@@ -39,6 +41,27 @@ def bbox_overlaps_2d(boxes1, boxes2, eps: float = 1e-6):
     overlap = wh[..., 0] * wh[..., 1]
     union = area1[..., :, None] + area2[..., None, :] - overlap
     return overlap / union.clamp(min=eps)
+
+
+def axis_aligned_bbox_overlaps_3d(boxes1, boxes2, is_aligned: bool = False,
+                                  eps: float = 1e-6):
+    """Axis-aligned 3D IoU of corner-form boxes ``(x1, y1, z1, x2, y2, z2)``
+    (``iou3d_calculator.py:207-320``, the ScanNet head's metric):
+    ``(..., N, 6)`` x ``(..., M, 6)`` -> ``(..., N, M)``, or, with
+    ``is_aligned``, ``(..., N, 6)`` x ``(..., N, 6)`` -> ``(..., N)``."""
+    def vol(b):
+        return ((b[..., 3] - b[..., 0]) * (b[..., 4] - b[..., 1])
+                * (b[..., 5] - b[..., 2]))
+
+    area1, area2 = vol(boxes1), vol(boxes2)
+    if not is_aligned:
+        boxes1, boxes2 = boxes1[..., :, None, :], boxes2[..., None, :, :]
+        area1, area2 = area1[..., :, None], area2[..., None, :]
+    lt = torch.maximum(boxes1[..., :3], boxes2[..., :3])
+    rb = torch.minimum(boxes1[..., 3:], boxes2[..., 3:])
+    wh = (rb - lt).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1] * wh[..., 2]
+    return overlap / (area1 + area2 - overlap).clamp(min=eps)
 
 
 def bbox_overlaps_nearest_3d(boxes1, boxes2):

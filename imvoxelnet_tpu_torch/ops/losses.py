@@ -1,9 +1,9 @@
-"""Losses of the KITTI anchor head and the SUN RGB-D indoor head, masked
-rather than index-gathered.
+"""Losses of the KITTI anchor head, the indoor heads (SUN RGB-D, ScanNet)
+and the Total3D layout head, masked rather than index-gathered.
 
 Counterpart of ``imvoxelnet_tpu/ops/losses.py`` (``_reduce``,
 ``sigmoid_focal_loss``, ``smooth_l1_loss``, ``softmax_cross_entropy``,
-``binary_cross_entropy``, ``iou_3d_loss``):
+``binary_cross_entropy``, ``axis_aligned_iou_loss``, ``iou_3d_loss``):
 callers pass dense per-element weights and an ``avg_factor``, so no shape
 depends on the data and nothing waits for the device.
 """
@@ -68,6 +68,15 @@ def binary_cross_entropy(logits, targets, weight=None, *, avg_factor=1.0,
     head's centerness loss)."""
     loss = torch.logaddexp(torch.zeros_like(logits), logits) - logits * targets
     return loss_weight * _reduce(loss, weight, avg_factor)
+
+
+def axis_aligned_iou_loss(pred_corner, target_corner, weight=None, *,
+                          avg_factor=1.0, loss_weight: float = 1.0):
+    """``1 - IoU`` of aligned axis-aligned corner-form boxes ``(..., 6)``
+    (``AxisAlignedIoULoss``, the ScanNet head's box loss)."""
+    ious = iou_ops.axis_aligned_bbox_overlaps_3d(pred_corner, target_corner,
+                                                 is_aligned=True)
+    return loss_weight * _reduce(1.0 - ious, weight, avg_factor)
 
 
 def iou_3d_loss(pred_gc, target_gc, weight=None, *, avg_factor=1.0,

@@ -1,15 +1,19 @@
-"""Fixed-shape rotated 3D NMS.
+"""Fixed-shape 3D NMS: per-class rotated (SUN RGB-D, KITTI) and class-aware
+axis-aligned (ScanNet).
 
 Counterpart of ``imvoxelnet_tpu/ops/nms.py`` (``greedy_nms_from_iou_batched``,
-``multiclass_nms_3d``).  Candidate ranking breaks exact score ties
-lowest-index-first, as ``lax.top_k`` does: ``top_k`` below takes the head of
-a stable descending sort (``torch.topk`` promises no tie order on CUDA).
+``multiclass_nms_3d``, ``aligned_3d_nms``).  Candidate ranking breaks exact
+score ties lowest-index-first, as ``lax.top_k`` does: ``top_k`` below takes
+the head of a stable descending sort (``torch.topk`` promises no tie order
+on CUDA).
 
 On CUDA tensors the suppression of ``multiclass_nms_3d`` is two kernel
 launches for all samples and classes (``kernels/rect_clip.py``: the
-dominance mask, then the greedy scan over it) and nothing in it reads a
-value back to the host.  ``greedy_nms_from_iou_batched``, whose fixpoint loop
-asks the device every iteration whether it is done, is their plain version.
+dominance mask, then the greedy scan over it) and that of
+``aligned_3d_nms`` a plain-PyTorch dominance mask and one scan launch for
+all samples; nothing in either reads a value back to the host.
+``greedy_nms_from_iou_batched``, whose fixpoint loop asks the device every
+iteration whether it is done, is their plain version.
 """
 
 from __future__ import annotations
@@ -108,6 +112,69 @@ def rotated_nms_presorted(boxes_xywhr, valid, iou_thr: float):
         box_ops.bev_corners(boxes_xywhr).contiguous(),
         (boxes_xywhr[..., 2] * boxes_xywhr[..., 3]).contiguous(), iou_thr)
     return clip_kernel.nms_scan(mask, valid.contiguous())
+
+
+def aligned_dominance_mask(boxes_corner, classes, iou_thr: float):
+    """Which candidate would suppress which in the class-aware axis-aligned
+    NMS, one bit per pair: ``(G, N, 6)`` corner-form boxes in rank order
+    and their ``(G, N)`` classes -> ``(G, N, ceil(N / 32))`` int32, bit
+    ``j % 32`` of word ``[g, i, j // 32]`` set iff ``i < j`` and the IoU,
+    zeroed between different classes, exceeds ``iou_thr``.  Plain PyTorch:
+    the JAX package computes this IoU in XLA, not in a Pallas kernel."""
+    iou = iou_ops.axis_aligned_bbox_overlaps_3d(boxes_corner, boxes_corner)
+    same_class = classes[..., :, None] == classes[..., None, :]
+    iou = torch.where(same_class, iou, torch.zeros((), device=iou.device))
+    idx = torch.arange(boxes_corner.shape[-2], device=boxes_corner.device)
+    return iou_ops.pack_mask((iou > iou_thr) & (idx[:, None] < idx[None, :]))
+
+
+def aligned_nms_presorted_plain(boxes_corner, classes, valid, iou_thr: float):
+    """Plain version of :func:`aligned_nms_presorted`: the fixpoint loop
+    over the class-masked IoU matrices."""
+    iou = iou_ops.axis_aligned_bbox_overlaps_3d(boxes_corner, boxes_corner)
+    iou = torch.where(classes[..., :, None] == classes[..., None, :], iou,
+                      torch.zeros((), device=iou.device))
+    return greedy_nms_from_iou_batched(
+        iou, iou.new_zeros(valid.shape), valid, iou_thr, presorted=True)
+
+
+def aligned_nms_presorted(boxes_corner, classes, valid, iou_thr: float):
+    """Class-aware axis-aligned NMS of ``G`` groups of ``N`` candidates
+    whose rows are already in rank order: ``(G, N, 6)`` corner boxes,
+    ``(G, N)`` classes and ``(G, N)`` bool -> keep ``(G, N)`` bool.  On CUDA
+    tensors: the plain dominance mask (:func:`aligned_dominance_mask`),
+    then the scan kernel over all groups in one launch, with no read back
+    to the host."""
+    if not boxes_corner.is_cuda:
+        return aligned_nms_presorted_plain(boxes_corner, classes, valid,
+                                           iou_thr)
+    mask = aligned_dominance_mask(boxes_corner.float(), classes, iou_thr)
+    return clip_kernel.nms_scan(mask, valid.contiguous())
+
+
+def aligned_3d_nms(boxes_corner, scores, classes, valid, iou_thr: float):
+    """Class-aware axis-aligned 3D NMS (``box3d_nms.py:91-138``, the ScanNet
+    head's test-time NMS) of ``([B,] N, 6)`` corner-form boxes with
+    ``([B,] N)`` scores, classes and bool ``valid`` -> keep ``([B,] N)``
+    bool in the input order.
+
+    The rank is the JAX package's: a stable ascending sort of the scores
+    (invalid rows at ``_NEG``) reversed, so that equal scores go highest
+    index first.  IoU between different classes counts as 0; suppression
+    is the strict ``iou > iou_thr``.
+    """
+    lead, n = scores.shape[:-1], scores.shape[-1]
+    boxes_corner, scores, classes, valid = (
+        boxes_corner.reshape(-1, n, 6), scores.reshape(-1, n),
+        classes.reshape(-1, n), valid.reshape(-1, n))
+    masked = torch.where(valid, scores, torch.full_like(scores, _NEG))
+    order = torch.argsort(masked, dim=-1, stable=True).flip(-1)
+    keep = aligned_nms_presorted(
+        torch.take_along_dim(boxes_corner, order[..., None], dim=-2),
+        torch.take_along_dim(classes, order, dim=-1),
+        torch.take_along_dim(valid, order, dim=-1), iou_thr)
+    return torch.empty_like(keep).scatter_(-1, order, keep).reshape(
+        lead + (n,))
 
 
 def take_per_sample(x, idx):

@@ -1,5 +1,5 @@
-"""Training step: AdamW + joint grad clip + step LR, for the KITTI and the
-SUN RGB-D presets.
+"""Training step: AdamW + joint grad clip + step LR, for the KITTI, SUN
+RGB-D, Total3D and ScanNet presets.
 
 Counterpart of ``imvoxelnet_tpu/parallel/train.py`` (``param_labels``,
 ``make_optimizer``, ``make_train_step``) on one device:
@@ -14,7 +14,7 @@ Counterpart of ``imvoxelnet_tpu/parallel/train.py`` (``param_labels``,
   - frozen: the stem, ``layer1`` and every backbone batch norm
     (``frozen_stages=1``, ``norm_eval=True``).  The JAX package masks their
     updates to zero; here they get ``requires_grad=False`` and sit in no
-    param group.
+    param group.  The layout head (``head_2d``) takes the default group.
 
 One step is: forward in train mode, targets and losses, backward, clip,
 update, LR step -- all queued on the device, with no host read, at the
@@ -102,8 +102,9 @@ def make_train_step(model, optimizer, scheduler):
     Puts the model in train mode and runs inside
     ``compute_precision(model.cfg.compute_dtype)``.  ``metrics`` holds the
     losses (KITTI: ``loss_cls``, ``loss_bbox``, ``loss_dir``; indoor:
-    ``loss_centerness``, ``loss_bbox``, ``loss_cls``) and their sum ``loss``
-    as device tensors.
+    ``loss_centerness``, ``loss_bbox``, ``loss_cls``, and with a layout head
+    ``angle_loss`` and ``layout_loss`` too) and their sum ``loss``, in that
+    order, as device tensors.
     Every trainable parameter gets a zero gradient up front, so that one that
     does not reach the loss (the FPN's unused output convs) still decays, as
     under optax.
@@ -118,8 +119,9 @@ def make_train_step(model, optimizer, scheduler):
         with compute_precision(cfg.compute_dtype):
             model.train()
             optimizer.zero_grad(set_to_none=False)
-            head_outs, valid = model(batch)
-            losses = imvoxelnet_loss(cfg, head_outs, batch, valid)
+            head_outs, valid, *features_2d = model(batch)
+            losses = imvoxelnet_loss(cfg, head_outs, batch, valid,
+                                     *features_2d)
             total = sum(losses.values())
             total.backward()
             optimizer.step()

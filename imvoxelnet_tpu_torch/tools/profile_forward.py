@@ -6,12 +6,16 @@
     python -m imvoxelnet_tpu_torch.tools.profile_forward --train [--batch 4]
         [--preset imvoxelnet_sunrgbd]
 
-Runs the preset (``imvoxelnet_kitti`` by default, or a SUN RGB-D one such as
-``imvoxelnet_sunrgbd``; random weights from a seed) on its synthetic batch
-(``utils/synthetic.py``: KITTI 1280x384 or SUN RGB-D 640x480): forward +
-decode/NMS (the cls bias at 0 so detections pass), or with ``--train`` the
-training step of ``parallel/train.py`` on the preset's synthetic training
-batch at its padded train size (KITTI 1408x416, SUN RGB-D 768x576).  It
+Runs the preset (``imvoxelnet_kitti`` by default, or an indoor one such as
+``imvoxelnet_sunrgbd``, ``imvoxelnet_total_sunrgbd`` or
+``imvoxelnet_scannet``; random weights from a seed) on its synthetic batch
+(``utils/synthetic.py``: KITTI 1280x384, SUN RGB-D 640x480, ScanNet
+640x480 with the preset's ``n_images_test`` views): forward + decode/NMS
+(the cls bias at 0 so detections pass; Total3D with the extrinsics its
+layout head predicts, the angle layer scaled down so they stay level), or
+with ``--train`` the training step of ``parallel/train.py`` on the preset's
+synthetic training batch at its padded train size (KITTI 1408x416, SUN
+RGB-D 768x576, ScanNet 640x480 with ``n_images_train`` views).  It
 reports:
 
 * stage times from CUDA events recorded by forward hooks around the
@@ -21,8 +25,10 @@ reports:
   forward and backward, up to the last gradient of the head's outputs), the
   rest of the backward, and the optimizer (clip + AdamW, up to its step's
   end); for an indoor preset also the forward of the pieces of targets +
-  loss (``indoor_targets``, the focal loss, the centerness BCE, the IoU-3D
-  loss);
+  loss (``indoor_targets``, the focal loss, the centerness BCE, the box
+  loss -- rotated IoU-3D or, for ScanNet, axis-aligned IoU -- and for
+  Total3D the layout head's loss; a piece called twice, as the IoU-3D loss
+  is with a layout head, counts both calls);
 * the device's busy share over the timed iterations, the top device
   kernels by self time and the device time of the port's own kernels, from
   ``torch.profiler``;
@@ -49,6 +55,7 @@ from torch.autograd import DeviceType
 from ..configs.presets import get_preset
 from ..models.detector import build_model, imvoxelnet_predict
 from ..models.heads import imvoxel_heads as ivh
+from ..models.heads import layout_head as lh
 from ..ops import losses as loss_ops
 from ..parallel import train as train_lib
 from ..utils.precision import compute_precision
@@ -65,8 +72,18 @@ SEED = 0
 # the indoor loss's pieces timed on their own: (span, module, function)
 INDOOR_LOSS_SPANS = (('indoor_targets', ivh, 'indoor_targets'),
                      ('focal_loss', loss_ops, 'sigmoid_focal_loss'),
-                     ('centerness_bce', loss_ops, 'binary_cross_entropy'),
-                     ('iou_3d_loss', loss_ops, 'iou_3d_loss'))
+                     ('centerness_bce', loss_ops, 'binary_cross_entropy'))
+
+
+def loss_spans(cfg):
+    """The indoor loss's pieces of ``cfg``: the shared ones, its box loss
+    and, with a layout head, the layout head's loss."""
+    box = ('iou_3d_loss' if cfg.indoor_head.dataset == 'sunrgbd'
+           else 'axis_aligned_iou_loss')
+    spans = INDOOR_LOSS_SPANS + ((box, loss_ops, box),)
+    if cfg.layout_head is not None:
+        spans += (('layout_head_loss', lh, 'layout_head_loss'),)
+    return spans
 
 
 def zero_cls_bias(model):
@@ -77,6 +94,18 @@ def zero_cls_bias(model):
     conv = head.conv_cls if hasattr(head, 'conv_cls') else head.cls_conv
     with torch.no_grad():
         conv.bias.zero_()
+
+
+def level_angle_head(model):
+    """Random weights put a Total3D model's predicted pitch and roll
+    anywhere in [-pi/2, pi/2), and a camera that looks at the ceiling sees
+    little of the grid; the angle MLP's last layer at 1/100 keeps them
+    within a few degrees, as a trained head's are.  No-op without a layout
+    head."""
+    head = getattr(model, 'head_2d', None)
+    if head is not None:
+        with torch.no_grad():
+            head.angle_mlp[-1].weight.mul_(0.01)
 
 
 def record(events, key):
@@ -107,7 +136,7 @@ def step_events(model, optimizer, events):
 
     def forward_end(_mod, _args, out):
         record(events, ('forward', 'end'))
-        head_outs, _ = out
+        head_outs = out[0]
         for t in head_outs:
             for leaf in (t if isinstance(t, (list, tuple)) else [t]):
                 leaf.register_hook(grad_hook)
@@ -123,15 +152,18 @@ def step_events(model, optimizer, events):
 
 def span_events(events, spans):
     """Wrap each ``(name, module, function)`` of ``spans`` so that CUDA
-    events bracket its calls; returns the originals to restore."""
+    events bracket its calls, listed under ``events[name]``; returns the
+    originals to restore."""
     saved = []
     for name, mod, attr in spans:
         fn = getattr(mod, attr)
 
         def timed(*a, _fn=fn, _name=name, **k):
-            record(events, (_name, 'start'))
+            pair = {}
+            record(pair, 'start')
             out = _fn(*a, **k)
-            record(events, (_name, 'end'))
+            record(pair, 'end')
+            events.setdefault(_name, []).append((pair['start'], pair['end']))
             return out
         saved.append((mod, attr, fn))
         setattr(mod, attr, timed)
@@ -148,7 +180,8 @@ def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
     cfg = dataclasses.replace(preset.model, compute_dtype=dtype)
     model = build_model(cfg, device=device, seed=SEED)
     if train:
-        batch = train_batch(preset.data, batch_size, device, seed=SEED)
+        batch = train_batch(preset.data, batch_size, device, seed=SEED,
+                            layout=cfg.layout_head is not None)
         optimizer, scheduler = train_lib.make_optimizer(
             model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
             preset.grad_clip_norm, steps_per_epoch=1000,
@@ -159,13 +192,18 @@ def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
             return train_step(batch)['loss']
         return model, optimizer, run
     zero_cls_bias(model)
-    batch = serving_batch(preset.data.dataset, batch_size, device, seed=SEED)
+    level_angle_head(model)
+    batch = serving_batch(preset.data.dataset, batch_size, device, seed=SEED,
+                          views=preset.data.n_images_test)
+    # Total3D serves with the extrinsics its layout head predicts
+    predicted = cfg.layout_head is not None
 
     def run():
         with compute_precision(dtype), torch.no_grad():
-            head_outs, valid = model(batch)
+            head_outs, valid, *features_2d = model(
+                batch, use_predicted_extrinsics=predicted)
             return imvoxelnet_predict(cfg, head_outs, valid,
-                                      batch['origins'])
+                                      batch['origins'], *features_2d)
     return model, None, run
 
 
@@ -202,19 +240,21 @@ def main(argv=None):
     handles += stage_events(model, events)
     if args.train:
         handles += step_events(model, optimizer, events)
-    loss_spans = INDOOR_LOSS_SPANS if args.train and indoor else ()
-    saved = span_events(events, loss_spans)
+    pieces = loss_spans(preset.model) if args.train and indoor else ()
+    saved = span_events(events, pieces)
     spans = {k: [] for k in ('backbone', 'fpn', 'backprojection', 'neck_3d',
                              'head', 'total')}
     spans.update({k: [] for k in (
         ('forward', 'targets_loss', 'backward', 'optimizer') if args.train
         else ('decode_nms',))})
-    spans.update({name: [] for name, _, _ in loss_spans})
+    spans.update({name: [] for name, _, _ in pieces})
     try:
         walls = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(ITERS):
             t0 = time.perf_counter()
+            for name, _, _ in pieces:
+                events[name] = []
             record(events, ('total', 'start'))
             run()
             record(events, ('total', 'end'))
@@ -238,13 +278,13 @@ def main(argv=None):
                      e['optimizer', 'start']),
                     ('optimizer', e['optimizer', 'start'],
                      e['optimizer', 'end'])]
-                pairs += [(name, e[name, 'start'], e[name, 'end'])
-                          for name, _, _ in loss_spans]
             else:
                 pairs.append(('decode_nms', e['bbox_head', 'end'],
                               e['total', 'end']))
             for span, a, b in pairs:
                 spans[span].append(a.elapsed_time(b))
+            for name, _, _ in pieces:
+                spans[name].append(sum(a.elapsed_time(b) for a, b in e[name]))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         # the hooks and the wrapped loss functions go, also on an error

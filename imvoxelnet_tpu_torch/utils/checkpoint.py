@@ -3,7 +3,8 @@
 ``from_jax_variables`` is the inverse of the JAX package's reference
 converter (``imvoxelnet_tpu/utils/checkpoint.py``: ``convert_resnet50``,
 ``convert_fpn``, ``convert_kitti_neck``, ``convert_imvoxel_neck``,
-``convert_fast_neck``, ``convert_anchor3d_head``, ``convert_indoor_head``):
+``convert_fast_neck``, ``convert_anchor3d_head``, ``convert_indoor_head``,
+``convert_layout_head``):
 it turns a ``{'params', 'batch_stats'}`` tree of numpy arrays into tensors
 under the reference's mmdet names, so both packages can run the same
 weights.  Layouts:
@@ -13,6 +14,7 @@ weights.  Layouts:
   flax ConvTranspose(transpose_kernel=True) (kD, kH, kW, O, I)
                                      -> torch ConvTranspose3d (I, O, kD, kH,
                                         kW): the same axis permutation
+  flax Dense (I, O)                  -> torch Linear (O, I)
   scale / bias + mean / var          -> weight / bias / running_mean /
                                         running_var (+ num_batches_tracked 0)
 """
@@ -175,6 +177,17 @@ def _indoor_head(sd, p, s, head):
                 s[f'{tower}_tower_bn_{j}'])
 
 
+def _layout_head(sd, p):
+    """``LayoutHead``: flax ``{angle,layout}_fc{1,2,3}`` -> the reference's
+    ``head_2d.{angle,layout}_mlp.{0,3,6}`` (``convert_layout_head``)."""
+    for head in ('angle', 'layout'):
+        for fc, pos in (('fc1', 0), ('fc2', 3), ('fc3', 6)):
+            dense = p[f'{head}_{fc}']
+            sd[f'head_2d.{head}_mlp.{pos}.weight'] = _t(
+                np.asarray(dense['kernel'], np.float32).T)
+            sd[f'head_2d.{head}_mlp.{pos}.bias'] = _t(dense['bias'])
+
+
 def neck_state_dict(neck_cfg, params, stats) -> dict:
     """The ``neck_3d.*`` entries for the JAX neck's own variables."""
     sd = {}
@@ -210,4 +223,6 @@ def from_jax_variables(variables_np, cfg) -> dict:
     sd.update(neck_state_dict(cfg.neck, params['neck_3d'], stats['neck_3d']))
     sd.update(head_state_dict(cfg, params['bbox_head'],
                               stats.get('bbox_head', {})))
+    if cfg.layout_head is not None:
+        _layout_head(sd, params['head_2d'])
     return sd

@@ -13,6 +13,17 @@ SUN RGB-D (:func:`sunrgbd_batch`, :func:`sunrgbd_train_batch` with
 as the dataset builds it from the calibration's ``Rt``
 (``imvoxelnet_tpu/data/datasets.py:231-240``) and the dataset's grid origin
 ``(0, 3, -1)``: the 6.4 x 6.4 x 2.56 m grid starts 0.2 m behind the camera.
+Total3D's training batch (``layout=True``) adds the camera's ``(pitch,
+roll)`` as ``gt_angles``, from which Total3D's ``predicted_extrinsics``
+rebuilds the batch's extrinsic, and a room box around the furniture as
+``gt_layout``.
+
+ScanNet (:func:`scannet_batch`, :func:`scannet_train_batch` with
+:func:`room_boxes`): ``V`` posed views of one room, cameras on a circle
+around the room's middle looking at it, each view's extrinsic
+``inv(axis_align @ pose)`` from a camera-to-world ``pose`` as the dataset
+builds it (``imvoxelnet_tpu/data/datasets.py:310-323``), intrinsics of
+ScanNet's 640x480 frames shared by the views, grid origin ``(0, 0, 0.5)``.
 """
 
 from __future__ import annotations
@@ -150,14 +161,22 @@ def sunrgbd_batch(b: int, device='cuda', seed: int = 0,
     intrinsics scale with the size from fx = fy = 529.5 at 640x480, the
     principal point nudged off the pixel grid; ``ratio = 4`` (the images
     are not resized)."""
+    return _sunrgbd_batch(b, device, seed, size, pitch)[0]
+
+
+def _sunrgbd_batch(b, device, seed, size, pitch):
+    """:func:`sunrgbd_batch` and its cameras' ``(b, 2)`` (pitch, roll) in
+    radians."""
     rng = np.random.RandomState(seed)
     w, h = size
     f = 529.5 * w / SUNRGBD_W
     k = np.array([[f, 0.0, (w - 1) / 2 + 0.137], [0.0, f, (h - 1) / 2 - 0.213],
                   [0.0, 0.0, 1.0]], np.float32)
-    ext = np.stack([_sunrgbd_extrinsic(_rotation(
-        np.deg2rad(rng.uniform(*pitch)), np.deg2rad(rng.uniform(-3, 3))))[None]
-        for _ in range(b)])
+    angles = np.array([(np.deg2rad(rng.uniform(*pitch)),
+                        np.deg2rad(rng.uniform(-3, 3))) for _ in range(b)],
+                      np.float64).reshape(b, 2)
+    ext = np.stack([_sunrgbd_extrinsic(_rotation(p, r))[None]
+                    for p, r in angles])
     return dict(
         images=torch.tensor(rng.randn(b, 1, h, w, 3).astype(np.float32),
                             device=device),
@@ -168,7 +187,7 @@ def sunrgbd_batch(b: int, device='cuda', seed: int = 0,
         img_shape=torch.tensor([[h, w]] * b, dtype=torch.int32,
                                device=device),
         ratios=torch.full((b,), 4.0, device=device),
-    )
+    ), angles.astype(np.float32)
 
 
 FLOOR_Z = (-1.75, -1.67)      # floor height below the camera (m)
@@ -216,36 +235,186 @@ def furniture_boxes(rng, b: int, max_gt: int, n_classes: int = 10):
     return boxes, labels, mask
 
 
+def layout_boxes(rng, boxes, mask):
+    """Total3D room layouts ``(b, 7)`` float32, bottom-center: per room an
+    axis-aligned box around the BEV corners of its furniture with a margin
+    of 0.3-0.8 m a side, from its floor to 2.5-3.1 m above it, turned by a
+    yaw of -0.1..0.1."""
+    out = np.zeros((boxes.shape[0], 7), np.float32)
+    for s in range(boxes.shape[0]):
+        bx = boxes[s][mask[s]].astype(np.float64)
+        c, sn = np.cos(bx[:, 6]), np.sin(bx[:, 6])
+        hx, hy = bx[:, 3] / 2, bx[:, 4] / 2
+        ext_x = np.abs(c) * hx + np.abs(sn) * hy
+        ext_y = np.abs(sn) * hx + np.abs(c) * hy
+        lo = np.array([(bx[:, 0] - ext_x).min(), (bx[:, 1] - ext_y).min()])
+        hi = np.array([(bx[:, 0] + ext_x).max(), (bx[:, 1] + ext_y).max()])
+        lo -= rng.uniform(0.3, 0.8, 2)
+        hi += rng.uniform(0.3, 0.8, 2)
+        out[s] = (*(lo + hi) / 2, bx[:, 2].min(), *(hi - lo),
+                  rng.uniform(2.5, 3.1), rng.uniform(-0.1, 0.1))
+    return out
+
+
 def sunrgbd_train_batch(b: int, device='cuda', seed: int = 0,
                         size=(768, 576), max_gt: int = 64,
-                        n_classes: int = 10):
+                        n_classes: int = 10, layout: bool = False):
     """A ``b``-sample SUN RGB-D training batch: :func:`sunrgbd_batch`'s
     camera, looking down by 2-8 degrees onto the room, at the presets'
     padded train size ``(W, H)``, with :func:`furniture_boxes` padded to
-    ``max_gt``."""
+    ``max_gt``.  ``layout`` (Total3D) adds ``gt_angles (b, 2)``, the
+    cameras' (pitch, roll), and ``gt_layout (b, 7)`` from
+    :func:`layout_boxes`."""
     rng = np.random.RandomState(seed + 1)
     boxes, labels, mask = furniture_boxes(rng, b, max_gt, n_classes)
-    batch = sunrgbd_batch(b, device, seed=seed, size=size, pitch=(-8.0, -2.0))
+    batch, angles = _sunrgbd_batch(b, device, seed, size, (-8.0, -2.0))
+    batch.update(gt_boxes=torch.tensor(boxes, device=device),
+                 gt_labels=torch.tensor(labels, device=device),
+                 gt_mask=torch.tensor(mask, device=device))
+    if layout:
+        rooms = layout_boxes(np.random.RandomState(seed + 2), boxes, mask)
+        batch.update(gt_angles=torch.tensor(angles, device=device),
+                     gt_layout=torch.tensor(rooms, device=device))
+    return batch
+
+
+SCANNET_H, SCANNET_W = 480, 640
+SCANNET_ORIGIN = (0.0, 0.0, 0.5)            # datasets.py:296
+# ScanNet's depth-camera intrinsics at 640x480
+SCANNET_F = 577.87
+
+
+def _look_at(eye, target):
+    """Camera-to-world pose (4, 4) of a camera at ``eye`` looking at
+    ``target``: camera x right, y down, z ahead (ScanNet's poses)."""
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x = x / np.linalg.norm(x)
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = x, np.cross(z, x), \
+        z, eye
+    return pose
+
+
+def scannet_batch(b: int, views: int, device='cuda', seed: int = 0,
+                  size=(SCANNET_W, SCANNET_H)):
+    """A ``b``-sample, ``views``-view ScanNet-like batch at image ``size
+    (W, H)``: per room, cameras at 1.2-1.7 m on a circle of radius 2.2-2.8
+    m around the room's middle, spread evenly over the circle with a
+    jitter, each looking at a point within 0.5 m of the middle at 0.3-0.8 m
+    height; the aligned frame is the scan's frame turned and shifted by a
+    random ``axis_align`` matrix, so every extrinsic is ``inv(axis_align @
+    pose)`` of the scan-frame pose.  Intrinsics (b, 3, 3) scale with the
+    size from fx = fy = 577.87 at 640x480, the principal point nudged off
+    the pixel grid; ``ratio = 4``."""
+    rng = np.random.RandomState(seed)
+    w, h = size
+    f = SCANNET_F * w / SCANNET_W
+    k = np.array([[f, 0.0, (w - 1) / 2 + 0.137], [0.0, f, (h - 1) / 2 - 0.213],
+                  [0.0, 0.0, 1.0]], np.float32)
+    ext = np.zeros((b, views, 4, 4), np.float32)
+    for s in range(b):
+        t = rng.uniform(-np.pi, np.pi)
+        align = np.eye(4)
+        align[:2, :2] = [[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]]
+        align[:3, 3] = rng.uniform(-3.0, 3.0, 3)
+        phase = rng.uniform(-np.pi, np.pi)
+        for v in range(views):
+            a = phase + 2 * np.pi * (v + rng.uniform(-0.3, 0.3)) / views
+            r = rng.uniform(2.2, 2.8)
+            eye = np.array([r * np.cos(a), r * np.sin(a),
+                            rng.uniform(1.2, 1.7)])
+            target = np.r_[rng.uniform(-0.5, 0.5, 2), rng.uniform(0.3, 0.8)]
+            # the scan-frame pose whose aligned pose looks at the target
+            pose = np.linalg.inv(align) @ _look_at(eye, target)
+            ext[s, v] = np.linalg.inv(align @ pose)
+    return dict(
+        images=torch.tensor(rng.randn(b, views, h, w, 3).astype(np.float32),
+                            device=device),
+        intrinsics=torch.tensor(np.stack([k] * b), device=device),
+        extrinsics=torch.tensor(ext, device=device),
+        origins=torch.tensor([SCANNET_ORIGIN] * b, dtype=torch.float32,
+                             device=device),
+        img_shape=torch.tensor([[h, w]] * b, dtype=torch.int32,
+                               device=device),
+        ratios=torch.full((b,), 4.0, device=device),
+    )
+
+
+def room_boxes(rng, b: int, max_gt: int, n_classes: int = 18):
+    """Padded GT of ``b`` ScanNet rooms: 4-16 axis-aligned, yaw-free boxes
+    each with centres within 2.2 m of the room's middle and bottoms within
+    2 cm of the floor (z = 0).  As in :func:`furniture_boxes`, every room
+    holds one small box (sides 0.3-0.9 m), one medium (1.0-1.5 m) and one
+    large (2.6-3.0 m across, 1.7-2.5 m tall), so that every level gets
+    positives: the grid's coarsest level has only two layers of 0.64 m
+    voxels above the floor (at 0.50 and 1.14 m), so the v2 rule's 27 points
+    need 4 x 4 of its columns; the rest have sides of 0.3-2.5 m.
+
+    Returns numpy ``gt_boxes (b, max_gt, 7)`` float32 (bottom center, yaw
+    0, padding zeros), ``gt_labels (b, max_gt)`` int32 and ``gt_mask``
+    bool."""
+    boxes = np.zeros((b, max_gt, 7), np.float32)
+    labels = np.zeros((b, max_gt), np.int32)
+    mask = np.zeros((b, max_gt), bool)
+    for s in range(b):
+        n = rng.randint(4, min(16, max_gt) + 1)
+        for g in range(n):
+            if g == 0:
+                size = rng.uniform(0.3, 0.9, 3)
+            elif g == 1:
+                size = rng.uniform(1.0, 1.5, 3)
+            elif g == 2:
+                size = np.r_[rng.uniform(2.6, 3.0, 2), rng.uniform(1.7, 2.5)]
+            else:
+                size = rng.uniform(0.3, 2.5, 3)
+            xy = rng.uniform(-2.2, 2.2, 2) * (0.5 if g == 2 else 1.0)
+            boxes[s, g] = (*xy, rng.uniform(-0.02, 0.02), *size, 0.0)
+            labels[s, g] = rng.randint(n_classes)
+        mask[s, :n] = True
+    return boxes, labels, mask
+
+
+def scannet_train_batch(b: int, views: int, device='cuda', seed: int = 0,
+                        size=(SCANNET_W, SCANNET_H), max_gt: int = 64,
+                        n_classes: int = 18):
+    """A ``b``-sample ScanNet training batch: :func:`scannet_batch`'s
+    ``views`` cameras with :func:`room_boxes` padded to ``max_gt``."""
+    rng = np.random.RandomState(seed + 1)
+    boxes, labels, mask = room_boxes(rng, b, max_gt, n_classes)
+    batch = scannet_batch(b, views, device, seed=seed, size=size)
     batch.update(gt_boxes=torch.tensor(boxes, device=device),
                  gt_labels=torch.tensor(labels, device=device),
                  gt_mask=torch.tensor(mask, device=device))
     return batch
 
 
-def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0):
-    """The synthetic serving batch of a preset's ``data.dataset``."""
+def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0,
+                  views: int = 1):
+    """The synthetic serving batch of a preset's ``data.dataset``;
+    ``views`` (its ``data.n_images_test``) for ScanNet."""
     if dataset == 'sunrgbd':
         return sunrgbd_batch(b, device, seed=seed)
     if dataset == 'kitti':
         return kitti_batch(b, device, seed=seed)
+    if dataset == 'scannet':
+        return scannet_batch(b, views, device, seed=seed)
     raise NotImplementedError(f'no synthetic {dataset!r} batch')
 
 
-def train_batch(data, b: int, device='cuda', seed: int = 0):
+def train_batch(data, b: int, device='cuda', seed: int = 0,
+                layout: bool = False):
     """The synthetic training batch of a preset's ``data`` config
-    (``configs/presets.py:DataConfig``), at its padded train size."""
+    (``configs/presets.py:DataConfig``), at its padded train size, with
+    ``data.n_images_train`` views; ``layout`` adds Total3D's camera angles
+    and room layout."""
     if data.dataset == 'sunrgbd':
         return sunrgbd_train_batch(b, device, seed=seed,
+                                   size=data.train_size, max_gt=data.max_gt,
+                                   n_classes=len(data.classes), layout=layout)
+    if data.dataset == 'scannet':
+        return scannet_train_batch(b, data.n_images_train, device, seed=seed,
                                    size=data.train_size, max_gt=data.max_gt,
                                    n_classes=len(data.classes))
     if data.dataset == 'kitti':

@@ -168,3 +168,39 @@ def jax_neck(cfg):
                                    n.down_layers, n.up_layers)
     return necks3d.FastIndoorImVoxelNeck(n.in_channels, n.n_blocks,
                                          n.out_channels)
+
+
+def tiny_total3d_cfgs(fast=False):
+    """:func:`tiny_indoor_cfgs` with Total3D's layout head (the presets'
+    ``LayoutHeadConfig``) in both packages."""
+    import dataclasses
+
+    from imvoxelnet_tpu.models.heads import layout_head as jlh
+    from imvoxelnet_tpu_torch.models.heads import layout_head as tlh
+
+    return tuple(dataclasses.replace(c, layout_head=lh.LayoutHeadConfig())
+                 for c, lh in zip(tiny_indoor_cfgs(fast=fast), (jlh, tlh)))
+
+
+def tiny_scannet_cfgs(fast=False):
+    """:func:`tiny_indoor_cfgs` with ScanNet's axis-aligned head (6
+    regression outputs, no yaw) in both packages."""
+    import dataclasses
+
+    return tuple(dataclasses.replace(c, indoor_head=dataclasses.replace(
+        c.indoor_head, dataset='scannet', n_reg_outs=6))
+        for c in tiny_indoor_cfgs(fast=fast))
+
+
+def recording(tx):
+    """The optax transformation ``tx`` behind a stage that passes the
+    gradients on unchanged and keeps them in its state (``opt_state[0]``):
+    the JAX ``make_train_step``'s raw gradients, with no second compile."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    keep = optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+    return optax.chain(keep, tx)

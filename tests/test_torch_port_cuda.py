@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test skips without a CUDA device.  Small and ragged
-shapes here, and the SUN RGB-D serving shapes; ``chip_smoke.py`` covers the
-main paths' shapes with times.  This file
+shapes here, the SUN RGB-D serving shapes and ScanNet's 20 and 50 views;
+``chip_smoke.py`` covers the main paths' shapes with times.  This file
 imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -24,7 +24,9 @@ from imvoxelnet_tpu_torch.ops import conv3z
 from imvoxelnet_tpu_torch.configs.presets import get_preset
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
-from imvoxelnet_tpu_torch.utils.synthetic import sunrgbd_batch
+from imvoxelnet_tpu_torch.models.heads import layout_head as lh
+from imvoxelnet_tpu_torch.utils.synthetic import (scannet_batch,
+                                                  sunrgbd_batch)
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import losses
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
@@ -775,3 +777,215 @@ def test_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda, name):
             with pytest.raises(RuntimeError, match='no backward'):
                 fn(*spoiled(arg.clone().requires_grad_()))
     assert kernels.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# ScanNet's views, its class-aware axis-aligned NMS, Total3D's layout clip
+# ---------------------------------------------------------------------------
+
+def _scannet_geometry(dev, views, name, seed=3):
+    cfg = get_preset(name).model
+    batch = scannet_batch(1, views, dev, seed=seed)
+    points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
+                           batch['origins']).reshape(1, -1, 3).contiguous()
+    proj = bp.compute_projection(batch['intrinsics'], batch['extrinsics'],
+                                 batch['ratios']).contiguous()
+    hw = (batch['img_shape'] // 4).to(torch.int32)
+    return cfg, points, proj, hw
+
+
+@pytest.mark.parametrize('views', [20, 50])
+@pytest.mark.parametrize('name,dtype', [
+    ('imvoxelnet_scannet', torch.float32),          # C = 64, 204,800 voxels
+    ('imvoxelnet_scannet', torch.bfloat16),
+    ('imvoxelnet_scannet_fast', torch.float32),     # C = 256, 25,600 voxels
+    ('imvoxelnet_scannet_fast', torch.bfloat16)])
+def test_backproject_kernel_matches_plain_at_the_scannet_views(cuda, views,
+                                                              name, dtype):
+    """B1 over ScanNet's 20 training and 50 test views at 120x160: the view
+    counts exact (up to 50, exact in bfloat16 too), the float32 view sums
+    bit for bit (the views added in order, rounded once)."""
+    cfg, points, proj, hw = _scannet_geometry(cuda, views, name)
+    rng = np.random.RandomState(1)
+    feats = torch.tensor(rng.randn(1, views, 120, 160, cfg.fpn_out_channels),
+                         dtype=torch.float32, device=cuda).to(dtype)
+    acc, cnt = bp_kernel.backproject_batch(feats, points, proj, hw)
+    ref_acc, ref_cnt = bp.backproject_batch_plain(feats, points, proj, hw)
+    assert torch.equal(cnt, ref_cnt)
+    # most voxels seen, by several views but not by all
+    assert int(cnt.max()) > 1 and float((cnt > 0).float().mean()) > 0.3
+    assert bool((cnt < views).any())
+    assert torch.equal(acc, ref_acc)
+
+
+@pytest.mark.parametrize('name,dtype', [
+    ('imvoxelnet_scannet', torch.bfloat16),
+    ('imvoxelnet_scannet', torch.float32),
+    ('imvoxelnet_scannet_fast', torch.bfloat16),
+    ('imvoxelnet_scannet_fast', torch.float32)])
+def test_backproject_grad_kernel_matches_plain_at_20_views(cuda, name,
+                                                           dtype):
+    """B1's backward at ScanNet's 20 training views: bit for bit against the
+    plain version run on CPU copies, and a second launch repeats the
+    first."""
+    cfg, points, proj, hw = _scannet_geometry(cuda, 20, name)
+    rng = np.random.RandomState(2)
+    g = torch.tensor(rng.randn(points.shape[1], 1, cfg.fpn_out_channels),
+                     dtype=torch.float32, device=cuda).to(dtype)
+    got = bp_kernel.backproject_batch_grad(g, points, proj, hw, 120, 160)
+    again = bp_kernel.backproject_batch_grad(g, points, proj, hw, 120, 160)
+    ref = bp.backproject_batch_grad_plain(g.cpu(), points.cpu(), proj.cpu(),
+                                          hw.cpu(), 120, 160)
+    assert got.shape == (1, 20, 120, 160, cfg.fpn_out_channels)
+    assert _same_bits(got.cpu(), ref) and _same_bits(again, got)
+    assert bool((got.reshape(20, -1) != 0).any(1).all())
+
+
+def _aligned_candidates(dev, b, n, seed=5):
+    """``b`` samples of ``n`` corner boxes over 18 classes, clustered so
+    that they overlap, with scores from a coarse grid (exact ties)."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(-2.0, 2.0, (b, n, 3))
+    size = rng.uniform(0.3, 1.5, (b, n, 3))
+    boxes = np.concatenate([centers - size / 2, centers + size / 2], -1)
+    scores = np.round(rng.uniform(0, 1, (b, n)), 3)
+    classes = rng.randint(0, 18, (b, n))
+    return (torch.tensor(boxes, dtype=torch.float32, device=dev),
+            torch.tensor(scores, dtype=torch.float32, device=dev),
+            torch.tensor(classes, device=dev))
+
+
+@pytest.mark.parametrize('b,n', [(1, 3000), (2, 2400), (3, 33)])
+def test_aligned_nms_never_waits_for_the_device(cuda, b, n, monkeypatch):
+    """The class-aware axis-aligned NMS under ``set_sync_debug_mode(
+    'error')``: the plain mask and one scan launch for all samples, equal
+    to the plain path (the fixpoint on the IoU)."""
+    boxes, scores, classes = _aligned_candidates(cuda, b, n)
+    valid = scores > 0.05
+    nms_ops.aligned_3d_nms(boxes, scores, classes, valid, 0.15)   # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        keep = nms_ops.aligned_3d_nms(boxes, scores, classes, valid, 0.15)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert kernels.launch_counts()['nms_scan'] == 1
+    assert kernels.launch_counts()['rect_clip'] == 0
+    monkeypatch.setattr(nms_ops, 'aligned_nms_presorted',
+                        nms_ops.aligned_nms_presorted_plain)
+    ref = nms_ops.aligned_3d_nms(boxes, scores, classes, valid, 0.15)
+    assert torch.equal(keep, ref)
+    assert 0 < int(keep.sum()) < int(valid.sum())
+
+
+def test_scannet_decode_never_waits_for_the_device(cuda, monkeypatch):
+    """The ScanNet decode at the ``imvoxelnet_scannet`` levels (3 x 1000
+    candidates) under ``set_sync_debug_mode('error')``: one scan launch, no
+    clip, and the plain path's result bit for bit."""
+    cfg = get_preset('imvoxelnet_scannet').model.indoor_head
+    rng = np.random.RandomState(9)
+    b, sizes = 2, [(80, 80, 32), (40, 40, 16), (20, 20, 8)]
+    head = ([], [], [])
+    for size in sizes:
+        head[0].append(rng.randn(b, *size, 1))
+        head[1].append(np.exp(0.3 * rng.randn(b, *size, 6)) * 0.3)
+        head[2].append(rng.randn(b, *size, cfg.n_classes) - 1.0)
+    head = tuple([torch.tensor(x.astype(np.float32), device=cuda)
+                  for x in lv] for lv in head)
+    valid = torch.tensor(rng.uniform(0, 1, (b, 80, 80, 32)) > 0.3,
+                         device=cuda)
+    # the second room seen in one corner only: fewer than max_out kept
+    valid[1] = False
+    valid[1, 30:40, 30:40, 10:18] = True
+    origins = torch.tensor([[0.0, 0.0, 0.5]] * b, device=cuda)
+    ivh.indoor_head_get_bboxes(head, valid, origins, cfg)     # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = ivh.indoor_head_get_bboxes(head, valid, origins, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['nms_scan'] == 1 and counts['rect_clip'] == 0
+    monkeypatch.setattr(nms_ops, 'aligned_nms_presorted',
+                        nms_ops.aligned_nms_presorted_plain)
+    ref = ivh.indoor_head_get_bboxes(head, valid, origins, cfg)
+    assert res['boxes'].shape == (b, cfg.max_out, 7)
+    n_kept = res['valid'].sum(1)
+    assert int(n_kept[0]) == cfg.max_out and 0 < int(n_kept[1]) < cfg.max_out
+    for key in ('valid', 'labels', 'boxes', 'scores'):
+        assert torch.equal(res[key], ref[key]), key
+
+
+def test_rect_clip_function_on_a_layout_batch(cuda):
+    """Total3D's layout loss on a batch of 4 through ``RectClipFunction``
+    (one paired clip and one backward launch) against autograd of the plain
+    clip on the CPU: the loss within 1e-6, the gradients within 1e-5 of
+    their max-abs."""
+    rng = np.random.RandomState(4)
+    gt = np.concatenate([rng.uniform(-0.5, 0.5, (4, 2)),
+                         rng.uniform(-1.8, -1.6, (4, 1)),
+                         rng.uniform(4.0, 7.0, (4, 3)),
+                         rng.uniform(-0.2, 0.2, (4, 1))], -1)
+    pred = gt + np.concatenate([0.3 * rng.randn(4, 3), 0.4 * rng.randn(4, 3),
+                                0.1 * rng.randn(4, 1)], -1)
+    pred[:, 2] += gt[:, 5] / 2
+    angles = rng.uniform(-0.3, 0.3, (4, 2))
+    gt_angles = angles + 0.1 * rng.randn(4, 2)
+    cfg = lh.LayoutHeadConfig()
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        a, p = (torch.tensor(x, dtype=torch.float32, device=dev)
+                .requires_grad_() for x in (angles, pred))
+        kernels.reset_launch_counts()
+        loss = lh.layout_head_loss(
+            a, p, torch.tensor(gt_angles, dtype=torch.float32, device=dev),
+            torch.tensor(gt, dtype=torch.float32, device=dev), cfg)
+        (loss['angle_loss'] + loss['layout_loss']).backward()
+        out[dev.type] = (loss, a.grad.cpu(), p.grad.cpu(),
+                         kernels.launch_counts())
+    counts = out['cuda'][3]
+    assert counts['rect_clip'] == 1 and counts['rect_clip_grad'] == 1
+    assert out['cpu'][3]['rect_clip'] == 0
+    for key in ('angle_loss', 'layout_loss'):
+        torch.testing.assert_close(out['cuda'][0][key].cpu(),
+                                   out['cpu'][0][key], rtol=1e-6, atol=1e-6)
+    for got, want in zip(out['cuda'][1:3], out['cpu'][1:3]):
+        scale = float(want.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_total3d_forward_with_predicted_extrinsics(cuda):
+    """A tiny Total3D model on the card with ``use_predicted_extrinsics``:
+    every view takes the extrinsic the head predicts, and the result equals
+    the forward given those extrinsics."""
+    import dataclasses
+
+    from imvoxelnet_tpu_torch.models import detector
+    from imvoxelnet_tpu_torch.models.detector import NeckConfig
+
+    full = get_preset('imvoxelnet_total_sunrgbd').model
+    cfg = dataclasses.replace(
+        full, n_voxels=(16, 16, 8), voxel_size=(0.4, 0.4, 0.4),
+        fpn_out_channels=16, backbone_stage_blocks=(1, 1, 1, 1),
+        neck=NeckConfig(kind='imvoxel', channels=(16, 24, 32, 48),
+                        out_channels=16, down_layers=(1, 1, 1, 1),
+                        up_layers=(1, 1, 1)),
+        indoor_head=dataclasses.replace(
+            full.indoor_head, voxel_size=(0.4, 0.4, 0.4), nms_pre=64,
+            pre_nms_k=32, max_out=16))
+    model = detector.build_model(cfg, device=cuda, seed=0)
+    with torch.no_grad():
+        model.head_2d.angle_mlp[6].weight.mul_(0.01)
+        batch = sunrgbd_batch(2, cuda, seed=1, size=(128, 96))
+        head, valid, (angles, layout) = model(batch,
+                                              use_predicted_extrinsics=True)
+        given = dict(batch, extrinsics=lh.predicted_extrinsics(angles)[
+            :, None].contiguous())
+        head2, valid2, _ = model(given)
+    assert torch.equal(valid, valid2)
+    for a, b in zip(head, head2):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert angles.shape == (2, 2) and layout.shape == (2, 7)

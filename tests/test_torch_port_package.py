@@ -22,12 +22,16 @@ PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test', 'imvoxelnet_sunrgbd',
                 'imvoxelnet_sunrgbd_top27', 'imvoxelnet_sunrgbd_fast',
                 'imvoxelnet_perspective_sunrgbd',
                 'imvoxelnet_perspective_sunrgbd_top27',
-                'imvoxelnet_perspective_sunrgbd_fast')
+                'imvoxelnet_perspective_sunrgbd_fast',
+                'imvoxelnet_total_sunrgbd', 'imvoxelnet_total_sunrgbd_top27',
+                'imvoxelnet_total_sunrgbd_fast', 'imvoxelnet_scannet',
+                'imvoxelnet_scannet_top27', 'imvoxelnet_scannet_fast')
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """A tiny forward + decode, a training step and a tiny SUN RGB-D forward
-    + decode in a fresh interpreter leave every ``jax*`` and ``flax*``
+    """A tiny forward + decode, a training step, a tiny SUN RGB-D forward
+    + decode, a tiny Total3D one (predicted extrinsics) and a tiny 3-view
+    ScanNet one in a fresh interpreter leave every ``jax*`` and ``flax*``
     module and every
     ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
     (``imvoxelnet_tpu_torch`` shares the prefix, hence the exact-name
@@ -87,6 +91,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             ires = imvoxelnet_predict(icfg, ihead, ivalid, ibatch['origins'])
         assert ires['boxes'].shape == (1, 16, 7)
         assert 0 < float(ivalid.float().mean()) < 1
+        # and tiny Total3D (layout head, predicted extrinsics) and 3-view
+        # ScanNet forwards + decodes
+        for name, views in (('imvoxelnet_total_sunrgbd', 1),
+                            ('imvoxelnet_scannet', 3)):
+            full = get_preset(name).model
+            tcfg = dataclasses.replace(
+                icfg, layout_head=full.layout_head,
+                indoor_head=dataclasses.replace(
+                    icfg.indoor_head,
+                    dataset=full.indoor_head.dataset,
+                    n_reg_outs=full.indoor_head.n_reg_outs,
+                    n_classes=full.indoor_head.n_classes))
+            tmodel = build_model(tcfg, device='cpu', seed=0)
+            if views == 1:
+                tbatch = synthetic.sunrgbd_batch(1, 'cpu', seed=0,
+                                                 size=(128, 96))
+            else:
+                tbatch = synthetic.scannet_batch(1, views, 'cpu', seed=0,
+                                                 size=(128, 96))
+            with torch.no_grad():
+                outs = tmodel(tbatch, use_predicted_extrinsics=True)
+                tres = imvoxelnet_predict(tcfg, outs[0], outs[1],
+                                          tbatch['origins'], *outs[2:])
+            assert len(outs) == (3 if views == 1 else 2)
+            assert tres['boxes'].shape == (1, 16, 7)
+            assert ('layout' in tres) == (views == 1)
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0].startswith(('jax', 'flax', 'optax'))
                      or m == 'imvoxelnet_tpu'
@@ -104,8 +134,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 # JAX config fields the port leaves to later slices, with the values every
 # ported preset must hold for them.
 _JAX_ONLY = {
-    'ImVoxelNetConfig': dict(layout_head=None, axis_name=None,
-                             dp_loss_norm='per_image',
+    'ImVoxelNetConfig': dict(axis_name=None, dp_loss_norm='per_image',
                              stage_with_dcn=(False,) * 4,
                              view_shard_axis=None),
 }
@@ -155,8 +184,11 @@ def _randomize_bn(model, rng):
                     rng.uniform(0.5, 1.5, t.shape).astype(np.float32)))
 
 
-# each model family once: the perspective presets differ only in classes
-@pytest.mark.parametrize('name', PRESET_NAMES[:5])
+# each model family once: the perspective presets differ only in classes,
+# the Total3D ones from the votenet ones in the layout head
+@pytest.mark.parametrize('name', PRESET_NAMES[:5] + (
+    'imvoxelnet_total_sunrgbd', 'imvoxelnet_scannet',
+    'imvoxelnet_scannet_fast'))
 def test_state_dict_round_trip_through_the_jax_converter(name):
     """port state_dict -> convert_reference_checkpoint(strict) ->
     from_jax_variables gives the same state_dict back, key for key."""

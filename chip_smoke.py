@@ -79,6 +79,22 @@ Phases, each failing the run on its own error:
                 of _top27; the backprojection with 20 and 50 views (C=64 and
                 256) and its backward with 20 views, bit for bit against the
                 plain version on the CPU.
+  9. nuscenes -- imvoxelnet_nuscenes at full width and depth (six cameras
+                of 1600x900 padded to 928, ResNet-50 with DCNv2 in stages
+                3-4 on seeded nonzero offsets, the nuScenes neck, 312x312x12
+                voxels): the kernels at its shapes (B1 with six views and
+                7 of 232 feature rows cropped, its backward with the segment
+                histogram, B3 on the 312x312x12 block0 with its 4x8 tiling,
+                forward and dx, the NMS mask + scan at one group of 1,000);
+                serving b=1 float32 held against the plain path (every
+                score tied at 0.5, so that the decode's order is the stable
+                top-k's index order on both paths) and b=1 bfloat16 timed
+                with a decode that must not wait for the device; one b=1
+                float32 training step held against the plain path (the DCN
+                and conv_offset gradients named); two float32 steps from one
+                state with cudnn.deterministic, whose gradients must repeat
+                bit for bit; 5 timed b=1 bfloat16 steps and one that must
+                not wait for the device; launches asserted.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -103,7 +119,10 @@ from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
 from imvoxelnet_tpu_torch.kernels import build
 from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
 from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
+from imvoxelnet_tpu_torch.core import target_assign
 from imvoxelnet_tpu_torch.models import necks3d
+from imvoxelnet_tpu_torch.models.dcn import DeformConv2d
+from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.models.detector import (build_model,
                                                   imvoxelnet_loss,
                                                   imvoxelnet_predict)
@@ -114,7 +133,8 @@ from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
-from imvoxelnet_tpu_torch.tools.profile_forward import (level_angle_head,
+from imvoxelnet_tpu_torch.tools.profile_forward import (dcn_offsets,
+                                                        level_angle_head,
                                                         zero_cls_bias)
 from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
@@ -643,12 +663,15 @@ def check_nms_kernels(g, n, iou_thr, rng, plain_reps=20):
     return mask_row, scan_row
 
 
-def check_conv3x3x3(b, dtype, tol, rng, dx=False):
-    """B3 at KITTI's block0 shape.  ``dx``: the input gradient of the
-    training step, the same kernel on the output gradient with the
-    transposed kernel; its library call is ``aten.convolution_backward``
-    asked for the input gradient alone."""
-    nx, ny, nz, c = 216, 248, 12, 64         # KITTI block0
+def check_conv3x3x3(b, dtype, tol, rng, dx=False, volume=(216, 248, 12),
+                    name='imvoxelnet_kitti'):
+    """B3 at the block0 shape of preset ``name`` (``volume``, KITTI's by
+    default), with the tiling the kernel picks for it.  ``dx``: the input
+    gradient of the training step, the same kernel on the output gradient
+    with the transposed kernel; its library call is
+    ``aten.convolution_backward`` asked for the input gradient alone."""
+    (nx, ny, nz), c = volume, 64
+    plan = conv_kernel.tile_plan(nx, ny, nz)
     x = torch.tensor(rng.randn(b, nx, ny, nz, c).astype(np.float32),
                      device='cuda').to(dtype)
     w = torch.tensor((rng.randn(3, 3, 3, c, c) / np.sqrt(27 * c))
@@ -687,7 +710,10 @@ def check_conv3x3x3(b, dtype, tol, rng, dx=False):
         name='conv3x3x3', route='cuda',
         source='imvoxelnet_tpu_torch/kernels/csrc/conv3x3x3.cu',
         replaces='imvoxelnet_tpu/ops/conv3z_pallas.py:91',
-        shape=f'b={b} {str(dtype)[6:]} {what} {tuple(x.shape)}',
+        shape=f'{name} block0 b={b} {str(dtype)[6:]} {what} '
+              f'{tuple(x.shape)}',
+        tile=[plan.tx, plan.ty], grid=list(plan.grid),
+        smem_bytes=plan.smem_bytes,
         max_abs_err=err, ms=ms, tflops=n_flops / (ms * 1e-3) / 1e12,
         plain_ms=time_ms(lambda: conv3z.conv3x3x3_plain(x, w_run), reps),
         bound_ms=t_bound, bound_by=by, library_ms=time_ms(library, reps),
@@ -1286,16 +1312,40 @@ INDOOR_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 0,
                    'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
 
 
-def serve_vs_plain(name, b1, b_timed, launches):
+@contextlib.contextmanager
+def tied_scores(model):
+    """The anchor head's cls weights at zero for the block (its bias is
+    zero already): every anchor scores exactly 0.5, so the decode keeps the
+    stable top-k's lowest indices and NMS sees them in index order on any
+    path; the boxes still come from the model's regression."""
+    conv = model.bbox_head.conv_cls
+    saved = conv.weight.detach().clone()
+    with torch.no_grad():
+        conv.weight.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            conv.weight.copy_(saved)
+
+
+def serve_vs_plain(name, b1, b_timed, launches, tie=False):
     """Preset ``name`` served at full width and depth: ``b1`` (a b=1
     batch) float32 through the kernels against the plain path, then
     ``b_timed`` bfloat16 timed with a decode that must not wait for the
-    device; launches per forward asserted at both sizes."""
+    device; launches per forward asserted at both sizes.  ``tie``: the
+    float32 comparison with :func:`tied_scores`, for a decode whose
+    random-weight candidates' scores may lie closer together than the
+    float32 kernel path's rounding moves them (nuScenes: 1,000 of 48,672
+    anchors, against 100 on KITTI)."""
     cfg = get_preset(name).model
     model = build_model(cfg, device='cuda', seed=SEED)
     zero_cls_bias(model)
     level_angle_head(model)
-    c1, res1 = compare_with_plain_path(f'{name} b=1 float32', model, cfg, b1)
+    dcn_offsets(model)
+    with tied_scores(model) if tie else contextlib.nullcontext():
+        c1, res1 = compare_with_plain_path(f'{name} b=1 float32', model,
+                                           cfg, b1)
     cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
     model16 = build_model(cfg16, device='cuda', seed=SEED)
     model16.load_state_dict(model.state_dict())
@@ -1358,7 +1408,18 @@ def biases_before_bn(model):
 
 def positives_per_level(model, cfg, batch):
     """``(B, levels)`` positive counts of the indoor targets on ``batch``
-    (labels >= 0 on voxels the camera sees), as the loss finds them."""
+    (labels >= 0 on voxels the camera sees), as the loss finds them; for
+    the anchor head ``(B, 1)``, the anchors its assigner makes positive."""
+    if cfg.head_kind == 'anchor3d':
+        hc = cfg.anchor_head
+        with torch.no_grad():
+            cls_score = model(batch)[0][0]
+            anchors = a3d.head_anchors(cls_score.shape[1:3], hc,
+                                       device=cls_score.device)
+            targets = target_assign.anchor_targets(
+                anchors, batch['gt_boxes'], batch['gt_labels'],
+                batch['gt_mask'], hc.assigner, hc.num_classes, hc.dir_offset)
+        return targets['n_pos'][:, None].cpu()
     hc = cfg.indoor_head
     with torch.no_grad():
         head_outs, valid = model(batch)[:2]
@@ -1402,6 +1463,7 @@ def train_vs_plain(name, launches, must_learn):
     preset = get_preset(name)
     cfg = preset.model
     model = build_model(cfg, device='cuda', seed=SEED)
+    dcn_offsets(model)
     noise = biases_before_bn(model)
     batch1 = train_batch(preset.data, 1, 'cuda', seed=SEED,
                          layout=cfg.layout_head is not None)
@@ -1466,12 +1528,26 @@ def train_vs_plain(name, launches, must_learn):
     for gname in must_learn:
         if not float(grads[gname].abs().max()) > 0:
             raise AssertionError(f'{gname}: zero gradient')
+    extra = {}
+    dcn = dcn_parameters(model)
+    if dcn:
+        extra['dcn_grad_gaps'] = {k: gaps[k] for k in dcn}
+        log(f'{name} train b=1 float32: DCN gradient gaps (of max-abs) '
+            f'{json.dumps(extra["dcn_grad_gaps"])}')
     return dict(
         loss=float(metrics['loss']), loss_abs_err=loss_err,
         grads_compared=len(plain_grads), max_grad_err_over_max_abs=
         gaps[worst], worst_grad=worst, bias_before_bn_noise=noise_gap,
         bn_stats_max_abs_err=stats_err, positives_per_level=pos.tolist(),
-        clip_grad_max=clip_grad_max, launches=counts_b1)
+        clip_grad_max=clip_grad_max, launches=counts_b1, **extra)
+
+
+def dcn_parameters(model):
+    """The names of the parameters of ``model``'s DCNs: each one's kernel
+    and its ``conv_offset``'s weight and bias."""
+    return [f'{m}.{p}' for m, mod in model.named_modules()
+            if isinstance(mod, DeformConv2d)
+            for p, _ in mod.named_parameters()]
 
 
 def timed_steps(name, launches):
@@ -1485,6 +1561,7 @@ def timed_steps(name, launches):
     b = preset.data.samples_per_device
     cfg16 = dataclasses.replace(preset.model, compute_dtype='bfloat16')
     model16 = build_model(cfg16, device='cuda', seed=SEED)
+    dcn_offsets(model16)
     step16, _ = trainer(model16, preset)
     batch = train_batch(preset.data, b, 'cuda', seed=SEED + 1,
                         layout=cfg16.layout_head is not None)
@@ -1710,6 +1787,82 @@ def run_scannet():
     return out, serve_counts, train_counts, scan_rows
 
 
+# --------------------------------------------------------------------------
+# phase 9: nuScenes (six cameras, DCNv2 in the backbone, the nuScenes neck)
+# --------------------------------------------------------------------------
+
+NUSCENES = 'imvoxelnet_nuscenes'
+NUSCENES_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
+                     'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
+NUSCENES_TRAIN_LAUNCHES = {'backproject': 1, 'backproject_grad': 1,
+                           'conv3x3x3': 4, 'rect_clip': 0,
+                           'rect_clip_grad': 0, 'nms_scan': 0}
+NUSCENES_BLOCK0 = (312, 312, 12)
+NUSCENES_MUST_LEARN = ('backbone.layer2.0.conv1.weight',
+                       'backbone.layer3.0.conv2.weight',
+                       'backbone.layer3.0.conv2.conv_offset.weight',
+                       'backbone.layer3.0.conv2.conv_offset.bias',
+                       'backbone.layer4.2.conv2.weight',
+                       'backbone.layer4.2.conv2.conv_offset.weight',
+                       'neck.lateral_convs.0.conv.weight',
+                       'neck_3d.model.0.conv1.weight',
+                       'neck_3d.model.0.conv2.weight',
+                       'bbox_head.conv_reg.weight')
+
+
+def run_nuscenes():
+    """imvoxelnet_nuscenes: serving (b=1 float32 against the plain path
+    with tied scores, b=1 bfloat16 timed), one b=1 float32 training step
+    against the plain path, two float32 steps with ``cudnn.deterministic``
+    whose gradients must repeat bit for bit (the DCNs' included: their
+    gathers' backward is an accumulating ``index_put_``), and 5 timed b=1
+    bfloat16 steps."""
+    preset = get_preset(NUSCENES)
+    out = {}
+    out['serve'], serve_counts = serve_vs_plain(
+        NUSCENES, serving_batch('nuscenes', 1, 'cuda', seed=SEED),
+        serving_batch('nuscenes', 1, 'cuda', seed=SEED + 1),
+        NUSCENES_LAUNCHES, tie=True)
+    out['b1_float32_train_vs_plain'] = train_vs_plain(
+        NUSCENES, NUSCENES_TRAIN_LAUNCHES, NUSCENES_MUST_LEARN)
+    pristine = build_model(preset.model, device='cuda', seed=SEED)
+    dcn_offsets(pristine)
+    out['b1_float32_repeat'] = repeat_count(
+        pristine, preset, train_batch(preset.data, 1, 'cuda', seed=SEED))
+    del pristine
+    out['b1_bfloat16_train'], train_counts, _ = timed_steps(
+        NUSCENES, NUSCENES_TRAIN_LAUNCHES)
+    log(f'nuscenes launch counts: serving {json.dumps(serve_counts)}, '
+        f'training {json.dumps(train_counts)}')
+    return out, serve_counts, train_counts
+
+
+def nuscenes_kernel_rows(rng):
+    """The kernels at the nuScenes shapes: ``(row, 'serve' or 'train')``
+    for the ``kernels`` line (B1 and the NMS mask + scan at one group of
+    1,000 with the serving launches, B3 forward with the serving launches
+    and dx with the training ones, B1's backward with the training ones),
+    and the float32 rows, logged only."""
+    iou_thr = get_preset(NUSCENES).model.anchor_head.iou_thr
+    mask_row, scan_row = check_nms_kernels(1, 1000, iou_thr, rng,
+                                           plain_reps=3)
+    rows = [
+        (check_backproject(1, torch.bfloat16, 2e-2, rng, NUSCENES), 'serve'),
+        (check_conv3x3x3(1, torch.bfloat16, 2e-2, rng,
+                         volume=NUSCENES_BLOCK0, name=NUSCENES), 'serve'),
+        (check_conv3x3x3(1, torch.bfloat16, 2e-2, rng, dx=True,
+                         volume=NUSCENES_BLOCK0, name=NUSCENES), 'train'),
+        (check_backproject_grad(1, torch.bfloat16, rng, NUSCENES), 'train'),
+        (mask_row, 'serve'), (scan_row, 'serve')]
+    logged = [check_backproject(1, torch.float32, 1e-5, rng, NUSCENES),
+              check_backproject_grad(1, torch.float32, rng, NUSCENES),
+              check_conv3x3x3(1, torch.float32, 1e-4, rng,
+                              volume=NUSCENES_BLOCK0, name=NUSCENES),
+              check_conv3x3x3(1, torch.float32, 1e-4, rng, dx=True,
+                              volume=NUSCENES_BLOCK0, name=NUSCENES)]
+    return rows, logged
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1854,6 +2007,16 @@ def smoke():
             [row for row, _ in total3d_rows + scan_rows] + \
             [row for row, _, _ in scannet_rows]:
         log(json.dumps(row))
+
+    # nuScenes: six views, DCNv2 backbone, B3 on the 312x312x12 block0
+    t9 = time.perf_counter()
+    nuscenes_rows, logged = nuscenes_kernel_rows(rng)
+    for row in logged + [row for row, _ in nuscenes_rows]:
+        log(json.dumps(row))
+    nuscenes, nuscenes_serve, nuscenes_train = run_nuscenes()
+    log(json.dumps({'nuscenes': nuscenes}))
+    log(f'phase 9 (nuscenes): {time.perf_counter() - t9:.1f} s')
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1871,7 +2034,10 @@ def smoke():
     # launches of its b=8 forward; the ScanNet rows (B1 with 50 views, the
     # scan of its forward's ~3,000 candidates) with those of its b=1
     # bfloat16 forward, and B1 and its backward with 20 views with those of
-    # its 5 timed b=1 steps
+    # its 5 timed b=1 steps; the nuScenes rows (B1 with six views, B3 on
+    # its block0, the mask + scan of 1,000 candidates) with those of its
+    # b=1 bfloat16 forward, and B3's dx and B1's backward with those of its
+    # 5 timed b=1 steps
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
             + [(r, train_counts[r['name']])
@@ -1882,7 +2048,10 @@ def smoke():
             + [(r, total3d_serve[p][r['name']]) for r, p in total3d_rows] \
             + [(r, scannet_serve[p][r['name']]) for r, p in scan_rows] \
             + [(r, (scannet_train if train else scannet_serve)[p][r['name']])
-               for r, p, train in scannet_rows]:
+               for r, p, train in scannet_rows] \
+            + [(r, (nuscenes_serve if use == 'serve'
+                    else nuscenes_train)[r['name']])
+               for r, use in nuscenes_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

@@ -1,11 +1,11 @@
-"""Named presets of the port: ``imvoxelnet_kitti``, ``tiny_kitti_test``,
-the SUN RGB-D votenet, perspective and Total3D families
+"""Named presets of the port: ``imvoxelnet_kitti``, ``imvoxelnet_nuscenes``,
+``tiny_kitti_test``, the SUN RGB-D votenet, perspective and Total3D families
 (``imvoxelnet_sunrgbd``, ``_top27``, ``_fast`` and the same three of
 ``imvoxelnet_perspective_sunrgbd`` and ``imvoxelnet_total_sunrgbd``) and the
 multi-view ScanNet family (``imvoxelnet_scannet``, ``_top27``, ``_fast``).
 
-Counterpart of ``imvoxelnet_tpu/configs/presets.py``; ``imvoxelnet_nuscenes``
-comes with its model family.  Field values equal the JAX package's.
+Counterpart of ``imvoxelnet_tpu/configs/presets.py``, all 14 presets and
+``tiny_kitti_test``.  Field values equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ TOTAL_SUNRGBD_CLASSES = (
     'pillow', 'mirror', 'clothes', 'books', 'fridge', 'tv', 'paper', 'towel',
     'shower_curtain', 'box', 'whiteboard', 'person', 'night_stand', 'toilet',
     'sink', 'lamp', 'bathtub', 'bag')
+NUSCENES_CLASSES = ('car',)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +167,31 @@ def build_presets():
                         train_scales=((1173, 352), (1387, 416)),
                         flip_ratio=0.5,
                         max_gt=16))
+
+    # --- nuScenes 6-camera car (imvoxelnet_nuscenes.py; DCNv2 stages 3-4)
+    nus_head = Anchor3DHeadConfig(
+        num_classes=1, feat_channels=256,
+        anchor_ranges=((-49.92, -49.92, -1.0, 49.92 - .64, 49.92 - .64,
+                        -1.0),),
+        anchor_sizes=((1.98, 4.67, 1.74),), anchor_rotations=(0.0, 1.57),
+        dir_offset=0.7854, dir_limit_offset=0.0,
+        loss_bbox_weight=1.0,
+        assigner=AssignerConfig(0.6, 0.3, 0.3),
+        nms_pre=1000, score_thr=0.05, iou_thr=0.2, max_out=500)
+    presets['imvoxelnet_nuscenes'] = Preset(
+        name='imvoxelnet_nuscenes',
+        model=ImVoxelNetConfig(
+            n_voxels=(312, 312, 12), voxel_size=(.32, .32, .32),
+            fpn_out_channels=64,
+            neck=NeckConfig(kind='nuscenes', in_channels=64,
+                            out_channels=256),
+            head_kind='anchor3d', anchor_head=nus_head,
+            stage_with_dcn=(False, False, True, True)),
+        data=DataConfig(dataset='nuscenes', classes=NUSCENES_CLASSES,
+                        n_images_train=6, n_images_test=6,
+                        samples_per_device=1, repeat_times=1,
+                        train_size=(1600, 928), test_size=(1600, 928),
+                        max_gt=64))
 
     # --- SUN RGB-D families
     presets.update(_sunrgbd_family('imvoxelnet_sunrgbd',

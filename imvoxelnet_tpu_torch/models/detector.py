@@ -3,10 +3,11 @@ head, its test-time decode (``simple_test``) and its training loss.
 
 Counterpart of ``imvoxelnet_tpu/models/detector.py`` (``ImVoxelNetConfig``,
 ``NeckConfig``, ``ImVoxelNet``, ``imvoxelnet_predict``, ``imvoxelnet_loss``)
-for the KITTI configuration (``head_kind='anchor3d'``, ``neck.kind='kitti'``)
-and the indoor ones (``head_kind='indoor'``, ``neck.kind`` ``'imvoxel'`` or
-``'fast'``): SUN RGB-D, Total3D (with the layout head ``head_2d``) and
-multi-view ScanNet; forward, decode and training loss.  ``model.train()``
+for the outdoor configurations (``head_kind='anchor3d'``, ``neck.kind``
+``'kitti'`` or ``'nuscenes'``, the latter with DCNv2 in the backbone's
+stages 3-4) and the indoor ones (``head_kind='indoor'``, ``neck.kind``
+``'imvoxel'`` or ``'fast'``): SUN RGB-D, Total3D (with the layout head
+``head_2d``) and multi-view ScanNet; forward, decode and training loss.  ``model.train()``
 is the JAX ``train=True``: the 3D neck's batch norms use batch statistics
 and update their running ones; the backbone's ``FrozenBatchNorm`` ignores
 the mode.
@@ -37,6 +38,7 @@ from ..ops import backproject as bp
 from . import fpn as fpn_lib
 from . import necks3d
 from . import resnet as resnet_lib
+from .dcn import DeformConv2d
 from .heads import anchor3d_head as a3d
 from .heads import imvoxel_heads as ivh
 from .heads import layout_head as lh
@@ -72,6 +74,8 @@ class ImVoxelNetConfig:
     dp_loss_norm: str = 'per_image'
     stride: int = 4                 # asserted == 4 in the reference
     compute_dtype: str = 'float32'  # conv-path dtype: float32 | bfloat16
+    # backbone stages whose conv2 is DCNv2 (nuScenes: stages 3-4)
+    stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)
     # Bottlenecks per stage; (3, 4, 6, 3) = ResNet-50.
     backbone_stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
 
@@ -79,13 +83,15 @@ class ImVoxelNetConfig:
 def build_neck(cfg: NeckConfig) -> nn.Module:
     if cfg.kind == 'kitti':
         return necks3d.KittiImVoxelNeck(cfg.in_channels, cfg.out_channels)
+    if cfg.kind == 'nuscenes':
+        return necks3d.NuScenesImVoxelNeck(cfg.in_channels, cfg.out_channels)
     if cfg.kind == 'imvoxel':
         return necks3d.ImVoxelNeck(cfg.channels, cfg.out_channels,
                                    cfg.down_layers, cfg.up_layers)
     if cfg.kind == 'fast':
         return necks3d.FastIndoorImVoxelNeck(cfg.in_channels, cfg.n_blocks,
                                              cfg.out_channels)
-    raise NotImplementedError(f'neck {cfg.kind!r} is not ported')
+    raise ValueError(f'unknown neck {cfg.kind!r}')
 
 
 class ImVoxelNet(nn.Module):
@@ -102,7 +108,8 @@ class ImVoxelNet(nn.Module):
     def __init__(self, cfg: ImVoxelNetConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = resnet_lib.ResNet(tuple(cfg.backbone_stage_blocks))
+        self.backbone = resnet_lib.ResNet(tuple(cfg.backbone_stage_blocks),
+                                          stage_with_dcn=cfg.stage_with_dcn)
         if cfg.layout_head is not None:
             self.head_2d = lh.LayoutHead(cfg.layout_head)
         self.neck = fpn_lib.FPN(out_channels=cfg.fpn_out_channels)
@@ -224,7 +231,10 @@ def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:
     (every conv of the indoor head), identity
     batch norms but for the encoder-decoder blocks' zero ``bn2`` scales,
     ``Scale`` at 1, and the head's cls bias at ``CLS_BIAS_INIT``
-    (``anchor3d_head.py:62-63``, ``imvoxel_heads.py:95-97``)."""
+    (``anchor3d_head.py:62-63``, ``imvoxel_heads.py:95-97``); a DCN's
+    kernel he-normal and its ``conv_offset`` zero, as mmcv and the JAX
+    init have them (``models/dcn.py:142-149``), so that every offset starts
+    at 0 and every mask at 0.5."""
     head = model.bbox_head
     if isinstance(head, a3d.Anchor3DHead):
         small = {head.conv_cls, head.conv_reg}
@@ -244,6 +254,13 @@ def init_weights(model: ImVoxelNet, generator: torch.Generator) -> None:
                 if getattr(mod, 'bias', None) is not None:
                     mod.bias.zero_()
         cls_conv.bias.fill_(cls_bias)
+        for mod in model.modules():
+            if isinstance(mod, DeformConv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, (2.0 / fan_in) ** 0.5,
+                                   generator=generator)
+                mod.conv_offset.weight.zero_()
+                mod.conv_offset.bias.zero_()
         for mod in model.modules():
             if isinstance(mod, (resnet_lib.FrozenBatchNorm, nn.BatchNorm3d)):
                 mod.weight.fill_(1.0)

@@ -2,8 +2,9 @@
 
 Counterpart of ``imvoxelnet_tpu/models/necks3d.py`` (``BN``, ``Conv3x3x3``,
 ``ConvBnRelu3d``, ``BasicBlock3d``, ``BasicBlock3dV2``, ``KittiImVoxelNeck``,
-``ImVoxelNeck``, ``FastIndoorImVoxelNeck``), with the reference's parameter
-names (``neck_3d.model.{i}...`` for KITTI, ``neck_3d.model.layers_down...``
+``NuScenesImVoxelNeck``, ``ImVoxelNeck``, ``FastIndoorImVoxelNeck``), with
+the reference's parameter names (``neck_3d.model.{i}...`` for KITTI and
+nuScenes, ``neck_3d.model.layers_down...``
 and ``neck_3d.conv_blocks.{i}`` for the encoder-decoder, ``neck_3d.
 down_layer_{i}`` / ``up_block_{i}`` / ``out_block_{i}`` for the fast neck).
 Volumes are kept in ``channels_last_3d`` memory, the layout the 3x3x3 kernel
@@ -112,24 +113,38 @@ class KittiImVoxelNeck(nn.Module):
     Input ``(B, C, nx, ny, nz)`` with nz = 12; three stride-(1,1,2) stages
     and a padding-0 conv collapse z to 1.  Output is the BEV map
     ``(B, C_out, ny-2, nx-2)`` (``x[..., 0].transpose(-1, -2)``).
+    ``down0_stride`` and ``out_padding`` are the first strided conv's
+    stride and the last conv's padding (nuScenes: 2 and (1, 1, 0)).
     """
 
-    def __init__(self, in_channels: int = 64, out_channels: int = 256):
+    def __init__(self, in_channels: int = 64, out_channels: int = 256,
+                 down0_stride=(1, 1, 2), out_padding=0):
         super().__init__()
         c = in_channels
         self.model = nn.Sequential(
             BasicBlock3d(c),
-            conv_bn_relu3d(c, c * 2, (1, 1, 2), 1),
+            conv_bn_relu3d(c, c * 2, down0_stride, 1),
             BasicBlock3d(c * 2),
             conv_bn_relu3d(c * 2, c * 4, (1, 1, 2), 1),
             BasicBlock3d(c * 4),
-            conv_bn_relu3d(c * 4, out_channels, 1, 0))
+            conv_bn_relu3d(c * 4, out_channels, 1, out_padding))
 
     def forward(self, x):
         x = self.model(x.contiguous(memory_format=torch.channels_last_3d))
         if x.shape[-1] != 1:
             raise ValueError(f'z must collapse to 1, got {tuple(x.shape)}')
         return x[..., 0].transpose(-1, -2)
+
+
+class NuScenesImVoxelNeck(KittiImVoxelNeck):
+    """The KITTI neck with its first strided conv at stride 2 in every axis
+    and its last conv padded in x and y (``necks/imvoxelnet.py:126-154``):
+    z collapses 12 -> 6 -> 3 -> 1 and the BEV map is ``(B, C_out, ny/2,
+    nx/2)``."""
+
+    def __init__(self, in_channels: int = 64, out_channels: int = 256):
+        super().__init__(in_channels, out_channels, down0_stride=2,
+                         out_padding=(1, 1, 0))
 
 
 def trilinear_up2(x):

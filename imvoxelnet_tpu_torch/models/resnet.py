@@ -5,6 +5,9 @@ ResNet-50 (``frozen_stages=1``, BN with ``requires_grad=False`` and
 ``norm_eval=True``), so every batch norm is an affine map from fixed
 statistics.  Parameter names are the reference's
 (``backbone.layer1.0.conv1.weight``, ``backbone.layer1.0.downsample.1.running_mean``, ...).
+``stage_with_dcn`` makes conv2 of a stage's bottlenecks a modulated
+deformable conv (``dcn.DeformConv2d``, names ``conv2.weight`` and
+``conv2.conv_offset.*``), as in the nuScenes backbone's stages 3-4.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dcn import DeformConv2d
 from .layers import Conv2d
 
 
@@ -43,13 +47,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, with_dcn: bool = False):
         super().__init__()
         cout = planes * self.expansion
         self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
-                            bias=False)
+        if with_dcn:
+            self.conv2 = DeformConv2d(planes, planes, stride)
+        else:
+            self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                                bias=False)
         self.bn2 = FrozenBatchNorm(planes)
         self.conv3 = Conv2d(planes, cout, 1, bias=False)
         self.bn3 = FrozenBatchNorm(cout)
@@ -71,7 +78,8 @@ class ResNet(nn.Module):
     """ResNet-50/101 with bottleneck blocks; returns the 4 stage outputs."""
 
     def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3),
-                 base_planes: int = 64):
+                 base_planes: int = 64,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4):
         super().__init__()
         self.conv1 = Conv2d(3, base_planes, 7, stride=2, padding=3,
                             bias=False)
@@ -83,7 +91,8 @@ class ResNet(nn.Module):
             for block in range(n_blocks):
                 blocks.append(Bottleneck(cin, planes,
                                          stride if block == 0 else 1,
-                                         downsample=(block == 0)))
+                                         downsample=(block == 0),
+                                         with_dcn=stage_with_dcn[stage]))
                 cin = planes * Bottleneck.expansion
             self.add_module(f'layer{stage + 1}', nn.Sequential(*blocks))
             planes *= 2

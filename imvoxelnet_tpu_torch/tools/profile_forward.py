@@ -5,18 +5,22 @@
         [--out work_dirs/profile_forward.json]
     python -m imvoxelnet_tpu_torch.tools.profile_forward --train [--batch 4]
         [--preset imvoxelnet_sunrgbd]
+    python -m imvoxelnet_tpu_torch.tools.profile_forward --batch 1
+        --preset imvoxelnet_nuscenes [--train]
 
-Runs the preset (``imvoxelnet_kitti`` by default, or an indoor one such as
-``imvoxelnet_sunrgbd``, ``imvoxelnet_total_sunrgbd`` or
-``imvoxelnet_scannet``; random weights from a seed) on its synthetic batch
-(``utils/synthetic.py``: KITTI 1280x384, SUN RGB-D 640x480, ScanNet
-640x480 with the preset's ``n_images_test`` views): forward + decode/NMS
-(the cls bias at 0 so detections pass; Total3D with the extrinsics its
-layout head predicts, the angle layer scaled down so they stay level), or
-with ``--train`` the training step of ``parallel/train.py`` on the preset's
-synthetic training batch at its padded train size (KITTI 1408x416, SUN
-RGB-D 768x576, ScanNet 640x480 with ``n_images_train`` views).  It
-reports:
+Runs the preset (``imvoxelnet_kitti`` by default, or another such as
+``imvoxelnet_nuscenes``, ``imvoxelnet_sunrgbd``, ``imvoxelnet_total_sunrgbd``
+or ``imvoxelnet_scannet``; random weights from a seed) on its synthetic
+batch (``utils/synthetic.py``: KITTI 1280x384, nuScenes six views of
+1600x900 padded to 928, SUN RGB-D 640x480, ScanNet 640x480 with the
+preset's ``n_images_test`` views): forward + decode/NMS (the cls bias at 0
+so detections pass; Total3D with the extrinsics its layout head predicts,
+the angle layer scaled down so they stay level; nuScenes with seeded
+``conv_offset`` weights, whose offsets of a few pixels make the DCN sample
+between pixels and off the map), or with ``--train`` the training step of
+``parallel/train.py`` on the preset's synthetic training batch at its
+padded train size (KITTI 1408x416, nuScenes 1600x928, SUN RGB-D 768x576,
+ScanNet 640x480 with ``n_images_train`` views).  It reports:
 
 * stage times from CUDA events recorded by forward hooks around the
   backbone, FPN, 3D neck and head; backprojection is the span between the
@@ -28,7 +32,10 @@ reports:
   loss (``indoor_targets``, the focal loss, the centerness BCE, the box
   loss -- rotated IoU-3D or, for ScanNet, axis-aligned IoU -- and for
   Total3D the layout head's loss; a piece called twice, as the IoU-3D loss
-  is with a layout head, counts both calls);
+  is with a layout head, counts both calls); for a DCN backbone (nuScenes)
+  the forward of every DCN (``dcn``) and, with ``--train``, their
+  backward, from each one's output gradient to its input gradient
+  (``dcn_backward``);
 * the device's busy share over the timed iterations, the top device
   kernels by self time and the device time of the port's own kernels, from
   ``torch.profiler``;
@@ -53,6 +60,7 @@ import torch
 from torch.autograd import DeviceType
 
 from ..configs.presets import get_preset
+from ..models.dcn import DeformConv2d
 from ..models.detector import build_model, imvoxelnet_predict
 from ..models.heads import imvoxel_heads as ivh
 from ..models.heads import layout_head as lh
@@ -106,6 +114,28 @@ def level_angle_head(model):
     if head is not None:
         with torch.no_grad():
             head.angle_mlp[-1].weight.mul_(0.01)
+
+
+def dcn_offsets(model, seed: int = SEED, pixels: float = 3.0):
+    """Seeded nonzero ``conv_offset`` weights for every DCN of ``model``.
+    The init's zeros make every offset 0 and every mask 0.5, a plain conv
+    at half strength; here the offsets' biases are uniform within
+    ``pixels``, their weights small (std ``0.1 / sqrt(fan_in)``), so that
+    the taps sample between pixels and some fall off the map, and the
+    masks' biases standard normal.  No-op without a DCN."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if not isinstance(mod, DeformConv2d):
+                continue
+            conv = mod.conv_offset
+            fan_in = conv.weight[0].numel()
+            w = torch.randn(conv.weight.shape, generator=gen) * (
+                0.1 / fan_in ** 0.5)
+            b = torch.cat([(torch.rand(18, generator=gen) * 2 - 1) * pixels,
+                           torch.randn(9, generator=gen)])
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
 
 
 def record(events, key):
@@ -170,6 +200,40 @@ def span_events(events, spans):
     return saved
 
 
+def dcn_events(model, events, backward: bool):
+    """CUDA events around each DCN's forward, listed under
+    ``events['dcn']``, and with ``backward`` from the gradient of its output
+    to that of its input, under ``events['dcn_backward']``."""
+    def timed(mod):
+        pair = {}
+
+        def pre(_mod, _args):
+            record(pair, 'start')
+
+        def post(_mod, args, out):
+            record(pair, 'end')
+            events.setdefault('dcn', []).append((pair['start'], pair['end']))
+            if not (backward and out.requires_grad
+                    and args[0].requires_grad):
+                return
+            grad = {}
+
+            def out_grad(_g):
+                record(grad, 'start')
+
+            def in_grad(_g):
+                record(grad, 'end')
+                events.setdefault('dcn_backward', []).append(
+                    (grad['start'], grad['end']))
+            out.register_hook(out_grad)
+            args[0].register_hook(in_grad)
+        return [mod.register_forward_pre_hook(pre),
+                mod.register_forward_hook(post)]
+
+    return [h for mod in model.modules() if isinstance(mod, DeformConv2d)
+            for h in timed(mod)]
+
+
 def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
              device='cuda'):
     """The preset's model (random weights from ``SEED``) and ``run()``, one
@@ -179,6 +243,7 @@ def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
     preset = get_preset(preset_name)
     cfg = dataclasses.replace(preset.model, compute_dtype=dtype)
     model = build_model(cfg, device=device, seed=SEED)
+    dcn_offsets(model)
     if train:
         batch = train_batch(preset.data, batch_size, device, seed=SEED,
                             layout=cfg.layout_head is not None)
@@ -242,18 +307,22 @@ def main(argv=None):
         handles += step_events(model, optimizer, events)
     pieces = loss_spans(preset.model) if args.train and indoor else ()
     saved = span_events(events, pieces)
+    sums = [name for name, _, _ in pieces]
+    if any(preset.model.stage_with_dcn):
+        handles += dcn_events(model, events, args.train)
+        sums += ['dcn', 'dcn_backward'] if args.train else ['dcn']
     spans = {k: [] for k in ('backbone', 'fpn', 'backprojection', 'neck_3d',
                              'head', 'total')}
     spans.update({k: [] for k in (
         ('forward', 'targets_loss', 'backward', 'optimizer') if args.train
         else ('decode_nms',))})
-    spans.update({name: [] for name, _, _ in pieces})
+    spans.update({name: [] for name in sums})
     try:
         walls = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(ITERS):
             t0 = time.perf_counter()
-            for name, _, _ in pieces:
+            for name in sums:
                 events[name] = []
             record(events, ('total', 'start'))
             run()
@@ -283,7 +352,7 @@ def main(argv=None):
                               e['total', 'end']))
             for span, a, b in pairs:
                 spans[span].append(a.elapsed_time(b))
-            for name, _, _ in pieces:
+            for name in sums:
                 spans[name].append(sum(a.elapsed_time(b) for a, b in e[name]))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:

@@ -2,7 +2,8 @@
 
 ``from_jax_variables`` is the inverse of the JAX package's reference
 converter (``imvoxelnet_tpu/utils/checkpoint.py``: ``convert_resnet50``,
-``convert_fpn``, ``convert_kitti_neck``, ``convert_imvoxel_neck``,
+``convert_fpn``, ``convert_kitti_neck`` (and ``convert_nuscenes_neck``, the
+same), ``convert_imvoxel_neck``,
 ``convert_fast_neck``, ``convert_anchor3d_head``, ``convert_indoor_head``,
 ``convert_layout_head``):
 it turns a ``{'params', 'batch_stats'}`` tree of numpy arrays into tensors
@@ -48,6 +49,9 @@ def _bn(sd, prefix, params, stats=None):
 
 
 def _backbone(sd, p, stage_blocks):
+    """A DCN stage's conv2 (``DeformConv2d``) carries its own ``kernel``
+    and a ``conv_offset`` conv with a bias (``convert_resnet50``'s
+    ``stage_with_dcn``)."""
     sd['backbone.conv1.weight'] = _conv(p['conv1']['kernel'])
     _bn(sd, 'backbone.bn1', p['bn1'])
     for stage, n_blocks in enumerate(stage_blocks, start=1):
@@ -57,6 +61,10 @@ def _backbone(sd, p, stage_blocks):
             for i in (1, 2, 3):
                 sd[f'{tb}.conv{i}.weight'] = _conv(blk[f'conv{i}']['kernel'])
                 _bn(sd, f'{tb}.bn{i}', blk[f'bn{i}'])
+            if 'conv_offset' in blk['conv2']:
+                off = blk['conv2']['conv_offset']
+                sd[f'{tb}.conv2.conv_offset.weight'] = _conv(off['kernel'])
+                sd[f'{tb}.conv2.conv_offset.bias'] = _t(off['bias'])
             if 'downsample_conv' in blk:
                 sd[f'{tb}.downsample.0.weight'] = _conv(
                     blk['downsample_conv']['kernel'])
@@ -191,14 +199,14 @@ def _layout_head(sd, p):
 def neck_state_dict(neck_cfg, params, stats) -> dict:
     """The ``neck_3d.*`` entries for the JAX neck's own variables."""
     sd = {}
-    if neck_cfg.kind == 'kitti':
+    if neck_cfg.kind in ('kitti', 'nuscenes'):
         _kitti_neck(sd, params, stats)
     elif neck_cfg.kind == 'imvoxel':
         _imvoxel_neck(sd, params, stats, neck_cfg)
     elif neck_cfg.kind == 'fast':
         _fast_neck(sd, params, stats, neck_cfg)
     else:
-        raise NotImplementedError(f'neck {neck_cfg.kind!r} is not ported')
+        raise ValueError(f'unknown neck {neck_cfg.kind!r}')
     return sd
 
 

@@ -24,6 +24,16 @@ around the room's middle looking at it, each view's extrinsic
 ``inv(axis_align @ pose)`` from a camera-to-world ``pose`` as the dataset
 builds it (``imvoxelnet_tpu/data/datasets.py:310-323``), intrinsics of
 ScanNet's 640x480 frames shared by the views, grid origin ``(0, 0, 0.5)``.
+
+nuScenes (:func:`nuscenes_batch`, :func:`nuscenes_train_batch`): the six
+cameras of the nuScenes ego at their published yaws (front, front right and
+left at -55 and 55 degrees, back, back left and right at 110 and -110), about
+1.5 m above the ground, in the lidar frame (x ahead, y left, z up; the lidar
+1.84 m up).  As the dataset passes them (``imvoxelnet_tpu/data/
+datasets.py:353-394``), each view's "extrinsic" is the whole ``lidar2img``
+matrix with an nuScenes-like intrinsic folded in, and the intrinsic is the
+identity; 1600x900 frames padded to 928, ``ratio`` 4, grid origin ``(0, 0,
+-1)``.
 """
 
 from __future__ import annotations
@@ -390,16 +400,141 @@ def scannet_train_batch(b: int, views: int, device='cuda', seed: int = 0,
     return batch
 
 
+NUSCENES_W, NUSCENES_H = 1600, 900         # camera frames
+NUSCENES_PAD_H = 928                        # padded to a multiple of 32
+NUSCENES_ORIGIN = (0.0, 0.0, -1.0)          # imvoxelnet_nuscenes.py:73
+POINT_CLOUD_RANGE = (-49.92, -49.92, -2.92, 49.92, 49.92, 0.92)
+# CAM_FRONT's focal length and principal point at 1600x900
+NUSCENES_F, NUSCENES_C = 1266.42, (816.27, 491.51)
+LIDAR_HEIGHT = 1.84
+# the dataset's camera order: (yaw in degrees, x, y, height) on the ego,
+# the lidar at (0.94, 0)
+NUSCENES_CAMERAS = (
+    (0.0, 1.70, 0.02, 1.51),        # CAM_FRONT
+    (-55.0, 1.55, -0.49, 1.50),     # CAM_FRONT_RIGHT
+    (55.0, 1.52, 0.49, 1.51),       # CAM_FRONT_LEFT
+    (180.0, 0.03, 0.00, 1.58),      # CAM_BACK
+    (110.0, 1.04, 0.48, 1.56),      # CAM_BACK_LEFT
+    (-110.0, 1.04, -0.48, 1.56),    # CAM_BACK_RIGHT
+)
+LIDAR_ON_EGO = (0.94, 0.0)
+
+
+def nuscenes_lidar2img(rng, scale: float = 1.0):
+    """The six views' ``(6, 4, 4)`` lidar2img matrices for frames scaled by
+    ``scale`` from 1600x900: each camera's yaw jittered by up to 1 degree
+    and its pitch by up to 0.5, its principal point by up to 2 pixels (off
+    the pixel grid)."""
+    out = np.zeros((len(NUSCENES_CAMERAS), 4, 4), np.float32)
+    for v, (yaw, x, y, z) in enumerate(NUSCENES_CAMERAS):
+        a = np.deg2rad(yaw + rng.uniform(-1.0, 1.0))
+        p = np.deg2rad(rng.uniform(-0.5, 0.5))
+        ahead = np.array([np.cos(a) * np.cos(p), np.sin(a) * np.cos(p),
+                          np.sin(p)])
+        right = np.array([np.sin(a), -np.cos(a), 0.0])
+        down = np.cross(ahead, right)
+        rot = np.stack([right, down, ahead])          # lidar -> camera
+        centre = np.array([x - LIDAR_ON_EGO[0], y - LIDAR_ON_EGO[1],
+                           z - LIDAR_HEIGHT])
+        rt = np.eye(4)
+        rt[:3, :3], rt[:3, 3] = rot, -rot @ centre
+        k = np.eye(4)
+        k[0, 0] = k[1, 1] = NUSCENES_F * scale
+        k[0, 2] = (NUSCENES_C[0] + rng.uniform(-2.0, 2.0)) * scale + 0.137
+        k[1, 2] = (NUSCENES_C[1] + rng.uniform(-2.0, 2.0)) * scale - 0.213
+        out[v] = k @ rt
+    return out
+
+
+def nuscenes_batch(b: int, device='cuda', seed: int = 0,
+                   size=(NUSCENES_W, NUSCENES_PAD_H)):
+    """A ``b``-sample, six-view nuScenes-like batch at padded image ``size
+    (W, H)``: frames of 1600x900 scaled to width ``W`` (``img_shape``),
+    padded with zeros to ``H``; per view the :func:`nuscenes_lidar2img`
+    matrix as the extrinsic, the identity as the intrinsic; ``ratio = 4``
+    (the frames are not resized)."""
+    rng = np.random.RandomState(seed)
+    w, h_pad = size
+    scale = w / NUSCENES_W
+    h = int(round(NUSCENES_H * scale))
+    ext = np.stack([nuscenes_lidar2img(rng, scale) for _ in range(b)])
+    images = rng.randn(b, len(NUSCENES_CAMERAS), h_pad, w, 3).astype(
+        np.float32)
+    images[:, :, h:] = 0.0
+    return dict(
+        images=torch.tensor(images, device=device),
+        intrinsics=torch.eye(3, device=device).repeat(b, 1, 1),
+        extrinsics=torch.tensor(ext, device=device),
+        origins=torch.tensor([NUSCENES_ORIGIN] * b, dtype=torch.float32,
+                             device=device),
+        img_shape=torch.tensor([[h, w]] * b, dtype=torch.int32,
+                               device=device),
+        ratios=torch.full((b,), 4.0, device=device),
+    )
+
+
+NUSCENES_CAR = (1.98, 4.67, 1.74)           # the preset's anchor size
+
+
+def nuscenes_cars(rng, b: int, max_gt: int, extent: float = 45.0):
+    """Padded GT of ``b`` samples: 8-32 cars each (at most ``max_gt``) of
+    about the anchor size, with centres within ``extent`` of the lidar in x
+    and y (inside ``POINT_CLOUD_RANGE`` for the preset's 45), at least 4 m
+    from it and 6 m from each other, bottoms on the ground (1.84 m below
+    the lidar) within 5 cm, yaws within 0.3 of 0, pi/2, pi or -pi/2 (away
+    from the extent swap at odd multiples of pi/4 and the direction bins'
+    edges at pi/4 and -3pi/4).
+
+    Returns numpy ``gt_boxes (b, max_gt, 7)`` float32 (bottom center,
+    padding zeros), ``gt_labels (b, max_gt)`` int32 (class 0) and
+    ``gt_mask`` bool."""
+    boxes = np.zeros((b, max_gt, 7), np.float32)
+    mask = np.zeros((b, max_gt), bool)
+    for s in range(b):
+        n = rng.randint(min(8, max_gt), min(32, max_gt) + 1)
+        centres = []
+        while len(centres) < n:
+            xy = rng.uniform(-extent, extent, 2)
+            if np.hypot(*xy) > 4.0 and all(
+                    np.hypot(*(xy - c)) > 6.0 for c in centres):
+                centres.append(xy)
+        for g, (x, y) in enumerate(centres):
+            yaw = np.pi / 2 * rng.randint(-1, 3) + rng.uniform(-0.3, 0.3)
+            size = np.array(NUSCENES_CAR) * np.exp(0.05 * rng.randn(3))
+            boxes[s, g] = (x, y, -LIDAR_HEIGHT + rng.uniform(-0.05, 0.05),
+                           *size, yaw)
+        mask[s, :n] = True
+    return boxes, np.zeros((b, max_gt), np.int32), mask
+
+
+def nuscenes_train_batch(b: int, device='cuda', seed: int = 0,
+                         size=(NUSCENES_W, NUSCENES_PAD_H), max_gt: int = 64,
+                         extent: float = 45.0):
+    """A ``b``-sample nuScenes training batch: :func:`nuscenes_batch`'s six
+    cameras at the preset's padded train size ``(W, H)`` with
+    :func:`nuscenes_cars` padded to ``max_gt``."""
+    rng = np.random.RandomState(seed + 1)
+    boxes, labels, mask = nuscenes_cars(rng, b, max_gt, extent)
+    batch = nuscenes_batch(b, device, seed=seed, size=size)
+    batch.update(gt_boxes=torch.tensor(boxes, device=device),
+                 gt_labels=torch.tensor(labels, device=device),
+                 gt_mask=torch.tensor(mask, device=device))
+    return batch
+
+
 def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0,
                   views: int = 1):
     """The synthetic serving batch of a preset's ``data.dataset``;
-    ``views`` (its ``data.n_images_test``) for ScanNet."""
+    ``views`` (its ``data.n_images_test``) for ScanNet (nuScenes has its
+    six cameras)."""
     if dataset == 'sunrgbd':
         return sunrgbd_batch(b, device, seed=seed)
     if dataset == 'kitti':
         return kitti_batch(b, device, seed=seed)
     if dataset == 'scannet':
         return scannet_batch(b, views, device, seed=seed)
+    if dataset == 'nuscenes':
+        return nuscenes_batch(b, device, seed=seed)
     raise NotImplementedError(f'no synthetic {dataset!r} batch')
 
 
@@ -419,5 +554,8 @@ def train_batch(data, b: int, device='cuda', seed: int = 0,
                                    n_classes=len(data.classes))
     if data.dataset == 'kitti':
         return kitti_train_batch(b, device, seed=seed, size=data.train_size)
+    if data.dataset == 'nuscenes':
+        return nuscenes_train_batch(b, device, seed=seed,
+                                    size=data.train_size, max_gt=data.max_gt)
     raise NotImplementedError(f'no synthetic {data.dataset!r} training '
                               f'batch')

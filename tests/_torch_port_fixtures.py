@@ -204,3 +204,30 @@ def recording(tx):
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
     return optax.chain(keep, tx)
+
+
+def tiny_nuscenes_cfgs():
+    """The same tiny ``imvoxelnet_nuscenes`` config in both packages (JAX,
+    port): ResNet stages (1, 1, 1, 1) with DCNv2 in stages 3-4, FPN 16,
+    16x16x12 voxels of 1.6 x 1.6 x 0.32 m around the ego (nz 12, so that
+    the nuScenes neck collapses z to 1 on an 8x8 map), the preset's head
+    with anchors over that grid, ``nms_pre`` 64 and ``max_out`` 16."""
+    import dataclasses
+
+    from imvoxelnet_tpu.configs import presets as jax_presets
+    from imvoxelnet_tpu_torch.configs import presets
+
+    out = []
+    for p in (jax_presets, presets):
+        full = p.get_preset('imvoxelnet_nuscenes').model
+        out.append(dataclasses.replace(
+            full, n_voxels=(16, 16, 12), voxel_size=(1.6, 1.6, 0.32),
+            fpn_out_channels=16, backbone_stage_blocks=(1, 1, 1, 1),
+            neck=dataclasses.replace(full.neck, in_channels=16,
+                                     out_channels=32),
+            anchor_head=dataclasses.replace(
+                full.anchor_head,
+                anchor_ranges=((-12.8, -12.8, -1.0, 12.8 - 3.2, 12.8 - 3.2,
+                                -1.0),),
+                nms_pre=64, max_out=16)))
+    return tuple(out)

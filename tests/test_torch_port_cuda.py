@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test skips without a CUDA device.  Small and ragged
-shapes here, the SUN RGB-D serving shapes and ScanNet's 20 and 50 views;
+shapes here, the SUN RGB-D serving shapes, ScanNet's 20 and 50 views and
+nuScenes' six views, block0 and decode (and its DCN on the card);
 ``chip_smoke.py`` covers the main paths' shapes with times.  This file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -17,6 +18,7 @@ from imvoxelnet_tpu_torch import kernels
 from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
 from imvoxelnet_tpu_torch.kernels import build
 from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
+from imvoxelnet_tpu_torch.core import coder
 from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.ops import backproject as bp
 from imvoxelnet_tpu_torch.ops import boxes as box_ops
@@ -25,7 +27,9 @@ from imvoxelnet_tpu_torch.configs.presets import get_preset
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.models.heads import layout_head as lh
-from imvoxelnet_tpu_torch.utils.synthetic import (scannet_batch,
+from imvoxelnet_tpu_torch.utils.synthetic import (NUSCENES_ORIGIN,
+                                                  nuscenes_lidar2img,
+                                                  scannet_batch,
                                                   sunrgbd_batch)
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import losses
@@ -637,6 +641,9 @@ def test_conv3x3x3_library_holds_tensor_core_instructions(cuda):
     ((2, 7, 9, 6, 64), torch.float32),
     ((1, 5, 130, 13, 64), torch.bfloat16),
     ((1, 11, 37, 12, 64), torch.bfloat16),
+    # nuScenes block0: the 4x8 tiling on a 78x39 grid
+    ((1, 312, 312, 12, 64), torch.bfloat16),
+    ((1, 312, 312, 12, 64), torch.float32),
 ])
 def test_conv3x3x3_function_matches_conv3d_autograd(cuda, shape, dtype):
     """The op on the card as the 3D neck calls it (an NCDHW volume in
@@ -989,3 +996,155 @@ def test_total3d_forward_with_predicted_extrinsics(cuda):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
     assert angles.shape == (2, 2) and layout.shape == (2, 7)
+
+
+# ---------------------------------------------------------------------------
+# nuScenes: six views at 1600x928, block0 312x312x12, the decode, the DCN
+# ---------------------------------------------------------------------------
+
+def _nuscenes_geometry(dev, seed=3):
+    """The preset's 1,168,128 voxel centres and the six views'
+    projections; features of 232 rows, of which ``valid_hw`` keeps 225 (900
+    of the frames' 928 padded rows)."""
+    cfg = get_preset('imvoxelnet_nuscenes').model
+    ext = torch.tensor(nuscenes_lidar2img(np.random.RandomState(seed))[None],
+                       device=dev)
+    proj = bp.compute_projection(torch.eye(3, device=dev)[None], ext,
+                                 torch.full((1,), 4.0, device=dev))
+    points = bp.get_points(cfg.n_voxels, cfg.voxel_size, torch.tensor(
+        [NUSCENES_ORIGIN], device=dev)).reshape(1, -1, 3).contiguous()
+    hw = torch.tensor([[225, 400]], dtype=torch.int32, device=dev)
+    return cfg, points, proj.contiguous(), hw
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_backproject_kernel_matches_plain_at_the_nuscenes_views(cuda, dtype):
+    """B1 over six views with different projections: counts exact (most
+    voxels seen, by one or two views), the float32 view sums bit for bit;
+    no voxel reads the 7 padded feature rows, though some project there."""
+    cfg, points, proj, hw = _nuscenes_geometry(cuda)
+    assert points.shape[1] == 1168128
+    rng = np.random.RandomState(1)
+    feats = torch.tensor(rng.randn(1, 6, 232, 400, cfg.fpn_out_channels),
+                         dtype=torch.float32, device=cuda).to(dtype)
+    acc, cnt = bp_kernel.backproject_batch(feats, points, proj, hw)
+    ref_acc, ref_cnt = bp.backproject_batch_plain(feats, points, proj, hw)
+    assert torch.equal(cnt, ref_cnt)
+    assert torch.equal(acc, ref_acc)
+    assert int(cnt.max()) == 2 and float((cnt > 0).float().mean()) > 0.8
+    idx, valid = bp._view_indices(points, proj, hw, 232, 400)
+    assert int((idx[valid] // 400).max()) == 224
+    _, uncropped = bp._view_indices(points, proj, torch.tensor(
+        [[232, 400]], dtype=torch.int32, device=cuda), 232, 400)
+    assert int(uncropped.sum()) > int(valid.sum())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_backproject_grad_kernel_matches_plain_at_the_nuscenes_views(cuda,
+                                                                     dtype):
+    """B1's backward at the six views: bit for bit against the plain version
+    run on CPU copies, a second launch repeats the first, every view gets a
+    gradient and the cropped rows none."""
+    cfg, points, proj, hw = _nuscenes_geometry(cuda)
+    rng = np.random.RandomState(2)
+    g = torch.tensor(rng.randn(points.shape[1], 1, cfg.fpn_out_channels),
+                     dtype=torch.float32, device=cuda).to(dtype)
+    got = bp_kernel.backproject_batch_grad(g, points, proj, hw, 232, 400)
+    again = bp_kernel.backproject_batch_grad(g, points, proj, hw, 232, 400)
+    ref = bp.backproject_batch_grad_plain(g.cpu(), points.cpu(), proj.cpu(),
+                                          hw.cpu(), 232, 400)
+    assert got.shape == (1, 6, 232, 400, cfg.fpn_out_channels)
+    assert _same_bits(got.cpu(), ref) and _same_bits(again, got)
+    assert bool((got.reshape(6, -1) != 0).any(1).all())
+    assert not got[:, :, 225:].any()
+
+
+def test_nuscenes_decode_kernels_match_plain(cuda, monkeypatch):
+    """The decode of the 156x156 map (a stable top-k of 1,000 of 48,672
+    anchors, rotated NMS at 0.2, 500 out): one mask and one scan launch,
+    no wait for the device, the plain path's result bit for bit; the mask
+    of the 1,000 candidates and its scan against their plain versions and
+    the fixpoint."""
+    cfg = get_preset('imvoxelnet_nuscenes').model.anchor_head
+    rng = np.random.RandomState(4)
+    a = cfg.num_anchors
+    logits = rng.permutation(np.linspace(-4.0, 4.0, 156 * 156 * a))
+    outs = tuple(torch.tensor(o.astype(np.float32), device=cuda) for o in (
+        logits.reshape(1, 156, 156, a), rng.randn(1, 156, 156, a * 7) * 0.3,
+        rng.randn(1, 156, 156, a * 2)))
+    a3d.anchor3d_head_get_bboxes(outs, cfg)      # builds, caches the anchors
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = a3d.anchor3d_head_get_bboxes(outs, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['rect_clip'] == 1 and counts['nms_scan'] == 1
+
+    anchors = a3d.head_anchors((156, 156), cfg, device=cuda)
+    _, ids = nms_ops.top_k(torch.sigmoid(outs[0].reshape(1, -1)),
+                           cfg.nms_pre)
+    boxes = coder.decode(anchors[ids[0]],
+                             outs[1].reshape(-1, 7)[ids[0]])[None]
+    bev = box_ops.bev(boxes)
+    corners = box_ops.bev_corners(bev).contiguous()
+    areas = (bev[..., 2] * bev[..., 3]).contiguous()
+    mask = clip_kernel.nms_dominance_mask(corners, areas, cfg.iou_thr)
+    assert mask.shape == (1, 1000, 32)
+    assert torch.equal(mask, iou_ops.nms_dominance_mask_plain(
+        corners, areas, cfg.iou_thr))
+    valid = torch.ones((1, 1000), dtype=torch.bool, device=cuda)
+    keep = clip_kernel.nms_scan(mask, valid)
+    assert torch.equal(keep, nms_ops.nms_scan_plain(mask, valid))
+    iou = iou_ops.iou_from_overlaps(
+        iou_ops.rect_intersection_area_pairwise_plain(corners, corners),
+        areas, areas)
+    assert torch.equal(keep, nms_ops.greedy_nms_from_iou_batched(
+        iou, areas, valid, cfg.iou_thr, presorted=True))
+    assert 0 < int(keep.sum()) < 1000
+
+    monkeypatch.setattr(nms_ops, 'rotated_nms_presorted',
+                        nms_ops.rotated_nms_presorted_plain)
+    ref = a3d.anchor3d_head_get_bboxes(outs, cfg)
+    assert int(res['valid'].sum()) == min(int(keep.sum()), cfg.max_out)
+    for key in ('valid', 'labels', 'boxes', 'scores'):
+        assert torch.equal(res[key], ref[key]), key
+
+
+def test_deform_conv_on_the_card_matches_the_cpu(cuda):
+    """The DCN (stride 1 and 2, nonzero offsets of a few pixels, some taps
+    off the map) on the card against the same module on the CPU at
+    float32: forward and the gradients of x, the kernel and
+    ``conv_offset``."""
+    from imvoxelnet_tpu_torch.models.dcn import DeformConv2d
+    from imvoxelnet_tpu_torch.tools.profile_forward import dcn_offsets
+
+    rng = np.random.RandomState(7)
+    for stride in (1, 2):
+        mod = DeformConv2d(32, 24, stride)
+        dcn_offsets(mod, seed=stride)
+        x0 = torch.tensor(rng.randn(3, 32, 20, 30), dtype=torch.float32)
+        outs = {}
+        for dev in ('cpu', cuda):
+            m = mod.to(dev)
+            x = x0.to(dev).contiguous(
+                memory_format=torch.channels_last).requires_grad_()
+            m.zero_grad()
+            y = m(x)
+            r = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+            (y * r).sum().backward()
+            outs[str(dev)] = [t.detach().cpu() for t in (
+                y, x.grad, m.weight.grad, m.conv_offset.weight.grad,
+                m.conv_offset.bias.grad)]
+        with torch.no_grad():
+            offset, _ = mod.to('cpu').offsets_and_masks(x0)
+        assert 1.0 < float(offset.abs().max()) < 5.0
+        for name, got, want in zip(('y', 'dx', 'dw', 'doffset_w',
+                                    'doffset_b'), outs['cuda'],
+                                   outs['cpu']):
+            scale = want.abs().max().item()
+            assert scale > 0, name
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale,
+                                       msg=lambda m: f'{name}: {m}')

@@ -512,6 +512,7 @@ def test_conv_tile_plan_covers_every_site_once(nx, ny, nz):
 @pytest.mark.parametrize('shape,tile', [
     ((216, 248, 12), None),          # KITTI block0
     ((216, 248, 12), (4, 8)),
+    ((312, 312, 12), None),          # nuScenes block0
     ((7, 9, 6), (2, 3)),
     ((5, 130, 13), None),
     ((3, 4, 16), (1, 1)),
@@ -522,6 +523,16 @@ def test_conv_tile_plan_shapes(shape, tile):
         assert (plan.tx, plan.ty) == tile
     assert (_plan_sites(plan, *shape) == 1).all()
     assert plan.n_groups <= conv_kernel.MAX_GROUPS
+
+
+def test_conv_tile_plan_at_the_nuscenes_block0():
+    """nuScenes' 312x312x12 block0 takes 4x8 tiles on a 78x39 grid, in
+    136,264 B of shared memory (KITTI's 216x248x12: 2x18 on 108x14)."""
+    plan = conv_kernel.tile_plan(312, 312, 12)
+    assert (plan.tx, plan.ty, plan.grid) == (4, 8, (78, 39))
+    assert plan.smem_bytes == 136264 <= conv_kernel.SMEM_LIMIT
+    kitti = conv_kernel.tile_plan(216, 248, 12)
+    assert (kitti.tx, kitti.ty, kitti.grid) == (2, 18, (108, 14))
 
 
 def test_conv_tile_plan_refuses_what_does_not_fit():

@@ -25,13 +25,15 @@ PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test', 'imvoxelnet_sunrgbd',
                 'imvoxelnet_perspective_sunrgbd_fast',
                 'imvoxelnet_total_sunrgbd', 'imvoxelnet_total_sunrgbd_top27',
                 'imvoxelnet_total_sunrgbd_fast', 'imvoxelnet_scannet',
-                'imvoxelnet_scannet_top27', 'imvoxelnet_scannet_fast')
+                'imvoxelnet_scannet_top27', 'imvoxelnet_scannet_fast',
+                'imvoxelnet_nuscenes')
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """A tiny forward + decode, a training step, a tiny SUN RGB-D forward
-    + decode, a tiny Total3D one (predicted extrinsics) and a tiny 3-view
-    ScanNet one in a fresh interpreter leave every ``jax*`` and ``flax*``
+    + decode, a tiny Total3D one (predicted extrinsics), a tiny 3-view
+    ScanNet one and a tiny six-view nuScenes one (DCN backbone) in a fresh
+    interpreter leave every ``jax*`` and ``flax*``
     module and every
     ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
     (``imvoxelnet_tpu_torch`` shares the prefix, hence the exact-name
@@ -117,6 +119,26 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             assert len(outs) == (3 if views == 1 else 2)
             assert tres['boxes'].shape == (1, 16, 7)
             assert ('layout' in tres) == (views == 1)
+        # and a tiny six-view nuScenes forward + decode (DCN in stages 3-4,
+        # the nuScenes neck)
+        full = get_preset('imvoxelnet_nuscenes').model
+        ncfg = dataclasses.replace(
+            full, n_voxels=(16, 16, 12), voxel_size=(1.6, 1.6, 0.32),
+            fpn_out_channels=16, backbone_stage_blocks=(1, 1, 1, 1),
+            neck=dataclasses.replace(full.neck, in_channels=16,
+                                     out_channels=32),
+            anchor_head=dataclasses.replace(
+                full.anchor_head,
+                anchor_ranges=((-12.8, -12.8, -1.0, 9.6, 9.6, -1.0),),
+                nms_pre=64, max_out=16))
+        nmodel = build_model(ncfg, device='cpu', seed=0)
+        nbatch = synthetic.nuscenes_batch(1, 'cpu', seed=0, size=(96, 64))
+        with torch.no_grad():
+            nhead, nvalid = nmodel(nbatch)
+            nres = imvoxelnet_predict(ncfg, nhead)
+        assert nhead[0].shape == (1, 8, 8, 2)
+        assert nres['boxes'].shape == (1, 16, 7)
+        assert 0 < float(nvalid.float().mean()) < 1
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0].startswith(('jax', 'flax', 'optax'))
                      or m == 'imvoxelnet_tpu'
@@ -134,9 +156,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 # JAX config fields the port leaves to later slices, with the values every
 # ported preset must hold for them.
 _JAX_ONLY = {
-    'ImVoxelNetConfig': dict(axis_name=None, dp_loss_norm='per_image',
-                             stage_with_dcn=(False,) * 4,
-                             view_shard_axis=None),
+    'ImVoxelNetConfig': dict(axis_name=None, view_shard_axis=None),
 }
 
 
@@ -188,7 +208,7 @@ def _randomize_bn(model, rng):
 # the Total3D ones from the votenet ones in the layout head
 @pytest.mark.parametrize('name', PRESET_NAMES[:5] + (
     'imvoxelnet_total_sunrgbd', 'imvoxelnet_scannet',
-    'imvoxelnet_scannet_fast'))
+    'imvoxelnet_scannet_fast', 'imvoxelnet_nuscenes'))
 def test_state_dict_round_trip_through_the_jax_converter(name):
     """port state_dict -> convert_reference_checkpoint(strict) ->
     from_jax_variables gives the same state_dict back, key for key."""

@@ -88,13 +88,41 @@ Phases, each failing the run on its own error:
                 forward and dx, the NMS mask + scan at one group of 1,000);
                 serving b=1 float32 held against the plain path (every
                 score tied at 0.5, so that the decode's order is the stable
-                top-k's index order on both paths) and b=1 bfloat16 timed
-                with a decode that must not wait for the device; one b=1
+                top-k's index order on both paths; then the head's raw
+                outputs untied, cls, bbox and dir within 2e-3 of their
+                max-abs, with the score gap at the 1,000th candidate and
+                whether both paths pick the same 1,000 anchors) and b=1
+                bfloat16 timed with a decode that must not wait for the
+                device; one b=1
                 float32 training step held against the plain path (the DCN
                 and conv_offset gradients named); two float32 steps from one
                 state with cudnn.deterministic, whose gradients must repeat
                 bit for bit; 5 timed b=1 bfloat16 steps and one that must
                 not wait for the device; launches asserted.
+  10. eval  -- the evaluation path through imvoxelnet_tpu_torch.tools.test:
+                splits of every family written to a temporary directory (PNG
+                frames at the datasets' sizes, info files in their schemas)
+                and seeded reference-style checkpoints; every run's launches
+                asserted (per batch, plus the indoor protocol's pairwise
+                clip once per image with detections and GT, and Total3D's
+                layout_ious once); imvoxelnet_kitti on 32 frames of 1242x375
+                (b=8 bfloat16; the reference's metric names, the GT as the
+                prediction at the protocol's ceiling; the loader alone at 1
+                and 8 workers, run_inference end to end over 4 and over 32
+                batches (the split listed 8 times) and under the profiler for
+                the card's busy share, the forward + decode alone on the
+                same batches on the card); imvoxelnet_sunrgbd on 16 frames
+                of 730x530 (b=8 bfloat16; the protocol's IoUs through the
+                clip's pairwise entry on the card against the plain clip on
+                the CPU, the GT as the prediction at mAP 1);
+                imvoxelnet_total_sunrgbd_fast on 4 frames (layout_iou through
+                the pairwise entry, the GT layout at 1);
+                imvoxelnet_scannet_fast on one scene of 50 views and
+                imvoxelnet_nuscenes on two samples of six 1600x900 views
+                (NDS of the GT as the prediction at 1).  The port must not
+                import cv2, PIL, ml_dtypes or JAX on this path; where the
+                machine has cv2, a separate interpreter holds the port's
+                PNG decode and resize to it bit for bit.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -103,18 +131,28 @@ from a seed.  Needs a CUDA device; imports no JAX.
 import contextlib
 import copy
 import dataclasses
+import io
 import json
+import os
+import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 from imvoxelnet_tpu_torch import kernels
-from imvoxelnet_tpu_torch.configs.presets import get_preset
+from imvoxelnet_tpu_torch.configs.presets import apply_overrides, get_preset
+from imvoxelnet_tpu_torch.data import datasets
+from imvoxelnet_tpu_torch.data import loader as loader_lib
+from imvoxelnet_tpu_torch.eval import indoor_eval, kitti_eval, nuscenes_eval
+from imvoxelnet_tpu_torch.eval import runner
 from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
 from imvoxelnet_tpu_torch.kernels import build
 from imvoxelnet_tpu_torch.kernels import conv3x3x3 as conv_kernel
@@ -133,9 +171,11 @@ from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
+from imvoxelnet_tpu_torch.tools import test as test_tool
 from imvoxelnet_tpu_torch.tools.profile_forward import (dcn_offsets,
                                                         level_angle_head,
                                                         zero_cls_bias)
+from imvoxelnet_tpu_torch.utils import synthetic_splits as splits
 from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
                                                   kitti_train_batch,
@@ -1329,6 +1369,47 @@ def tied_scores(model):
             conv.weight.copy_(saved)
 
 
+def compare_head_outputs(tag, model, cfg, batch):
+    """The anchor head's raw outputs, scores untied, through the kernels
+    and through the plain path (same model, same batch): ``cls_score``,
+    ``bbox_pred`` and ``dir_pred`` each within 2e-3 of its max-abs.  Logs
+    the gap between the ``nms_pre``-th and the next score of each path's
+    stable descending sort, and whether both paths put the same anchors
+    above it (how many differ if not)."""
+    with torch.no_grad():
+        outs, _ = model(batch)
+        with plain_path():
+            ref, _ = model(batch)
+    torch.cuda.synchronize()
+    head = {}
+    for key, got, want in zip(('cls_score', 'bbox_pred', 'dir_pred'), outs,
+                              ref):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > 2e-3 * scale:
+            raise AssertionError(f'{tag}: {key} differs from the plain path '
+                                 f'by {err:.3g} (max-abs {scale:.3g})')
+        head[key] = dict(max_abs_err=err, max_abs=scale,
+                         relative=err / scale)
+    k = cfg.anchor_head.nms_pre
+
+    def ranked(cls_score):
+        scores = torch.sigmoid(cls_score.reshape(
+            cls_score.shape[0], -1, cfg.anchor_head.num_classes)).amax(-1)[0]
+        return torch.sort(scores, descending=True, stable=True)
+
+    vals, idx = ranked(outs[0])
+    ref_vals, ref_idx = ranked(ref[0])
+    common = len(set(idx[:k].tolist()) & set(ref_idx[:k].tolist()))
+    out = dict(head=head, k=k, n_anchors=int(vals.numel()),
+               kth_score=float(vals[k - 1]),
+               gap_at_k=float(vals[k - 1] - vals[k]),
+               plain_gap_at_k=float(ref_vals[k - 1] - ref_vals[k]),
+               same_top_k=common == k, top_k_differing=k - common)
+    log(f'{tag} untied head vs plain path: {json.dumps(out)}')
+    return out
+
+
 def serve_vs_plain(name, b1, b_timed, launches, tie=False):
     """Preset ``name`` served at full width and depth: ``b1`` (a b=1
     batch) float32 through the kernels against the plain path, then
@@ -1337,7 +1418,8 @@ def serve_vs_plain(name, b1, b_timed, launches, tie=False):
     float32 comparison with :func:`tied_scores`, for a decode whose
     random-weight candidates' scores may lie closer together than the
     float32 kernel path's rounding moves them (nuScenes: 1,000 of 48,672
-    anchors, against 100 on KITTI)."""
+    anchors, against 100 on KITTI); then the head's raw outputs untied
+    (:func:`compare_head_outputs`)."""
     cfg = get_preset(name).model
     model = build_model(cfg, device='cuda', seed=SEED)
     zero_cls_bias(model)
@@ -1346,6 +1428,9 @@ def serve_vs_plain(name, b1, b_timed, launches, tie=False):
     with tied_scores(model) if tie else contextlib.nullcontext():
         c1, res1 = compare_with_plain_path(f'{name} b=1 float32', model,
                                            cfg, b1)
+    if tie:
+        res1['untied_head_outputs'] = compare_head_outputs(
+            f'{name} b=1 float32', model, cfg, b1)
     cfg16 = dataclasses.replace(cfg, compute_dtype='bfloat16')
     model16 = build_model(cfg16, device='cuda', seed=SEED)
     model16.load_state_dict(model.state_dict())
@@ -1863,6 +1948,530 @@ def nuscenes_kernel_rows(rng):
     return rows, logged
 
 
+# --------------------------------------------------------------------------
+# phase 10: the evaluation path (tools/test.py on splits written to disk)
+# --------------------------------------------------------------------------
+
+# the launches of one forward batch: B1 once, B3 twice on the KITTI and
+# nuScenes necks, the clip's NMS-mask entry where the NMS is rotated
+# (ScanNet's is axis-aligned) and the scan once
+_BATCH = dict(backproject=1, backproject_grad=0, rect_clip=1,
+              rect_clip_grad=0, nms_scan=1)
+EVAL_BATCH_LAUNCHES = {
+    'kitti': dict(_BATCH, conv3x3x3=2),
+    'sunrgbd': dict(_BATCH, conv3x3x3=0),
+    'total3d': dict(_BATCH, conv3x3x3=0),
+    'scannet': dict(_BATCH, conv3x3x3=0, rect_clip=0),
+    'nuscenes': dict(_BATCH, conv3x3x3=2),
+}
+# the 8x-listed KITTI split, for run_inference's steady state
+EVAL_KITTI_REPEAT = 8
+# preset, split writer, its arguments, batch size
+EVAL_SPLITS = {
+    'kitti': ('imvoxelnet_kitti', splits.kitti_split, dict(n=32), 8),
+    'sunrgbd': ('imvoxelnet_sunrgbd', splits.sunrgbd_split, dict(n=16), 8),
+    'total3d': ('imvoxelnet_total_sunrgbd_fast', splits.sunrgbd_split,
+                dict(n=4, n_classes=33, total3d=True), 4),
+    'scannet': ('imvoxelnet_scannet_fast', splits.scannet_split,
+                dict(n_scenes=1, views=50), 1),
+    'nuscenes': ('imvoxelnet_nuscenes', splits.nuscenes_split, dict(n=2),
+                 1),
+}
+BF16 = 'model.compute_dtype=bfloat16'
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def card_modules():
+    """Which of cv2, PIL and ml_dtypes this machine has (each imported in a
+    fresh interpreter, so that none enters this one)."""
+    out = {}
+    for name in ('cv2', 'PIL', 'ml_dtypes'):
+        proc = subprocess.run(
+            [sys.executable, '-c', f'import {name}; print(getattr({name}, '
+             f'"__version__", "present"))'], capture_output=True, text=True)
+        out[name] = (proc.stdout.strip() if proc.returncode == 0 else
+                     'missing: ' + (proc.stderr.strip().splitlines() or
+                                    ['?'])[-1])
+    return out
+
+
+def write_splits(root):
+    """Every family's split under ``root``, written in parallel:
+    ``{key: (data_root, ann_file)}``."""
+    def write(key):
+        data_root = os.path.join(root, key)
+        _, writer, kwargs, _ = EVAL_SPLITS[key]
+        return data_root, writer(data_root, seed=SEED, **kwargs)
+    with ThreadPoolExecutor(len(EVAL_SPLITS)) as pool:
+        futures = {k: pool.submit(write, k) for k in EVAL_SPLITS}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def eval_weights(name, path):
+    """The preset's seeded weights as a reference-style checkpoint
+    (``{'state_dict': ...}``), with the cls bias at 0 (detections pass the
+    score threshold), a level Total3D angle head and nonzero DCN offsets."""
+    model = build_model(get_preset(name).model, device='cpu', seed=SEED)
+    zero_cls_bias(model)
+    level_angle_head(model)
+    dcn_offsets(model)
+    torch.save({'state_dict': model.state_dict(),
+                'meta': {'seed': SEED}}, path)
+
+
+def protocol_clip_calls(key, dataset, results):
+    """The clip's pairwise launches that the split's protocol makes: one per
+    image with detections and GT (indoor), one for ``layout_ious``
+    (Total3D); KITTI's overlaps are on the host, nuScenes' are distances."""
+    if key in ('kitti', 'nuscenes'):
+        return dict(per_image=0, layout=0)
+    gt = runner._gt_annos(dataset)
+    return dict(per_image=sum(len(r['boxes']) > 0 and len(g['boxes']) > 0
+                              for r, g in zip(results, gt)),
+                layout=int(key == 'total3d'))
+
+
+def run_test_tool(key, split, pth, workers=8):
+    """``imvoxelnet_tpu_torch.tools.test``'s ``main`` on a split, bfloat16,
+    with the kernels' launch counts over the run, asserted: a forward
+    batch's launches per batch, and the protocol's pairwise clip calls
+    (:func:`protocol_clip_calls`).  The tool's printout is kept out of the
+    log."""
+    name, _, _, batch = EVAL_SPLITS[key]
+    args = [name, '--data-root', split[0], '--ann-file', split[1],
+            '--torch-checkpoint', pth, '--batch-size', str(batch),
+            '--num-workers', str(workers), '--override', BF16]
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = test_tool.main(args)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    metrics = summary['metrics']
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or not metrics:
+        raise AssertionError(f'{key}: non-finite metrics {bad}')
+    dataset, _ = runner.build_val_dataset(get_preset(name), name, *split)
+    calls = protocol_clip_calls(key, dataset, summary['results'])
+    want = {k: v * summary['n_batches']
+            for k, v in EVAL_BATCH_LAUNCHES[key].items()}
+    want['rect_clip'] += calls['per_image'] + calls['layout']
+    assert_launches(f'eval {key}', counts, want)
+    log(f'eval {key}: {name} {summary["n_samples"]} samples in '
+        f'{summary["n_batches"]} batches of {batch}: inference '
+        f'{summary["inference_s"]:.3f} s, protocol {summary["eval_s"]:.3f} '
+        f's, {sum(len(r["scores"]) for r in summary["results"])} '
+        f'detections; launches {json.dumps(counts)}')
+    return summary, counts, calls
+
+
+def gt_as_prediction(dataset, kitti=False):
+    """The GT of each sample as its detections, each with its own score;
+    KITTI's boxes with the yaw that the conversion's -pi hack undoes."""
+    out, n = [], 0
+    for i in range(len(dataset.data_infos)):
+        ann = dataset.get_ann_info(i)
+        boxes = ann['gt_bboxes_3d'].copy()
+        if kitti:
+            boxes[:, 6] += np.pi
+        scores = 0.9 - 1e-4 * np.arange(n, n + len(boxes))
+        n += len(boxes)
+        out.append(dict(boxes=boxes, labels=ann['gt_labels_3d'],
+                        scores=scores.astype(np.float32)))
+    return out
+
+
+def busy_share(prof, wall_ms):
+    """The share of ``wall_ms`` in which the card ran a kernel: the union of
+    the kernels' intervals (copies and memsets left out) from the trace,
+    and the sum of their times as ``key_averages`` gives it."""
+    spans = sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation
+        and not ev.name.startswith(('Memcpy', 'Memset')))
+    union, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not ev.is_user_annotation
+                and not ev.key.startswith(('Memcpy', 'Memset')))
+    return dict(union=union / 1e3 / wall_ms, summed=total / 1e3 / wall_ms,
+                kernels=len(spans))
+
+
+def repeated_split(split, times):
+    """The split's info file listed ``times`` over, beside it."""
+    data_root, ann_file = split
+    path = ann_file.replace('.pkl', f'_x{times}.pkl')
+    with open(path, 'wb') as f:
+        pickle.dump(datasets.load_infos(ann_file) * times, f)
+    return data_root, path
+
+
+def timed_inference(model, cfg, loader, n, profile=False):
+    """One ``run_inference`` epoch: seconds on the host clock to the last
+    result, and with ``profile`` the card's busy share of them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with (torch.profiler.profile(activities=acts) if profile
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        runner.run_inference(model, cfg, loader, n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return seconds, (busy_share(prof, seconds * 1e3) if profile else None)
+
+
+def kitti_eval_timing(split, pth):
+    """imvoxelnet_kitti's serving from files, b=8 bfloat16, on the split (4
+    batches) and on it listed ``EVAL_KITTI_REPEAT`` times (32 batches): the
+    loader alone at 1 and 8 workers, ``run_inference`` warm (host clock to
+    the last result) and under the profiler (the card's busy share), and
+    the forward + decode alone on the long epoch's batches already on the
+    card.  The two epochs' difference is the steady state: its frames/s,
+    its busy share, and the fill + drain seconds that the short epoch
+    holds beyond its batches at that rate."""
+    name = EVAL_SPLITS['kitti'][0]
+    preset = apply_overrides(get_preset(name), [BF16])
+    cfg = preset.model
+    long_split = repeated_split(split, EVAL_KITTI_REPEAT)
+    out = dict(cpu_count=os.cpu_count())
+    for workers in (1, 8):
+        _, loader = runner.build_val_dataset(preset, name, *long_split,
+                                             num_workers=workers,
+                                             batch_size=8)
+        t0 = time.perf_counter()
+        n = sum(b['images'].shape[0] for b in loader.epoch(0))
+        out[f'loader_frames_per_s_{workers}_workers'] = n / (
+            time.perf_counter() - t0)
+    model = build_model(cfg, device='cpu', seed=SEED)
+    test_tool.load_reference_checkpoint(model, pth)
+    model.to('cuda')
+    epochs = {}
+    for key, sp in (('short', split), ('long', long_split)):
+        dataset, loader = runner.build_val_dataset(preset, name, *sp,
+                                                   num_workers=8,
+                                                   batch_size=8)
+        epochs[key] = (loader, len(dataset.data_infos))
+    timed_inference(model, cfg, *epochs['short'])          # warm
+    wall, busy = {}, {}
+    for key in ('short', 'long'):
+        wall[key], _ = timed_inference(model, cfg, *epochs[key])
+        out[f'run_inference_frames_per_s_{key}'] = epochs[key][1] / wall[key]
+    for key in ('short', 'long'):
+        seconds, busy[key] = timed_inference(model, cfg, *epochs[key],
+                                             profile=True)
+        out[f'profiled_frames_per_s_{key}'] = epochs[key][1] / seconds
+        out[f'busy_share_{key}'] = busy[key]
+        busy[key] = (busy[key]['union'] * seconds, seconds)
+    n_short, n_long = epochs['short'][1], epochs['long'][1]
+    per_frame = (wall['long'] - wall['short']) / (n_long - n_short)
+    out['steady_frames_per_s'] = 1 / per_frame
+    out['fill_drain_s'] = wall['short'] - n_short * per_frame
+    out['fill_drain_share_of_long'] = out['fill_drain_s'] / wall['long']
+    out['steady_busy_share'] = ((busy['long'][0] - busy['short'][0])
+                                / (busy['long'][1] - busy['short'][1]))
+    loader, n = epochs['long']
+    batches = [loader_lib.to_device(b, 'cuda') for b in loader.epoch(0)]
+    runner.forward(model, cfg, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        runner.forward(model, cfg, b)
+    torch.cuda.synchronize()
+    out['forward_decode_frames_per_s'] = n / (time.perf_counter() - t0)
+    out['frames'] = dict(short=n_short, long=n_long)
+    del model, batches
+    log(f'eval kitti serving from files: {json.dumps(out)}')
+    return out
+
+
+CV2_CHECK = r"""
+import json, os, sys
+import numpy as np
+try:
+    import cv2
+except ImportError as e:
+    print(json.dumps({'cv2': f'missing: {e}'}))
+    sys.exit(0)
+from imvoxelnet_tpu_torch.data import image_io
+from imvoxelnet_tpu_torch.utils.synthetic import write_png
+paths, resizes, tmp = json.loads(sys.argv[1])
+rng = np.random.RandomState(0)
+for c in (1, 2, 3, 4):
+    img = rng.randint(0, 256, (37, 53, c)).astype(np.uint8)
+    paths.append(os.path.join(tmp, f'port_{c}.png'))
+    write_png(paths[-1], img[..., 0] if c == 1 else img)
+    if c != 2:
+        paths.append(os.path.join(tmp, f'libpng_{c}.png'))
+        cv2.imwrite(paths[-1], img[..., 0] if c == 1 else img)
+out = dict(cv2=cv2.__version__, decoded=0, resized=0, pixels=0)
+for path in paths:
+    ref = cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]
+    got = image_io.load_image(path)
+    if got.shape != ref.shape or (got != ref).any():
+        sys.exit(f'{path}: load_image differs from cv2.imread')
+    out['decoded'] += 1
+for path, factor in resizes:
+    img = image_io.load_image(path)
+    got = image_io.imresize(img, factor)
+    ref = cv2.resize(img, got.shape[1::-1], interpolation=cv2.INTER_LINEAR)
+    if got.shape != (int(img.shape[0] * factor + 0.5),
+                     int(img.shape[1] * factor + 0.5), 3) or (
+            got != ref).any():
+        sys.exit(f'{path} x {factor}: imresize differs from cv2.resize')
+    out['resized'] += 1
+    out['pixels'] += got.size
+print(json.dumps(out))
+"""
+# a frame of each split and its test resize (the KITTI train scales'
+# extremes on the KITTI frame; ScanNet's and nuScenes' are identities)
+CV2_RESIZES = {'kitti': (1.024, min(1173 / 1242, 352 / 375),
+                         min(1387 / 1242, 416 / 375)),
+               'sunrgbd': (min(640 / 730, 480 / 530),),
+               'scannet': (1.0,), 'nuscenes': (1.0,)}
+
+
+def check_image_io_against_cv2(data):
+    """Where this machine has cv2: the port's PNG decode and resize against
+    it, bit for bit, in a separate interpreter (cv2 never enters this one):
+    frames of the splits (the port's writer), the port's and libpng's files
+    of 1-4 channels, and each split's test resize."""
+    paths, resizes = [], []
+    for key, factors in CV2_RESIZES.items():
+        frames = sorted(
+            os.path.join(d, f) for d, _, files in os.walk(data[key][0])
+            for f in files if f.endswith(('.png', '.jpg')))[:2]
+        paths += frames
+        resizes += [(frames[0], f) for f in factors]
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, '-c', CV2_CHECK,
+             json.dumps([paths, resizes, tmp])],
+            capture_output=True, text=True, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f'eval: image_io against cv2: '
+                             f'{proc.stderr.strip()[-2000:]}')
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f'eval: image_io against this machine\'s cv2: {json.dumps(out)}')
+    return out
+
+
+def kitti_ap_ceiling(infos, difficulty):
+    """The 11-point AP of a perfect detector on these GT: the protocol
+    fills ``T = len(get_thresholds)`` recall positions (at most 41), so it
+    reaches ``ceil(T / 4) / 11 * 100``."""
+    empty = dict(name=np.array([]), bbox=np.zeros((0, 4)))
+    n = sum(kitti_eval.clean_data(info['annos'], empty, 0, difficulty)[0]
+            for info in infos)
+    t = len(kitti_eval.get_thresholds(np.linspace(0.9, 0.5, n), n))
+    return 100.0 * len(range(0, t, 4)) / 11
+
+
+def check_kitti_eval(summary, split):
+    """The reference's metric names, and the GT as the prediction at the
+    protocol's ceiling (AOS too)."""
+    names = {f'KITTI/Car_{t}_{d}' for t in ('BBOX', 'BEV', '3D')
+             for d in ('easy', 'moderate', 'hard')}
+    missing = names - set(summary['metrics'])
+    if missing:
+        raise AssertionError(f'eval kitti: metrics missing {sorted(missing)}')
+    dataset, _ = runner.build_val_dataset(
+        get_preset(EVAL_SPLITS['kitti'][0]), 'imvoxelnet_kitti', *split)
+    t0 = time.perf_counter()
+    dt = kitti_eval.convert_to_kitti_annos(gt_as_prediction(dataset, True),
+                                           dataset.data_infos, ('Car',))
+    gt = [info['annos'] for info in dataset.data_infos]
+    metrics = kitti_eval.kitti_eval(gt, dt, ['Car'],
+                                    eval_types=('bbox', 'bev', '3d', 'aos'))
+    seconds = time.perf_counter() - t0
+    for d, diff in enumerate(('easy', 'moderate', 'hard')):
+        ceiling = kitti_ap_ceiling(dataset.data_infos, d)
+        got = metrics[f'KITTI/Car_3D_{diff}']
+        if abs(got - ceiling) > 1e-6 or f'KITTI/Car_AOS_{diff}' not in \
+                metrics:
+            raise AssertionError(f'eval kitti: GT as prediction 3D {diff} '
+                                 f'{got} != ceiling {ceiling}, or no AOS')
+    out = {k: metrics[f'KITTI/Car_{k}'] for k in
+           ('3D_easy', '3D_moderate', '3D_hard', 'AOS_moderate')}
+    log(f'eval kitti: GT as prediction {json.dumps(out)} '
+        f'({seconds:.3f} s of protocol)')
+    return out
+
+
+def pairwise_row(c1, c2, shape, launches):
+    """A ``kernels`` row of the clip's pairwise entry on ``(G, N, 4, 2)``
+    and ``(G, M, 4, 2)`` corners, against its plain version."""
+    got = clip_kernel.rect_intersection_area_pairwise(c1, c2)
+    ref = iou_ops.rect_intersection_area_pairwise_plain(c1, c2)
+    torch.cuda.synchronize()
+    assert_same_bits(f'rect_clip pairwise {shape}', got, ref)
+    g, n, m = got.shape
+    row = clip_row(
+        'rect_clip', CLIP_REPLACES, f'pairwise, {shape}, {g * n * m} pairs '
+        f'float32',
+        time_ms(lambda: clip_kernel.rect_intersection_area_pairwise(c1, c2),
+                SMALL_REPS, queue_us=QUEUE_US),
+        time_ms(lambda: iou_ops.rect_intersection_area_pairwise_plain(
+            c1, c2), 5),
+        nbytes(c1, c2, got), g * n * m * CLIP_FLOPS,
+        launch_bound_ms=time_ms(
+            lambda: clip_kernel.rect_intersection_area_pairwise(c1, c2),
+            SMALL_REPS))
+    row['eval_launches'] = launches
+    return row
+
+
+def corners_of(boxes):
+    return box_ops.bev_corners(box_ops.bev(torch.as_tensor(
+        np.asarray(boxes, np.float32), device='cuda')))
+
+
+def check_indoor_eval(summary, calls, split):
+    """The SUN RGB-D protocol on the card (the clip's pairwise entry, one
+    launch per image with detections and GT: ``calls``, asserted in the
+    test tool's run) against the same call on CPU tensors (the plain clip):
+    IoU matrices within 1e-5, metrics within 1e-6; the GT as the
+    prediction at mAP 1.  Returns the pairwise entry's row at the largest
+    image's shape, with the run's launches."""
+    name = EVAL_SPLITS['sunrgbd'][0]
+    preset = get_preset(name)
+    dataset, _ = runner.build_val_dataset(preset, name, *split)
+    gt = runner._gt_annos(dataset)
+    results = summary['results']
+    launches = calls['per_image']
+    ious = indoor_eval.image_ious(gt, results, 'cuda')
+    ref = indoor_eval.image_ious(gt, results, 'cpu')
+    if sum(i is not None for i in ref) != launches or launches == 0:
+        raise AssertionError(f'eval sunrgbd: {launches} launches in the run '
+                             f'for {sum(i is not None for i in ref)} IoU '
+                             f'calls')
+    err = max(float(np.abs(a - b).max()) for a, b in zip(ious, ref)
+              if b is not None)
+    if err > 1e-5:
+        raise AssertionError(f'eval sunrgbd: IoU on the card differs from '
+                             f'the plain clip by {err:.3g}')
+    thrs = (0.25, 0.5)
+    metrics = indoor_eval.indoor_eval(gt, results, preset.data.classes, thrs,
+                                      device='cuda')
+    cpu = indoor_eval.indoor_eval(gt, results, preset.data.classes, thrs,
+                                  device='cpu')
+    gap = max(abs(metrics[k] - cpu[k]) for k in cpu)
+    if set(metrics) != set(cpu) or gap > 1e-6 or metrics != \
+            summary['metrics']:
+        raise AssertionError(f'eval sunrgbd: card and CPU protocols differ '
+                             f'by {gap:.3g}')
+    perfect = indoor_eval.indoor_eval(gt, gt_as_prediction(dataset),
+                                      preset.data.classes, thrs)
+    if not perfect['mAP_0.25'] == perfect['mAP_0.50'] == 1.0:
+        raise AssertionError(f'eval sunrgbd: GT as prediction {perfect}')
+    big = max(range(len(ref)), key=lambda i: 0 if ref[i] is None
+              else ref[i].size)
+    row = pairwise_row(corners_of(results[big]['boxes'])[None],
+                       corners_of(gt[big]['boxes'])[None],
+                       f'G=1 N={ref[big].shape[0]} M={ref[big].shape[1]}, '
+                       f'the largest of the SUN RGB-D split\'s {launches} '
+                       f'per-image IoU calls', launches)
+    out = dict(iou_calls=launches, max_iou_err_vs_cpu=err,
+               max_metric_gap_vs_cpu=gap, mAP_025=metrics['mAP_0.25'],
+               gt_as_prediction_mAP=[perfect['mAP_0.25'],
+                                     perfect['mAP_0.50']],
+               pairs=sum(i.size for i in ref if i is not None))
+    log(f'eval sunrgbd protocol on the card: {json.dumps(out)}')
+    return out, row
+
+
+def check_layout_ious(summary, calls, split):
+    """Total3D's layout_iou through the clip's pairwise entry, one launch
+    in the test tool's run (``calls``, asserted there): the served layouts'
+    IoUs against the plain clip on the CPU within 1e-5, and the GT layout
+    against itself at 1.  Returns the entry's row on the served layouts
+    and the GT, the inputs of the run's call."""
+    name = EVAL_SPLITS['total3d'][0]
+    dataset, _ = runner.build_val_dataset(get_preset(name), name, *split)
+    gt = np.stack([info['layout'] for info in dataset.data_infos])
+    pred = np.stack([r['layout'] for r in summary['results']])
+    served = runner.layout_ious(pred, gt, 'cuda')
+    err = float(np.abs(served - runner.layout_ious(pred, gt, 'cpu')).max())
+    if err > 1e-5 or abs(float(np.mean(served))
+                         - summary['metrics']['layout_iou']) > 1e-6:
+        raise AssertionError(f'eval total3d: layout IoU gap {err:.3g}, or '
+                             f'the run\'s layout_iou differs')
+    perfect = runner.layout_ious(gt, gt, 'cuda')
+    if np.abs(perfect - 1).max() > 1e-5:
+        raise AssertionError(f'eval total3d: GT layout IoU {perfect}')
+    # the bottoms that layout_ious hands the clip
+    pred = pred.astype(np.float32)
+    pred[:, 2] -= pred[:, 5] / 2
+    gt = gt.astype(np.float32)
+    gt[:, 2] -= gt[:, 5] / 2
+    row = pairwise_row(corners_of(pred)[:, None].contiguous(),
+                       corners_of(gt)[:, None].contiguous(),
+                       f'G={len(gt)} N=M=1, layout_ious of the Total3D '
+                       f'split\'s served layouts', calls['layout'])
+    log(f'eval total3d: layout_iou {summary["metrics"]["layout_iou"]:.4g}, '
+        f'GT layout {perfect.tolist()}, card vs CPU {err:.3g}')
+    return dict(layout_iou=summary['metrics']['layout_iou'],
+                gt_layout_iou=perfect.tolist(), max_err_vs_cpu=err), row
+
+
+def check_nuscenes_eval(split):
+    """NDS of the GT as the prediction: 1, as ``tests/test_e2e_nuscenes.py``
+    has it."""
+    name = EVAL_SPLITS['nuscenes'][0]
+    dataset, _ = runner.build_val_dataset(get_preset(name), name, *split)
+    gt = runner._gt_annos(dataset)
+    metrics = nuscenes_eval.nuscenes_nds(gt, gt_as_prediction(dataset),
+                                         ('car',))
+    if abs(metrics['mAP'] - 1) > 1e-6 or abs(metrics['NDS'] - 1) > 1e-6:
+        raise AssertionError(f'eval nuscenes: GT as prediction {metrics}')
+    return dict(mAP=metrics['mAP'], NDS=metrics['NDS'],
+                gt_boxes=sum(len(g['boxes']) for g in gt))
+
+
+def run_eval():
+    """Phase 10: splits of every family written to a temporary directory,
+    seeded reference-style checkpoints, and the test tool on each; then
+    the KITTI loader and serving rates, the protocols' checks on the card,
+    and the pairwise clip rows.  Returns the summary, the KITTI launch
+    counts and the new ``kernels`` rows."""
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = write_splits(root)
+        out['write_splits_s'] = time.perf_counter() - t0
+        log(f'eval: splits written in {out["write_splits_s"]:.1f} s')
+        out['image_io_vs_cv2'] = check_image_io_against_cv2(data)
+        summaries, calls = {}, {}
+        for key in EVAL_SPLITS:
+            pth = os.path.join(root, f'{key}.pth')
+            eval_weights(EVAL_SPLITS[key][0], pth)
+            summaries[key], counts[key], calls[key] = run_test_tool(
+                key, data[key], pth)
+            if key == 'kitti':
+                out['kitti_serving'] = kitti_eval_timing(data[key], pth)
+        out['kitti'] = check_kitti_eval(summaries['kitti'], data['kitti'])
+        out['sunrgbd'], indoor_row = check_indoor_eval(
+            summaries['sunrgbd'], calls['sunrgbd'], data['sunrgbd'])
+        out['total3d'], layout_row = check_layout_ious(
+            summaries['total3d'], calls['total3d'], data['total3d'])
+        out['nuscenes_gt_as_prediction'] = check_nuscenes_eval(
+            data['nuscenes'])
+        for key, s in summaries.items():
+            out.setdefault('runs', {})[key] = dict(
+                samples=s['n_samples'], batches=s['n_batches'],
+                inference_s=s['inference_s'], protocol_s=s['eval_s'],
+                frames_per_s=s['n_samples'] / s['inference_s'],
+                launches=counts[key], protocol_clip_calls=calls[key])
+    leaked = sorted(m for m in ('cv2', 'ml_dtypes', 'jax', 'PIL')
+                    if m in sys.modules)
+    if leaked:
+        raise AssertionError(f'eval: the port imported {leaked}')
+    return out, counts['kitti'], [indoor_row, layout_row]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1877,6 +2486,8 @@ def smoke():
     rng = np.random.RandomState(SEED)
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
+    # the port's data path needs none of these; say which the machine has
+    log(f'modules on this machine: {json.dumps(card_modules())}')
 
     t0 = time.perf_counter()
     build.build_all()
@@ -2017,6 +2628,14 @@ def smoke():
     log(json.dumps({'nuscenes': nuscenes}))
     log(f'phase 9 (nuscenes): {time.perf_counter() - t9:.1f} s')
 
+    # the evaluation path: tools/test.py on splits written to disk
+    t10 = time.perf_counter()
+    evaluation, eval_counts, eval_rows = run_eval()
+    for row in eval_rows:
+        log(json.dumps(row))
+    log(json.dumps({'eval': evaluation}))
+    log(f'phase 10 (eval): {time.perf_counter() - t10:.1f} s')
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -2038,6 +2657,11 @@ def smoke():
     # its block0, the mask + scan of 1,000 candidates) with those of its
     # b=1 bfloat16 forward, and B3's dx and B1's backward with those of its
     # 5 timed b=1 steps
+    # (the KITTI serving rows also carry their launches in phase 10's
+    # tools/test.py run over 4 batches of 8 frames, the pairwise rows the
+    # protocol's launches in the tool's run on their split, all asserted)
+    for r in serving:
+        r['eval_launches'] = eval_counts[r['name']]
     summary = []
     for row, launches in [(r, counts['b8_bf16'][r['name']]) for r in serving] \
             + [(r, train_counts[r['name']])
@@ -2051,12 +2675,15 @@ def smoke():
                for r, p, train in scannet_rows] \
             + [(r, (nuscenes_serve if use == 'serve'
                     else nuscenes_train)[r['name']])
-               for r, use in nuscenes_rows]:
+               for r, use in nuscenes_rows] \
+            + [(r, r['eval_launches']) for r in eval_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
         entry['launches'] = launches
         entry['shape'] = row['shape']
+        if 'eval_launches' in row:
+            entry['eval_launches'] = row['eval_launches']
         summary.append(entry)
     log(json.dumps({'kernels': summary}))
     log(json.dumps({'ok': True, 'device': {

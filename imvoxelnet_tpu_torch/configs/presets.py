@@ -251,3 +251,50 @@ PRESETS = build_presets()
 
 def get_preset(name: str) -> Preset:
     return PRESETS[name]
+
+
+def apply_overrides(preset: Preset, overrides):
+    """CLI config-override surface — the analog of the reference's
+    ``--options`` DictAction (``tools/train.py:48-49,71-72``, mmcv
+    ``Config.merge_from_dict``), on the frozen dataclass presets.
+
+    Each override is a ``'dotted.path=value'`` string addressing a field
+    through the nested dataclasses, e.g.::
+
+        model.indoor_head.score_thr=0.1
+        data.repeat_times=1
+        lr_steps=(9, 11)
+        model.compute_dtype=bfloat16
+
+    Values parse with ``ast.literal_eval`` (numbers, tuples, booleans,
+    quoted strings); anything unparsable is taken as a plain string.
+    Unknown fields raise ``AttributeError`` (typos must not pass silently).
+    """
+    import ast
+
+    def set_path(obj, parts, value):
+        name = parts[0]
+        if not any(f.name == name for f in dataclasses.fields(obj)):
+            raise AttributeError(
+                f'{type(obj).__name__} has no field {name!r} '
+                f'(override path: {".".join(parts)})')
+        if len(parts) == 1:
+            return dataclasses.replace(obj, **{name: value})
+        child = getattr(obj, name)
+        if child is None:
+            raise AttributeError(
+                f'{type(obj).__name__}.{name} is None — cannot descend '
+                f'into {".".join(parts[1:])}')
+        return dataclasses.replace(
+            obj, **{name: set_path(child, parts[1:], value)})
+
+    for item in overrides or ():
+        if '=' not in item:
+            raise ValueError(f'override {item!r} is not key=value')
+        path, raw = item.split('=', 1)
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        preset = set_path(preset, path.strip().split('.'), value)
+    return preset

@@ -5,7 +5,7 @@ differentiable rotated 3D IoU of the indoor loss.
 Counterpart of ``imvoxelnet_tpu/ops/iou.py`` (``bbox_overlaps_2d``,
 ``axis_aligned_bbox_overlaps_3d``, ``bbox_overlaps_nearest_3d``,
 ``rect_intersection_area``, ``rotated_overlaps_bev``, ``rotated_iou_bev``,
-``iou_3d_aligned``).  On CUDA
+``bbox_overlaps_3d``, ``iou_3d_aligned``).  On CUDA
 tensors, for every pair count, ``rect_intersection_area`` runs
 :class:`RectClipFunction`: the paired entry of the clip kernel
 (``kernels/rect_clip.py``) forward and its backward kernel backward, as the
@@ -237,6 +237,33 @@ def rotated_iou_bev(boxes_xywhr1, boxes_xywhr2):
     return iou_from_overlaps(inter,
                              boxes_xywhr1[..., 2] * boxes_xywhr1[..., 3],
                              boxes_xywhr2[..., 2] * boxes_xywhr2[..., 3])
+
+
+def bbox_overlaps_3d(boxes1, boxes2, mode: str = 'iou'):
+    """Pairwise rotated 3D IoU (``mode='iou'``) or intersection over the
+    first box's volume (``'iof'``) of bottom-center boxes ``(..., N, 7)``
+    and ``(..., M, 7)`` -> ``(..., N, M)``; the leading dims broadcast and
+    are one group axis to the clip kernel (``BaseInstance3DBoxes.overlaps``,
+    ``base_box3d.py:385-443``, the indoor protocol's metric; JAX
+    ``ops/iou.py:336-358``).  On CUDA tensors the BEV areas are one launch
+    of the clip kernel's pairwise entry."""
+    inter_bev = rotated_overlaps_bev(box_ops.bev(boxes1), box_ops.bev(boxes2))
+    zmin1 = boxes1[..., 2]
+    zmax1 = zmin1 + boxes1[..., 5]
+    zmin2 = boxes2[..., 2]
+    zmax2 = zmin2 + boxes2[..., 5]
+    z_overlap = (torch.minimum(zmax1[..., :, None], zmax2[..., None, :])
+                 - torch.maximum(zmin1[..., :, None], zmin2[..., None, :])
+                 ).clamp(min=0)
+    inter = inter_bev * z_overlap
+    vol1 = box_ops.volume(boxes1)[..., :, None]
+    if mode == 'iou':
+        denom = vol1 + box_ops.volume(boxes2)[..., None, :] - inter
+    elif mode == 'iof':
+        denom = vol1.expand(inter.shape)
+    else:
+        raise ValueError(f'unknown mode {mode!r}')
+    return (inter / denom.clamp(min=_EPS)).clamp(0.0, 1.0)
 
 
 def iou_3d_aligned(boxes1_gc, boxes2_gc):

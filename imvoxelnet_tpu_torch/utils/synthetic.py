@@ -559,3 +559,61 @@ def train_batch(data, b: int, device='cuda', seed: int = 0,
                                     size=data.train_size, max_gt=data.max_gt)
     raise NotImplementedError(f'no synthetic {data.dataset!r} training '
                               f'batch')
+
+
+# --------------------------------------------------------------------------
+# PNG files (the evaluation path's tests and smoke run write their splits)
+# --------------------------------------------------------------------------
+
+_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}       # channels -> PNG color type
+
+
+def png_filter_rows(px: np.ndarray, filters, bpp: int) -> np.ndarray:
+    """The PNG row filters (spec section 9.2) applied to ``(h, row_bytes)``
+    uint8 ``px``, each row with its type in ``filters`` (0-4): ``(h, 1 +
+    row_bytes)`` bytes, the filter type first."""
+    x = px.astype(np.int32)
+    h = x.shape[0]
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    filters = np.asarray(filters, np.int64)
+    out = np.empty((h, x.shape[1] + 1), np.uint8)
+    out[:, 0] = filters
+    out[:, 1:] = (x - preds[filters, np.arange(h)]) & 255
+    return out
+
+
+def write_png(path: str, img: np.ndarray, filters=None, level: int = 6):
+    """Write an ``(h, w)`` gray or ``(h, w, c)`` uint8 image (c = 2 gray +
+    alpha, 3 RGB, 4 RGBA) as an 8-bit PNG.  ``filters``: each row's filter
+    type (0-4); by default row ``y`` takes ``y % 5``, so every type is
+    used."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    if filters is None:
+        filters = np.arange(h) % 5
+    raw = png_filter_rows(img.reshape(h, w * ch), filters, ch)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body) & 0xffffffff))
+
+    data = (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8,
+                                         _PNG_COLOR[ch], 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw.tobytes(), level))
+            + chunk(b'IEND', b''))
+    with open(path, 'wb') as f:
+        f.write(data)

@@ -1148,3 +1148,103 @@ def test_deform_conv_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(got, want, rtol=1e-4,
                                        atol=1e-4 * scale,
                                        msg=lambda m: f'{name}: {m}')
+
+
+# --------------------------------------------------------------------------
+# the evaluation path
+# --------------------------------------------------------------------------
+
+def _eval_boxes(rng, n):
+    return np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
+                           rng.uniform(-0.3, 0.3, (n, 1)),
+                           rng.uniform(0.4, 2.0, (n, 3)),
+                           rng.uniform(-np.pi, np.pi, (n, 1))],
+                          1).astype(np.float32)
+
+
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_bbox_overlaps_3d_on_the_card_equals_the_plain_clip(cuda, mode):
+    """The pairwise entry (one launch, leading dims as groups) against the
+    plain clip on the CPU: the areas bit for bit, so the IoUs within 1e-6
+    (the float32 divisions of two devices)."""
+    rng = np.random.RandomState(0)
+    b1 = torch.from_numpy(np.stack([_eval_boxes(rng, 37)] * 2))
+    b2 = torch.from_numpy(np.stack([_eval_boxes(rng, 23), _eval_boxes(rng, 23)]))
+    clip_kernel.launches = 0
+    got = iou_ops.bbox_overlaps_3d(b1.to(cuda), b2.to(cuda), mode)
+    assert clip_kernel.launches == 1
+    ref = iou_ops.bbox_overlaps_3d(b1, b2, mode)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-6)
+    assert 0.1 < float((ref > 0).float().mean()) < 1
+
+
+def test_indoor_per_image_iou_slices_equal_per_class_calls_on_the_card(cuda):
+    from imvoxelnet_tpu_torch.eval import indoor_eval
+    rng = np.random.RandomState(1)
+    det, gt = _eval_boxes(rng, 41), _eval_boxes(rng, 17)
+    det_labels, gt_labels = rng.randint(0, 4, 41), rng.randint(0, 4, 17)
+    [whole] = indoor_eval.image_ious([dict(boxes=gt)], [dict(boxes=det)],
+                                     'cuda')
+    for c in range(4):
+        m, g = det_labels == c, gt_labels == c
+        per_class = indoor_eval._box_iou_3d(det[m], gt[g], 'cuda')
+        np.testing.assert_array_equal(whole[m][:, g].view(np.int32),
+                                      per_class.view(np.int32))
+
+
+@pytest.fixture
+def kitti_split(tmp_path):
+    from imvoxelnet_tpu_torch.utils import synthetic_splits
+    root = str(tmp_path / 'kitti')
+    return root, synthetic_splits.kitti_split(root, 3, seed=1)
+
+
+def test_loader_pinned_batches_reach_the_card_equal(cuda, kitti_split):
+    """The loader's pinned bfloat16 batches, copied ahead on a side stream
+    by ``device_prefetch``, equal the unpinned CPU batches."""
+    from imvoxelnet_tpu_torch.data import loader as loader_lib
+    from imvoxelnet_tpu_torch.eval import runner
+    preset = get_preset('imvoxelnet_kitti')
+    kw = dict(num_workers=2, batch_size=2)
+    _, pinned = runner.build_val_dataset(preset, 'imvoxelnet_kitti',
+                                         *kitti_split, device='cuda', **kw)
+    _, plain = runner.build_val_dataset(preset, 'imvoxelnet_kitti',
+                                        *kitti_split, device='cpu', **kw)
+    pinned.images_dtype = plain.images_dtype = torch.bfloat16
+    ref = list(plain.epoch(0))
+    got = list(loader_lib.device_prefetch(pinned.epoch(0), 'cuda'))
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert set(g) == set(r)
+        for key in r:
+            assert g[key].is_cuda and g[key].dtype == r[key].dtype
+            assert torch.equal(g[key].cpu(), r[key]), key
+
+
+def test_test_tool_runs_a_split_on_the_card(cuda, kitti_split, tmp_path):
+    """``tools/test.py`` on 2 frames at full width (b=2, bfloat16) with a
+    written checkpoint: finite KITTI metrics, one forward's launches per
+    batch."""
+    from imvoxelnet_tpu_torch import kernels as kernels_lib
+    from imvoxelnet_tpu_torch.models.detector import build_model
+    from imvoxelnet_tpu_torch.tools import test as test_tool
+    from imvoxelnet_tpu_torch.utils import synthetic_splits
+    root = str(tmp_path / 'two')
+    ann = synthetic_splits.kitti_split(root, 2, seed=2)
+    model = build_model(get_preset('imvoxelnet_kitti').model, 'cpu', seed=3)
+    with torch.no_grad():
+        model.bbox_head.conv_cls.bias.zero_()
+    pth = str(tmp_path / 'w.pth')
+    torch.save({'state_dict': model.state_dict()}, pth)
+    kernels_lib.reset_launch_counts()
+    summary = test_tool.main(['imvoxelnet_kitti', '--data-root', root,
+                              '--ann-file', ann, '--torch-checkpoint', pth,
+                              '--batch-size', '2', '--num-workers', '2',
+                              '--override', 'model.compute_dtype=bfloat16'])
+    counts = kernels_lib.launch_counts()
+    assert summary['n_samples'] == 2 and summary['n_batches'] == 1
+    assert counts['backproject'] == 1 and counts['conv3x3x3'] == 2
+    assert counts['rect_clip'] == 1 and counts['nms_scan'] == 1
+    assert all(np.isfinite(v) for v in summary['metrics'].values())
+    assert 'KITTI/Car_3D_moderate' in summary['metrics']

@@ -32,8 +32,10 @@ PRESET_NAMES = ('imvoxelnet_kitti', 'tiny_kitti_test', 'imvoxelnet_sunrgbd',
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """A tiny forward + decode, a training step, a tiny SUN RGB-D forward
     + decode, a tiny Total3D one (predicted extrinsics), a tiny 3-view
-    ScanNet one and a tiny six-view nuScenes one (DCN backbone) in a fresh
-    interpreter leave every ``jax*`` and ``flax*``
+    ScanNet one, a tiny six-view nuScenes one (DCN backbone) and a tiny
+    KITTI val split (PNG files) through ``build_val_dataset`` ->
+    ``run_inference`` -> ``evaluate_results`` in a fresh interpreter leave
+    every ``jax*``, ``flax*``, ``optax*``, ``ml_dtypes`` and ``cv2``
     module and every
     ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
     (``imvoxelnet_tpu_torch`` shares the prefix, hence the exact-name
@@ -139,8 +141,27 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         assert nhead[0].shape == (1, 8, 8, 2)
         assert nres['boxes'].shape == (1, 16, 7)
         assert 0 < float(nvalid.float().mean()) < 1
+        # and the evaluation path: a tiny KITTI val split written as PNG
+        # files, read, served and scored
+        import tempfile
+        from imvoxelnet_tpu_torch.configs.presets import get_preset
+        from imvoxelnet_tpu_torch.eval import runner
+        from imvoxelnet_tpu_torch.utils.synthetic_splits import kitti_split
+        with tempfile.TemporaryDirectory() as root:
+            ann = kitti_split(root, 2, seed=0, frame_hw=(94, 310))
+            preset = get_preset('tiny_kitti_test')
+            dataset, loader = runner.build_val_dataset(
+                preset, 'tiny_kitti_test', root, ann, num_workers=2,
+                batch_size=2, device='cpu')
+            results = runner.run_inference(model, preset.model, loader, 2,
+                                           device='cpu')
+            metrics = runner.evaluate_results(preset, 'tiny_kitti_test',
+                                              dataset, results,
+                                              device='cpu')
+        assert len(results) == 2 and 'KITTI/Car_3D_moderate' in metrics
         bad = sorted(m for m in sys.modules
-                     if m.split('.')[0].startswith(('jax', 'flax', 'optax'))
+                     if m.split('.')[0].startswith(('jax', 'flax', 'optax',
+                                                    'ml_dtypes', 'cv2'))
                      or m == 'imvoxelnet_tpu'
                      or m.startswith('imvoxelnet_tpu.'))
         print('LOADED', bad)
@@ -224,6 +245,28 @@ def test_state_dict_round_trip_through_the_jax_converter(name):
     for key, val in sd.items():
         assert back[key].dtype == val.dtype, key
         assert torch.equal(back[key], val), key
+
+
+def test_native_libraries_raise_without_a_compiler(tmp_path, monkeypatch):
+    """No fallback: where a host library cannot be built (the compiler is
+    missing), the call raises, naming the compiler, and leaves no file."""
+    from imvoxelnet_tpu_torch import native
+    from imvoxelnet_tpu_torch.data import pipeline
+
+    monkeypatch.setattr(native, 'CXX', str(tmp_path / 'no-such-g++'))
+    monkeypatch.setattr(native, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(native, '_loaded', {})
+    with pytest.raises(RuntimeError, match='no-such-g\\+\\+'):
+        pipeline.process_image(np.zeros((4, 4, 3), np.uint8),
+                               pipeline.ImagePipelineConfig(
+                                   test_scale=(4, 4), pad_size=(4, 4)),
+                               False, np.random.RandomState(0))
+    with pytest.raises(RuntimeError, match='no-such-g\\+\\+'):
+        native.compute_statistics_thresholds(
+            np.zeros((1, 1)), np.zeros(1), np.zeros(1), np.zeros(1),
+            np.zeros(1), np.zeros(1), np.zeros((1, 0)), 0.5, np.zeros(1), 0,
+            np.zeros((1, 4)))
+    assert os.listdir(tmp_path / 'build') == []
 
 
 def test_state_dict_keys_are_the_reference_manifest():

@@ -123,6 +123,32 @@ Phases, each failing the run on its own error:
                 import cv2, PIL, ml_dtypes or JAX on this path; where the
                 machine has cv2, a separate interpreter holds the port's
                 PNG decode and resize to it bit for bit.
+  11. train from files -- imvoxelnet_tpu_torch.tools.train on splits
+                written to a temporary directory: imvoxelnet_kitti at full
+                width, b=4 bfloat16, 48 frames of 1242x375 (3 repeats, 36
+                steps an epoch), 2 epochs with validation on 16 frames at
+                b=8, launches per step (B1 1, its backward 1, B3 4) and per
+                validation batch (B1 1, B3 2, mask 1, scan 1) asserted from
+                the CLI's own run; the same CLI for 1 epoch and then 2
+                (auto-resume from latest.pth) bit for bit against the
+                straight run (parameters, buffers, AdamW tensors, schedule,
+                epoch 2's losses and validation; cudnn.deterministic);
+                tools/test.py --checkpoint on its latest.pth equal to the
+                last validation line; apis.init_detector +
+                inference_detector on one frame bit for bit against
+                run_inference through the loader, with the same launches;
+                the steady state of training from files (bfloat16, through
+                the CLI's loop, a short and a long epoch of the split listed
+                more often) for imvoxelnet_kitti b=4, imvoxelnet_sunrgbd b=4
+                and imvoxelnet_scannet b=1 with 20 views, beside the
+                synthetic step and the loader alone over the long epoch at 1
+                and 8 workers, with fill + drain, peak memory, launches per step and the card's
+                busy share over 10 steps between two log lines (profiler
+                trace); those 10 KITTI steps and one b=8 serving forward +
+                decode hold no host call that waits for the device and no
+                device-to-host copy; the five learning loops of
+                tools/validate_learning.py (cudnn.deterministic) with their
+                criteria.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -147,7 +173,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
-from imvoxelnet_tpu_torch import kernels
+from imvoxelnet_tpu_torch import apis, kernels
 from imvoxelnet_tpu_torch.configs.presets import apply_overrides, get_preset
 from imvoxelnet_tpu_torch.data import datasets
 from imvoxelnet_tpu_torch.data import loader as loader_lib
@@ -172,9 +198,12 @@ from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
 from imvoxelnet_tpu_torch.tools import test as test_tool
+from imvoxelnet_tpu_torch.tools import train as train_tool
+from imvoxelnet_tpu_torch.tools import validate_learning
 from imvoxelnet_tpu_torch.tools.profile_forward import (dcn_offsets,
                                                         level_angle_head,
                                                         zero_cls_bias)
+from imvoxelnet_tpu_torch.utils import checkpoint as ckpt_lib
 from imvoxelnet_tpu_torch.utils import synthetic_splits as splits
 from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
@@ -2147,7 +2176,8 @@ def kitti_eval_timing(split, pth):
         out[f'loader_frames_per_s_{workers}_workers'] = n / (
             time.perf_counter() - t0)
     model = build_model(cfg, device='cpu', seed=SEED)
-    test_tool.load_reference_checkpoint(model, pth)
+    model.load_state_dict(ckpt_lib.load_reference_state_dict(pth),
+                          strict=True)
     model.to('cuda')
     epochs = {}
     for key, sp in (('short', split), ('long', long_split)):
@@ -2472,6 +2502,543 @@ def run_eval():
     return out, counts['kitti'], [indoor_row, layout_row]
 
 
+# --------------------------------------------------------------------------
+# phase 11: training from files (tools/train.py on splits written to disk)
+# --------------------------------------------------------------------------
+
+# a KITTI training step: B1, its backward, B3 forward twice and dx twice
+TRAIN_STEP_LAUNCHES = {
+    'kitti': dict(backproject=1, backproject_grad=1, conv3x3x3=4,
+                  rect_clip=0, rect_clip_grad=0, nms_scan=0),
+    'sunrgbd': dict(INDOOR_TRAIN_LAUNCHES),
+    'scannet': dict(SCANNET_TRAIN_LAUNCHES),
+}
+# family: preset, split writer and its arguments, batch per card, how often
+# the split is listed for the short and the long epoch (repeat_times 1)
+TRAIN_SPLITS = {
+    'kitti': ('imvoxelnet_kitti', splits.kitti_split, dict(n=48), 4,
+              (1, 3)),
+    'sunrgbd': ('imvoxelnet_sunrgbd', splits.sunrgbd_split, dict(n=16), 4,
+                (2, 8)),
+    'scannet': ('imvoxelnet_scannet', splits.scannet_split,
+                dict(n_scenes=2, views=20), 1, (4, 16)),
+}
+KITTI_VAL_FRAMES = 16
+CLI_EPOCHS = 2
+LOG_INTERVAL = 10
+STEP_SPAN = 'phase11_step'
+# host calls that wait for the device (cudaFree and cudaFreeHost
+# synchronize it too)
+SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
+              'cudaEventSynchronize', 'cudaMemcpy', 'cudaMemcpy2D',
+              'cuStreamSynchronize', 'cuCtxSynchronize', 'cuEventSynchronize',
+              'cuMemcpyDtoH_v2', 'cudaFree', 'cudaFreeHost')
+
+
+@contextlib.contextmanager
+def cli_probe(prof=None):
+    """Within the block, each step that ``tools/train.py`` builds runs in a
+    ``STEP_SPAN`` profiler span (and steps ``prof``'s schedule after it),
+    and each ``run_inference`` call (the CLI's validation) records the
+    launch counts it adds and its batches: ``probe['val']``,
+    ``probe['val_batches']``.  The counts are the CLI run's own."""
+    probe = dict(val={k: 0 for k in kernels.WRAPPERS}, val_batches=0)
+    make_step, run_inference = train_lib.make_train_step, runner.run_inference
+
+    def make(*args):
+        step = make_step(*args)
+
+        def spanned(batch):
+            with torch.profiler.record_function(STEP_SPAN):
+                out = step(batch)
+            if prof is not None:
+                prof.step()
+            return out
+        return spanned
+
+    def inference(model, cfg, loader, n, device='cuda'):
+        before = kernels.launch_counts()
+        out = run_inference(model, cfg, loader, n, device)
+        for k, v in kernels.launch_counts().items():
+            probe['val'][k] += v - before[k]
+        probe['val_batches'] += len(loader)
+        return out
+
+    train_lib.make_train_step, runner.run_inference = make, inference
+    try:
+        yield probe
+    finally:
+        train_lib.make_train_step, runner.run_inference = (make_step,
+                                                           run_inference)
+
+
+def run_train_tool(args, prof=None):
+    """``tools.train.main(args)``, its printout kept out of the log, with
+    the launches of its steps and of its validation batches apart."""
+    kernels.reset_launch_counts()
+    with cli_probe(prof) as probe, contextlib.redirect_stdout(io.StringIO()):
+        summary = train_tool.main(args)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    summary['step_launches'] = {k: total[k] - probe['val'][k] for k in total}
+    summary['val_launches'] = probe['val']
+    summary['val_batches'] = probe['val_batches']
+    return summary
+
+
+def assert_cli_launches(tag, summary, step, val=None):
+    steps = sum(e['steps'] for e in summary['epochs'])
+    assert_launches(f'{tag}: per step', {
+        k: v / steps for k, v in summary['step_launches'].items()}, step)
+    if val is not None:
+        if not summary['val_batches']:
+            raise AssertionError(f'{tag}: no validation batch')
+        assert_launches(f'{tag}: per validation batch', {
+            k: v / summary['val_batches']
+            for k, v in summary['val_launches'].items()}, val)
+
+
+def check_train_lines(tag, summary, keys):
+    for line in summary['train']:
+        if set(line) != keys or not all(
+                np.isfinite(line[k]) for k in keys - {'epoch', 'iter',
+                                                      'step'}):
+            raise AssertionError(f'{tag}: log line {line}')
+    for line in summary['val']:
+        if line['mode'] != 'val' or not all(
+                np.isfinite(v) for k, v in line.items() if k != 'mode'):
+            raise AssertionError(f'{tag}: validation line {line}')
+
+
+def same_tensors(a, b):
+    """How many of the tensors of ``a`` equal ``b``'s bit for bit, and the
+    names of those that do not."""
+    differ = [k for k, v in a.items() if not torch.equal(v, b[k])]
+    return len(a) - len(differ), differ
+
+
+def compare_train_states(straight, resumed):
+    """Two ``latest.pth`` files: parameters, buffers and every AdamW tensor
+    (moments and steps) bit for bit, and the schedule's count and step."""
+    a, b = (ckpt_lib.load_checkpoint(p) for p in (straight, resumed))
+    params = {k for k in a['state_dict']
+              if not k.endswith(('running_mean', 'running_var',
+                                 'num_batches_tracked'))}
+    out = {}
+    for name, keys in (('parameters', params),
+                       ('buffers', set(a['state_dict']) - params)):
+        n, differ = same_tensors({k: a['state_dict'][k] for k in keys},
+                                 b['state_dict'])
+        out[name] = dict(equal=n, total=len(keys), differ=differ[:10])
+    flat = {(i, k): v for i, st in a['optimizer']['state'].items()
+            for k, v in st.items()}
+    other = {(i, k): v for i, st in b['optimizer']['state'].items()
+             for k, v in st.items()}
+    n, differ = same_tensors(flat, other)
+    out['adamw'] = dict(equal=n, total=len(flat), differ=differ[:10])
+    out['same_schedule_and_step'] = (
+        a['scheduler'] == b['scheduler'] and a['step'] == b['step']
+        and a['optimizer']['param_groups'] == b['optimizer']['param_groups'])
+    return out
+
+
+def write_train_splits(root):
+    """The three families' splits and KITTI's val split, in parallel:
+    ``{key: (data_root, ann_file)}``."""
+    jobs = {key: (writer, os.path.join(root, key), dict(kw, seed=SEED))
+            for key, (_, writer, kw, _, _) in TRAIN_SPLITS.items()}
+    jobs['kitti_val'] = (splits.kitti_split, os.path.join(root, 'kitti_val'),
+                         dict(n=KITTI_VAL_FRAMES, seed=SEED + 1))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(w, r, **kw) for k, (w, r, kw) in
+                   jobs.items()}
+        return {k: (jobs[k][1], f.result()) for k, f in futures.items()}
+
+
+def kitti_cli(data, work, epochs, *extra):
+    """``tools/train.py`` on imvoxelnet_kitti at full width, b=4 bfloat16,
+    the 48-frame split with the preset's 3 repeats, validation every epoch
+    on the 16-frame split at b=8."""
+    return ['imvoxelnet_kitti', '--data-root', data['kitti'][0],
+            '--ann-file', data['kitti'][1], '--work-dir', work, '--epochs',
+            str(epochs), '--batch-size', '4', '--num-workers', '8',
+            '--log-interval', str(LOG_INTERVAL), '--override', BF16,
+            '--val-data-root', data['kitti_val'][0], '--val-ann-file',
+            data['kitti_val'][1], '--val-batch-size', '8', *extra]
+
+
+def kitti_cli_runs(data, root):
+    """(a): the CLI for 2 epochs with validation; the same for 1 epoch and
+    then for 2 in a second work dir (auto-resume), held to the first bit
+    for bit; ``tools/test.py --checkpoint`` on the val split, held to the
+    last validation line.  Under ``cudnn.deterministic``, as the repeat
+    checks of phases 4 and 9 run, so that two runs of one step give the
+    same bits."""
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        straight = run_train_tool(kitti_cli(
+            data, os.path.join(root, 'straight'), CLI_EPOCHS))
+        out['straight_s'] = time.perf_counter() - t0
+        keys = {'epoch', 'iter', 'step', 'data_time', 'time', 'loss_cls',
+                'loss_bbox', 'loss_dir', 'loss'}
+        check_train_lines('train cli kitti', straight, keys)
+        assert_cli_launches('train cli kitti', straight,
+                            TRAIN_STEP_LAUNCHES['kitti'],
+                            EVAL_BATCH_LAUNCHES['kitti'])
+        if not os.path.exists(straight['latest']) or \
+                len(straight['val']) != CLI_EPOCHS:
+            raise AssertionError('train cli kitti: no latest.pth or a '
+                                 'validation line missing')
+        resumed_dir = os.path.join(root, 'resumed')
+        first = run_train_tool(kitti_cli(data, resumed_dir, 1))
+        second = run_train_tool(kitti_cli(data, resumed_dir, CLI_EPOCHS))
+        if second['start_epoch'] != 1:
+            raise AssertionError(f'train cli kitti: resumed at epoch '
+                                 f'{second["start_epoch"]}, not 1')
+        same = compare_train_states(straight['latest'], second['latest'])
+        epoch2 = [line for line in straight['train'] if line['epoch'] == 1]
+        strip = lambda lines: [{k: v for k, v in x.items()  # noqa: E731
+                                if k not in ('data_time', 'time')}
+                               for x in lines]
+        same['epoch2_losses_equal'] = strip(epoch2) == strip(second['train'])
+        same['epoch2_validation_equal'] = straight['val'][-1] == \
+            second['val'][-1]
+        bad = [k for k in ('parameters', 'buffers', 'adamw')
+               if same[k]['equal'] != same[k]['total']] + [
+            k for k in ('same_schedule_and_step', 'epoch2_losses_equal',
+                        'epoch2_validation_equal') if not same[k]]
+        log(f'train cli kitti: resume against the straight run '
+            f'{json.dumps(same)}')
+        if bad:
+            raise AssertionError(f'train cli kitti: the resumed run differs '
+                                 f'from the straight run in {bad}')
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tested = test_tool.main([
+                'imvoxelnet_kitti', '--data-root', data['kitti_val'][0],
+                '--ann-file', data['kitti_val'][1], '--checkpoint',
+                straight['latest'], '--batch-size', '8', '--num-workers', '8',
+                '--override', BF16])
+        last = {k: v for k, v in straight['val'][-1].items()
+                if k not in ('mode', 'epoch', 'step')}
+        if {k: float(v) for k, v in tested['metrics'].items()} != last:
+            raise AssertionError('train cli kitti: tools/test.py '
+                                 '--checkpoint differs from the last '
+                                 'validation line')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    epochs = straight['epochs']
+    out.update(
+        steps_per_epoch=straight['steps_per_epoch'],
+        epochs=epochs, losses_first=straight['train'][0],
+        losses_last=straight['train'][-1], val=straight['val'],
+        launches_per_step={k: v / sum(e['steps'] for e in epochs)
+                           for k, v in straight['step_launches'].items()},
+        launches_per_val_batch={k: v / straight['val_batches'] for k, v in
+                                straight['val_launches'].items()},
+        val_batches=straight['val_batches'], resume=same,
+        first_run_epochs=first['epochs'],
+        test_tool_checkpoint_equals_last_val=True,
+        test_tool_detections=sum(len(r['scores'])
+                                 for r in tested['results']))
+    log(f'train cli kitti: {json.dumps(out)}')
+    return out, straight['latest']
+
+
+def trace_window(path, n_steps):
+    """The ``n_steps`` step spans of a chrome trace: the host window from
+    the first span's start to the last one's end, the device window from
+    the first to the last kernel launched in it, the host calls in the
+    host window that wait for the device, the device-to-host copies in the
+    device window, and the card's busy share of the device window (the
+    union of all kernels' intervals in it)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if e.get('ph') == 'X']
+    spans = sorted((e for e in events if e['name'] == STEP_SPAN
+                    and e.get('cat') == 'user_annotation'),
+                   key=lambda e: e['ts'])
+    if len(spans) != n_steps:
+        raise AssertionError(f'trace: {len(spans)} step spans, not '
+                             f'{n_steps}')
+    h0, h1 = spans[0]['ts'], spans[-1]['ts'] + spans[-1]['dur']
+    calls = [e for e in events if e.get('cat') in ('cuda_runtime',
+                                                   'cuda_driver')
+             and h0 <= e['ts'] <= h1]
+    corr = {e['args'].get('correlation') for e in calls}
+    device = [e for e in events if e.get('cat') in ('kernel', 'gpu_memcpy',
+                                                    'gpu_memset')]
+    launched = [e for e in device if e['cat'] == 'kernel'
+                and e['args'].get('correlation') in corr]
+    if not launched:
+        raise AssertionError('trace: no kernel launched in the step spans')
+    d0 = min(e['ts'] for e in launched)
+    d1 = max(e['ts'] + e['dur'] for e in launched)
+    syncs = sorted({e['name'] for e in calls if e['name'] in SYNC_CALLS})
+    dtoh = [e['name'] for e in device if e['cat'] == 'gpu_memcpy'
+            and 'DtoH' in e['name'] and e['ts'] < d1
+            and e['ts'] + e['dur'] > d0]
+    union, end = 0.0, d0
+    for a, b in sorted((max(e['ts'], d0), min(e['ts'] + e['dur'], d1))
+                       for e in device if e['cat'] == 'kernel'
+                       and e['ts'] < d1 and e['ts'] + e['dur'] > d0):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return dict(steps=n_steps, host_window_ms=(h1 - h0) / 1e3,
+                device_window_ms=(d1 - d0) / 1e3, kernels=len(launched),
+                runtime_calls=len(calls), sync_calls=syncs,
+                device_to_host_copies=len(dtoh),
+                busy_share=union / (d1 - d0))
+
+
+def profiled_cli(args, trace_path):
+    """``run_train_tool(args)`` under the profiler, recording the steps
+    ``LOG_INTERVAL + 1`` to ``2 * LOG_INTERVAL`` (between the first two
+    log lines) into ``trace_path``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(
+            activities=acts, schedule=torch.profiler.schedule(
+                wait=LOG_INTERVAL - 1, warmup=1, active=LOG_INTERVAL,
+                repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(
+                trace_path)) as prof:
+        summary = run_train_tool(args, prof)
+    return summary, trace_window(trace_path, LOG_INTERVAL)
+
+
+LOADER_WARM_BATCHES = 2
+
+
+def loader_rate(preset, split, b, workers):
+    """The train-mode loader alone over one whole epoch of ``split``
+    (pinned bfloat16 batches, as the CLI's): scenes/s after its first
+    ``LOADER_WARM_BATCHES`` (thread start and the first decodes), and the
+    number of batches that rate covers."""
+    dataset = train_tool.build_train_dataset(preset, *split)
+    loader = loader_lib.DataLoader(dataset, b, train=True, seed=SEED,
+                                   num_workers=workers,
+                                   images_dtype=torch.bfloat16,
+                                   pin_memory=True)
+    n = batches = 0
+    for i, batch in enumerate(loader.epoch(0)):
+        if i + 1 == LOADER_WARM_BATCHES:
+            t0 = time.perf_counter()
+        elif i >= LOADER_WARM_BATCHES:
+            n += batch['images'].shape[0]
+            batches += 1
+    if batches < 30:
+        raise AssertionError(f'loader alone: {batches} batches timed')
+    return dict(scenes_per_s=n / (time.perf_counter() - t0),
+                batches=batches)
+
+
+def synthetic_steps(name, n=10):
+    """The same step on a synthetic batch already on the card (b per card,
+    bfloat16): steps/s over ``n`` after two warm-up steps."""
+    preset = apply_overrides(get_preset(name), [BF16])
+    model = build_model(preset.model, device='cuda', seed=SEED)
+    opt, sched = train_lib.make_optimizer(
+        model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
+        preset.grad_clip_norm, 1000, preset.lr_steps)
+    step = train_lib.make_train_step(model, opt, sched)
+    batch = train_batch(preset.data, preset.data.samples_per_device, 'cuda',
+                        seed=SEED)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def steady_training(key, data, root):
+    """(b): one family's bfloat16 training from files through the CLI's
+    loop: a short and a long epoch (the split listed more often,
+    ``repeat_times`` 1) for the steady state (steps/s, scenes/s) and the
+    fill + drain seconds, the long epoch again under the profiler for the
+    busy share of 10 steps between two log lines (and, for KITTI, their
+    host syncs), the launches per step of the long run, its peak memory;
+    beside it the loader alone at 1 and 8 workers and the synthetic
+    step."""
+    name, _, _, b, (short_x, long_x) = TRAIN_SPLITS[key]
+    preset = apply_overrides(get_preset(name),
+                             [BF16, 'data.repeat_times=1'])
+    out = dict(preset=name, batch=b, views=preset.data.n_images_train)
+    runs = {}
+
+    def cli(split, work):
+        return [name, '--data-root', split[0], '--ann-file', split[1],
+                '--work-dir', os.path.join(root, work), '--epochs', '1',
+                '--batch-size', str(b), '--num-workers', '8',
+                '--log-interval', str(LOG_INTERVAL), '--override', BF16,
+                '--override', 'data.repeat_times=1']
+    for tag, times in (('short', short_x), ('long', long_x)):
+        split = repeated_split(data[key], times)
+        torch.cuda.reset_peak_memory_stats()
+        runs[tag] = run_train_tool(cli(split, f'{key}_{tag}'))
+        if tag == 'long':
+            out['peak_memory_gb'] = torch.cuda.max_memory_allocated() / 1e9
+            assert_cli_launches(f'train from files {key}', runs[tag],
+                                TRAIN_STEP_LAUNCHES[key])
+            profiled, window = profiled_cli(
+                cli(split, f'{key}_profiled'),
+                os.path.join(root, f'{key}_trace.json'))
+            out['profiled_window'] = window
+            out['profiled_steps_per_s'] = profiled['epochs'][0]['steps'] / \
+                profiled['epochs'][0]['seconds']
+    n = {t: runs[t]['epochs'][0]['steps'] for t in runs}
+    s = {t: runs[t]['epochs'][0]['seconds'] for t in runs}
+    per_step = (s['long'] - s['short']) / (n['long'] - n['short'])
+    lines = runs['long']['train']
+    if not all(np.isfinite(x['loss']) for x in lines):
+        raise AssertionError(f'train from files {key}: non-finite loss')
+    synth = synthetic_steps(name)
+    out.update(
+        steps=n, seconds=s, steady_steps_per_s=1 / per_step,
+        steady_scenes_per_s=b / per_step,
+        fill_drain_s=s['short'] - n['short'] * per_step,
+        long_steps_per_s=n['long'] / s['long'],
+        synthetic_steps_per_s=synth,
+        loader_1_worker=loader_rate(
+            preset, repeated_split(data[key], long_x), b, 1),
+        loader_8_workers=loader_rate(
+            preset, repeated_split(data[key], long_x), b, 8),
+        launches_per_step={k: v / n['long'] for k, v in
+                           runs['long']['step_launches'].items()},
+        log_lines=[{k: line[k] for k in ('step', 'data_time', 'time',
+                                         'loss')} for line in lines])
+    out['host_bound'] = bool(out['steady_steps_per_s']
+                             < 0.9 * out['synthetic_steps_per_s'])
+    log(f'train from files {key}: {json.dumps(out)}')
+    return out
+
+
+def serving_sync_check(root):
+    """(e), serving: one KITTI b=8 bfloat16 forward + decode on a batch
+    already on the card, profiled: no host call that waits for the device
+    and no device-to-host copy between its first and its last kernel."""
+    cfg = apply_overrides(get_preset('imvoxelnet_kitti'), [BF16]).model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    batch = kitti_batch(8, 'cuda', seed=SEED)
+    runner.forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    path = os.path.join(root, 'serving_trace.json')
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(STEP_SPAN):
+            runner.forward(model, cfg, batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    del model
+    return trace_window(path, 1)
+
+
+def check_apis(latest, data, root):
+    """(d): ``apis.init_detector('imvoxelnet_kitti', checkpoint=...)`` and
+    ``inference_detector`` on one 1242x375 val frame against
+    ``runner.run_inference`` on the same frame through the loader, float32:
+    the same boxes, scores and labels bit for bit and the same launches.
+    The checkpoint is the CLI's ``latest.pth`` with the cls bias at 0, so
+    that detections pass the score threshold."""
+    name = 'imvoxelnet_kitti'
+    one = os.path.join(root, 'one_frame.pkl')
+    with open(one, 'wb') as f:
+        pickle.dump(datasets.load_infos(data['kitti_val'][1])[:1], f)
+    payload = ckpt_lib.load_checkpoint(latest)
+    payload['state_dict']['bbox_head.conv_cls.bias'].zero_()
+    latest = os.path.join(root, 'apis.pth')
+    torch.save(payload, latest)
+    preset = get_preset(name)
+    dataset, loader = runner.build_val_dataset(
+        preset, name, data['kitti_val'][0], one, num_workers=1)
+    sample = dataset.get_sample(0, False, np.random.RandomState(SEED))
+    _, model = apis.init_detector(name, checkpoint=latest)
+    kernels.reset_launch_counts()
+    res = apis.inference_detector(
+        preset, model, sample['images'], sample['intrinsics'],
+        sample['extrinsics'], sample['origin'], sample['ori_shape'],
+        sample['img_shape'])
+    api_counts = kernels.launch_counts()
+    ref_model = build_model(preset.model, device='cpu', seed=SEED)
+    ref_model.load_state_dict(ckpt_lib.load_checkpoint(latest)[
+        'state_dict'], strict=True)
+    ref_model.to('cuda')
+    kernels.reset_launch_counts()
+    with compute_precision(preset.model.compute_dtype):
+        ref = runner.run_inference(ref_model, preset.model, loader, 1)[0]
+    torch.cuda.synchronize()
+    runner_counts = kernels.launch_counts()
+    same = {k: bool(res[k].dtype == ref[k].dtype
+                    and np.array_equal(res[k], ref[k])) for k in ref}
+    if not all(same.values()) or api_counts != runner_counts or \
+            set(res) != set(ref):
+        raise AssertionError(f'apis: {same}, launches {api_counts} against '
+                             f'{runner_counts}')
+    assert_launches('apis', api_counts, EVAL_BATCH_LAUNCHES['kitti'])
+    if not len(res['scores']):
+        raise AssertionError('apis: no detection to compare')
+    out = dict(detections=int(len(res['scores'])), bit_equal=same,
+               launches=api_counts)
+    log(f'apis: {json.dumps(out)}')
+    return out
+
+
+def run_train_from_files():
+    """Phase 11: (a) the KITTI training CLI at full width with validation,
+    resume and ``tools/test.py --checkpoint``; (b) the steady state of
+    training from files for KITTI, SUN RGB-D and ScanNet beside the
+    synthetic step and the loader alone; (c) the five learning loops;
+    (d) the API against the runner; (e) no host sync in the profiled steady
+    steps and in a serving forward + decode.  Returns the summary and the
+    KITTI CLI's launches per step and per validation batch."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = write_train_splits(root)
+        out['write_splits_s'] = time.perf_counter() - t0
+        log(f'train from files: splits written in {out["write_splits_s"]:.1f}'
+            f' s')
+        out['kitti_cli'], latest = kitti_cli_runs(data, root)
+        out['apis'] = check_apis(latest, data, root)
+        for key in TRAIN_SPLITS:
+            out[key] = steady_training(key, data, root)
+        sync = dict(training=out['kitti']['profiled_window'],
+                    serving=serving_sync_check(root))
+        for tag, window in sync.items():
+            if window['sync_calls'] or window['device_to_host_copies'] or \
+                    window['kernels'] < 100:
+                raise AssertionError(f'gap 2, {tag}: {window}')
+        out['sync_free'] = sync
+        log(f'train from files: no host sync in 10 steady KITTI steps '
+            f'between two log lines nor in a b=8 forward + decode '
+            f'{json.dumps(sync)}')
+    out['learning'] = {}
+    for family in validate_learning.FAMILIES:
+        with tempfile.TemporaryDirectory() as root:
+            r = validate_learning.learn(family, root, 'cuda')
+        log(f'learning loop {family}: {json.dumps(r)}')
+        if not r['passed']:
+            raise AssertionError(f'learning loop {family} failed its '
+                                 f'criterion: {r["metrics"]}')
+        out['learning'][family] = {k: r[k] for k in (
+            'steps', 'seconds', 'metrics', 'detections')}
+    leaked = sorted(m for m in ('cv2', 'ml_dtypes', 'jax', 'PIL')
+                    if m in sys.modules)
+    if leaked:
+        raise AssertionError(f'train from files: the port imported {leaked}')
+    cli = out['kitti_cli']
+    return out, dict(per_step=cli['launches_per_step'],
+                     per_val_batch=cli['launches_per_val_batch'])
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2636,6 +3203,12 @@ def smoke():
     log(json.dumps({'eval': evaluation}))
     log(f'phase 10 (eval): {time.perf_counter() - t10:.1f} s')
 
+    # training from files: tools/train.py on splits written to disk
+    t11 = time.perf_counter()
+    from_files, cli_counts = run_train_from_files()
+    log(json.dumps({'train_from_files': from_files}))
+    log(f'phase 11 (train from files): {time.perf_counter() - t11:.1f} s')
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -2684,6 +3257,10 @@ def smoke():
         entry['shape'] = row['shape']
         if 'eval_launches' in row:
             entry['eval_launches'] = row['eval_launches']
+        if any(row is r for r in [bp_grad_row] + train_rows):
+            entry['cli_launches'] = {
+                use: counts_of[row['name']]
+                for use, counts_of in cli_counts.items()}
         summary.append(entry)
     log(json.dumps({'kernels': summary}))
     log(json.dumps({'ok': True, 'device': {

@@ -202,13 +202,18 @@ def backproject_batch(features, points, projections, valid_hw):
       acc ``(P, B, C)`` per-voxel feature sums over valid views and cnt
       ``(P, B)`` the number of views seeing each voxel, in the features'
       dtype.
+
+    On the CPU the plain versions run, the backward too: autograd of the
+    plain forward's gather would accumulate with CPU atomics, whose order,
+    and so whose bits, change from run to run.
     """
     if features.is_cuda:
         return BackprojectFunction.apply(
             features.contiguous(), points.float().contiguous(),
             projections.float().contiguous(),
             valid_hw.to(torch.int32).contiguous())
-    return backproject_batch_plain(features, points, projections, valid_hw)
+    return BackprojectFunction.apply(features, points, projections, valid_hw,
+                                     True)
 
 
 def mean_pool_from_sums(acc, cnt, n_views=None):

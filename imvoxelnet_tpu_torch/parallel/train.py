@@ -129,3 +129,17 @@ def make_train_step(model, optimizer, scheduler):
         return dict({k: v.detach() for k, v in losses.items()},
                     loss=total.detach())
     return step
+
+
+def set_schedule_step(optimizer, scheduler, update: int) -> None:
+    """Move the schedule of :func:`make_optimizer` to ``update`` updates
+    done, as a resumed run needs it: the scheduler's count and each group's
+    LR as the unbroken run has them.  ``LambdaLR`` does not pickle its
+    closure, so ``make_optimizer`` rebuilds it and only the count comes
+    back."""
+    lrs = [base * fn(update)
+           for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(optimizer.param_groups, lrs):
+        group['lr'] = lr
+    scheduler.load_state_dict(dict(scheduler.state_dict(), last_epoch=update,
+                                   _last_lr=lrs))

@@ -1,17 +1,19 @@
 """Evaluate a preset on a validation split with the port, on one card.
 
     python -m imvoxelnet_tpu_torch.tools.test PRESET --data-root R \\
-        --ann-file A [--torch-checkpoint X.pth] [--batch-size B] \\
-        [--num-workers N] [--out results.pkl] [--override PATH=VALUE] \\
-        [--device cuda]
+        --ann-file A [--checkpoint latest.pth | --torch-checkpoint X.pth] \\
+        [--batch-size B] [--num-workers N] [--out results.pkl] \\
+        [--override PATH=VALUE] [--device cuda]
 
 Counterpart of the JAX package's ``tools/test.py``: info file + image files
 -> dataset -> image pipeline -> loader -> forward + decode/NMS on the card
 -> per-sample results -> the dataset's protocol, printed as JSON with the
-reference's metric names.  ``--torch-checkpoint`` loads a reference mmdet
-checkpoint (``{'state_dict': ...}``, or a bare state dict) straight into the
-model, whose parameter names are the reference's; without it the weights
-are random from seed 0, as the JAX package's are from its ``PRNGKey(0)``.
+reference's metric names.  ``--checkpoint`` (the port's train state,
+``tools/train.py``'s ``latest.pth``) and ``--torch-checkpoint`` (a
+reference mmdet checkpoint, ``{'state_dict': ...}`` or a bare state dict)
+load through one loader, straight into the model, whose parameter names
+are the reference's; without either the weights are
+random from seed 0, as the JAX package's are from its ``PRNGKey(0)``.
 A float32 preset runs with TF32 off (``utils/precision.py``).
 """
 
@@ -22,11 +24,10 @@ import json
 import pickle
 import time
 
-import torch
-
 from ..configs.presets import apply_overrides, get_preset
 from ..eval import runner
 from ..models.detector import build_model
+from ..utils import checkpoint as ckpt_lib
 from ..utils.precision import compute_precision
 
 
@@ -35,6 +36,9 @@ def parse_args(argv=None):
     parser.add_argument('preset')
     parser.add_argument('--data-root', required=True)
     parser.add_argument('--ann-file', required=True)
+    parser.add_argument('--checkpoint', default=None,
+                        help="the port's train state (tools/train.py's "
+                             "latest.pth) to load")
     parser.add_argument('--torch-checkpoint', default=None,
                         help='reference mmdet checkpoint (.pth) to load')
     parser.add_argument('--batch-size', type=int, default=1)
@@ -46,13 +50,6 @@ def parse_args(argv=None):
                              'model.indoor_head.score_thr=0.1 (repeatable)')
     parser.add_argument('--device', default='cuda')
     return parser.parse_args(argv)
-
-
-def load_reference_checkpoint(model, path):
-    """Load a reference mmdet checkpoint into ``model``, key for key."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=True)
-    state_dict = ckpt.get('state_dict', ckpt)
-    model.load_state_dict(state_dict, strict=True)
 
 
 def main(argv=None):
@@ -70,8 +67,10 @@ def main(argv=None):
         num_workers=args.num_workers, batch_size=args.batch_size,
         device=args.device)
     model = build_model(cfg, device='cpu', seed=0)
-    if args.torch_checkpoint:
-        load_reference_checkpoint(model, args.torch_checkpoint)
+    path = args.checkpoint or args.torch_checkpoint
+    if path:
+        model.load_state_dict(ckpt_lib.load_reference_state_dict(path),
+                              strict=True)
     model.to(args.device)
 
     with compute_precision(cfg.compute_dtype):

@@ -1,4 +1,13 @@
-"""JAX variables -> the port's ``state_dict``.
+"""The port's checkpoints: the train state on disk, reference weights, and
+JAX variables or a JAX train state carried across.
+
+``save_checkpoint`` / ``load_checkpoint`` are the counterparts of
+``imvoxelnet_tpu/utils/checkpoint.py:save_checkpoint/load_checkpoint``: one
+``torch.save`` file of ``{'state_dict', 'optimizer', 'scheduler', 'step',
+'meta'}``, written atomically, read with ``weights_only=True``.  The model's
+``state_dict`` carries the reference's mmdet names, so
+:func:`load_reference_state_dict` (which reads a reference ``.pth``) reads
+the weights of a port checkpoint too.
 
 ``from_jax_variables`` is the inverse of the JAX package's reference
 converter (``imvoxelnet_tpu/utils/checkpoint.py``: ``convert_resnet50``,
@@ -21,6 +30,8 @@ weights.  Layouts:
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -234,3 +245,108 @@ def from_jax_variables(variables_np, cfg) -> dict:
     if cfg.layout_head is not None:
         _layout_head(sd, params['head_2d'])
     return sd
+
+
+def from_jax_train_state(params, batch_stats, opt_np, step, cfg):
+    """A JAX train state (numpy trees) -> ``(state_dict, optimizer_state,
+    scheduler_step)`` for :func:`restore_train_state`.
+
+    ``opt_np`` holds AdamW's ``mu`` and ``nu`` as trees shaped like
+    ``params`` (a leaf the optimizer leaves alone, a frozen one, is
+    ``None``) and AdamW's update ``count``, taken by the caller out of the
+    optax state (a pickle of it cannot be read without optax).  The moments
+    take the parameters' layout transposes; the frozen parameters get no
+    optimizer state, as the port's optimizer holds none for them.
+    ``optimizer_state`` lists each group's parameters in
+    ``parallel/train.py:make_optimizer``'s order; the hyperparameters come
+    from the optimizer it is loaded into."""
+    from ..models.detector import ImVoxelNet
+    from ..parallel.train import param_label
+
+    state_dict = from_jax_variables(
+        {'params': params, 'batch_stats': batch_stats}, cfg)
+    moments = {key: from_jax_variables(
+        {'params': _filled(opt_np[key], params),
+         'batch_stats': batch_stats}, cfg) for key in ('mu', 'nu')}
+    with torch.device('meta'):
+        names = [n for n, _ in ImVoxelNet(cfg).named_parameters()]
+    groups = {'backbone': [], 'rest': []}
+    for name in names:
+        label = param_label(name)
+        if label != 'frozen':
+            groups[label].append(name)
+    order = groups['backbone'] + groups['rest']
+    count = int(opt_np['count'])
+    # copies: the optimizer updates its state in place, and the tensors of
+    # from_jax_variables share the caller's arrays
+    state = {i: {'step': torch.tensor(float(count)),
+                 'exp_avg': moments['mu'][name].clone(),
+                 'exp_avg_sq': moments['nu'][name].clone()}
+             for i, name in enumerate(order)}
+    n_backbone = len(groups['backbone'])
+    param_groups = [{'params': list(range(n_backbone))},
+                    {'params': list(range(n_backbone, len(order)))}]
+    # the schedule's count is the JAX state's step
+    return (state_dict, {'state': state, 'param_groups': param_groups},
+            int(step))
+
+
+def _filled(tree, like):
+    """``tree`` with each ``None`` leaf replaced by zeros shaped as
+    ``like``'s leaf."""
+    if hasattr(like, 'items'):
+        tree = tree or {}
+        return {k: _filled(tree.get(k), v) for k, v in like.items()}
+    return np.zeros(np.shape(like), np.float32) if tree is None else tree
+
+
+# --------------------------------------------------------------------------
+# the train state on disk
+# --------------------------------------------------------------------------
+
+def save_checkpoint(path, model, optimizer, scheduler, step: int,
+                    meta=None):
+    """Write the train state to ``path`` atomically: a ``.tmp`` file, then
+    ``os.replace``.  The scheduler's closure is rebuilt by
+    ``make_optimizer``; only its count is kept."""
+    path = Path(path)
+    payload = dict(state_dict=model.state_dict(),
+                   optimizer=optimizer.state_dict(),
+                   scheduler={'last_epoch': scheduler.last_epoch},
+                   step=int(step), meta=dict(meta or {}))
+    tmp = path.with_suffix('.tmp')
+    torch.save(payload, tmp)
+    tmp.replace(path)                   # atomic on POSIX
+
+
+def load_checkpoint(path, map_location='cpu'):
+    """The payload :func:`save_checkpoint` wrote (tensors, numbers, strings
+    and lists only: ``weights_only=True``)."""
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def restore_train_state(model, optimizer, scheduler, state_dict,
+                        optimizer_state, scheduler_step: int) -> None:
+    """Load a train state into the model and the optimizer and scheduler
+    that ``make_optimizer`` built for it: the weights (strict), AdamW's
+    moments and step counts, and the schedule moved to
+    ``scheduler_step`` updates.  A saved group's hyperparameters replace
+    the optimizer's; a group that lists only its parameters (a JAX state,
+    :func:`from_jax_train_state`) keeps the optimizer's."""
+    from ..parallel.train import set_schedule_step
+
+    model.load_state_dict(state_dict, strict=True)
+    current = optimizer.state_dict()['param_groups']
+    optimizer.load_state_dict(dict(optimizer_state, param_groups=[
+        dict(group, **saved) for group, saved in
+        zip(current, optimizer_state['param_groups'])]))
+    set_schedule_step(optimizer, scheduler, scheduler_step)
+
+
+def load_reference_state_dict(path) -> dict:
+    """The weights of a reference mmdet checkpoint (``{'state_dict': ...}``
+    or a bare state dict), or of a port checkpoint, for
+    ``model.load_state_dict(..., strict=True)``: the port's parameter names
+    are the reference's."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    return ckpt.get('state_dict', ckpt)

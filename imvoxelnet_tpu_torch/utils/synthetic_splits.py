@@ -273,3 +273,182 @@ def nuscenes_split(root, n: int, seed: int = 0,
                           valid_flag=np.ones(len(boxes), bool)))
     return _dump(dict(infos=infos, metadata=dict(version='synthetic')),
                  os.path.join(root, 'nuscenes_infos_val.pkl'))
+
+
+# --------------------------------------------------------------------------
+# learning scenes: one object and a bright blob at its projection
+# --------------------------------------------------------------------------
+# The scenes of the JAX package's tools/validate_learning*.py, written with
+# the port's PNG writer: frames of dark noise (0-59) with a white rectangle
+# around the projected gravity centre of the one GT box, which the info file
+# stores as the dataset reads it (SUN RGB-D, ScanNet and nuScenes at the
+# gravity centre, KITTI at the bottom centre in camera 2's frame).  Each
+# writer returns the info file's path.
+
+def _noise_frame(rng, h, w):
+    return rng.randint(0, 60, (h, w, 3), np.uint8)
+
+
+def _blob(img, u, v, half_w, half_h):
+    """Paint the rectangle of half sizes ``half_w`` x ``half_h`` around
+    pixel ``(u, v)`` white (both edges included), clipped to the frame."""
+    h, w = img.shape[:2]
+    img[max(v - half_h, 0):min(v + half_h, h - 1) + 1,
+        max(u - half_w, 0):min(u + half_w, w - 1) + 1] = 255
+    return [max(u - half_w, 0), max(v - half_h, 0), min(u + half_w, w - 1),
+            min(v + half_h, h - 1)]
+
+
+def _write(root, rel, img):
+    path = os.path.join(root, rel)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    syn.write_png(path, img)
+
+
+def kitti_learning_scene(root):
+    """One Car 15 m ahead of camera 2 (:func:`kitti_calib`'s calibration)
+    on a 1242x375 frame: ``kitti_infos_train.pkl``."""
+    rng = np.random.RandomState(0)
+    calib = kitti_calib(rng)
+    h, w = KITTI_FRAME
+    loc = np.array([2.0, 1.5, 15.0])      # x right, y down (bottom), z ahead
+    dims = np.array([3.9, 1.56, 1.6])     # (l, h, w)
+    p2 = calib['P2']
+    uvw = p2[:3, :3] @ (loc - [0.0, dims[1] / 2, 0.0]) + p2[:3, 3]
+    img = _noise_frame(rng, h, w)
+    rect = _blob(img, int(uvw[0] / uvw[2]), int(uvw[1] / uvw[2]), 40, 25)
+    rel = 'training/image_2/000000.png'
+    _write(root, rel, img)
+    info = dict(
+        image=dict(image_idx=0, image_path=rel,
+                   image_shape=np.array([h, w], np.int32)),
+        calib=calib,
+        annos=dict(name=np.array(['Car']), truncated=np.zeros(1),
+                   occluded=np.zeros(1, np.int64), alpha=np.zeros(1),
+                   bbox=np.array([rect], np.float64),
+                   dimensions=dims[None], location=loc[None],
+                   rotation_y=np.zeros(1)))
+    return _dump([info], os.path.join(root, 'kitti_infos_train.pkl'))
+
+
+def sunrgbd_learning_scene(root, total3d=False):
+    """One 1 m box 3 m ahead of a 640x480 camera (fx 400): with ``Rt = I``,
+    or for Total3D with the camera pitched 0.08 and rolled -0.05 rad (the
+    stored ``Rt`` undoes the dataset's axis swap of
+    ``predicted_extrinsics`` of those angles) and a room layout:
+    ``infos.pkl``."""
+    import torch
+
+    from ..models.heads.layout_head import predicted_extrinsics
+
+    rng = np.random.RandomState(0)
+    fx, cx, cy = 400.0, 320.0, 240.0
+    k = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]])
+    box = np.array([0.5, 3.0, -0.5, 1.0, 1.0, 1.0, 0.3])   # bottom centre
+    gc = box[:3] + [0.0, 0.0, box[5] / 2]
+    extra = {}
+    if total3d:
+        angles = np.array([0.08, -0.05], np.float32)           # pitch, roll
+        ext = predicted_extrinsics(torch.from_numpy(angles[None]))[0].numpy()
+        e = ext[:3, :3].T.astype(np.float64)
+        rt = np.stack([e[:, 0], e[:, 2], -e[:, 1]], axis=1)
+        cam = ext[:3, :3] @ gc
+        extra = dict(angles=angles, layout=np.array(
+            [0.2, 3.2, 0.3, 5.0, 6.0, 3.0, 0.1], np.float32))
+    else:
+        rt = np.eye(3)
+        cam = np.array([gc[0], -gc[2], gc[1]])    # (x, -z, y) of the depth
+    img = _noise_frame(rng, 480, 640)
+    _blob(img, int(fx * cam[0] / cam[2] + cx), int(fx * cam[1] / cam[2] + cy),
+          60, 60)
+    rel = 'image/000001.png'
+    _write(root, rel, img)
+    stored = box.copy()
+    stored[2] += box[5] / 2                       # origin (.5, .5, .5)
+    info = dict(image=dict(image_idx=1, image_path=rel,
+                           image_shape=np.array([480, 640], np.int32)),
+                calib=dict(K=k.T.reshape(-1), Rt=rt),
+                annos=dict(gt_num=1, gt_boxes_upright_depth=stored[None],
+                           name=np.array(['bed']),
+                           **{'class': np.array([0])}),
+                **extra)
+    return _dump([info], os.path.join(root, 'infos.pkl'))
+
+
+def scannet_learning_scene(root):
+    """One axis-aligned 1 m box seen by three 640x480 cameras (fx 300) 4 m
+    away, at 0 and +-0.4 rad around it: ``infos.pkl``."""
+    rng = np.random.RandomState(0)
+    center = np.array([0.3, -0.2, 0.5])
+    fx, cx, cy = 300.0, 320.0, 240.0
+    poses, paths = [], []
+    for i, a in enumerate((0.0, 0.4, -0.4)):
+        c, s = np.cos(a), np.sin(a)
+        pose = np.eye(4)                          # camera to world
+        pose[:3, 0] = [-s, c, 0.0]                # x right
+        pose[:3, 1] = [0.0, 0.0, -1.0]            # y down
+        pose[:3, 2] = [c, s, 0.0]                 # z: at the box
+        pose[:3, 3] = center - 4.0 * np.array([c, s, 0.0])
+        pc = (np.linalg.inv(pose) @ np.r_[center, 1.0])[:3]
+        img = _noise_frame(rng, 480, 640)
+        _blob(img, int(fx * pc[0] / pc[2] + cx), int(fx * pc[1] / pc[2] + cy),
+              50, 50)
+        paths.append(f'posed_images/scene/{i}.png')
+        _write(root, paths[-1], img)
+        poses.append(pose)
+    info = dict(
+        img_paths=paths,
+        intrinsics=np.array([[fx, 0, cx, 0], [0, fx, cy, 0], [0, 0, 1, 0],
+                             [0, 0, 0, 1]]),
+        extrinsics=poses,
+        annos=dict(gt_num=1, axis_align_matrix=np.eye(4),
+                   gt_boxes_upright_depth=np.r_[center, 1.0, 1.0, 1.0][None],
+                   **{'class': np.array([0])}))
+    return _dump([info], os.path.join(root, 'infos.pkl'))
+
+
+def nuscenes_learning_scene(root):
+    """One car among six 320x192 cameras (fx 120) ringing the ego, drawn
+    into every camera that sees it through the dataset's own ``lidar2img``:
+    ``infos.pkl`` in the standard ``{'infos', 'metadata'}`` form."""
+    from ..data.datasets import NuScenesMultiViewDataset
+    from ..data.pipeline import ImagePipelineConfig
+
+    rng = np.random.RandomState(0)
+    h, w = 192, 320
+    fx = 120.0
+    gt_gc = np.array([2.4, 0.4, -0.3, 1.9, 4.6, 1.7, 0.25], np.float32)
+    cams, imgs = {}, []
+    for i, cam in enumerate(NuScenesMultiViewDataset.CAMERAS):
+        # camera i faces lidar yaw theta: the rotation's columns are the
+        # camera's x right, y down and z ahead in the lidar frame
+        theta = np.deg2rad((0, -55, 55, 180, 125, -125)[i])
+        cams[cam] = dict(
+            data_path=f'samples/{cam}/0.png',
+            cam_intrinsic=np.array([[fx, 0, w / 2], [0, fx, h / 2],
+                                    [0, 0, 1.0]]),
+            sensor2lidar_rotation=np.array(
+                [[np.sin(theta), 0.0, np.cos(theta)],
+                 [-np.cos(theta), 0.0, np.sin(theta)], [0.0, -1.0, 0.0]]),
+            sensor2lidar_translation=np.array([0.0, 0.0, 0.2]))
+        imgs.append(_noise_frame(rng, h, w))
+    ann_file = _dump(dict(infos=[dict(
+        cams=cams, gt_boxes=gt_gc[None], gt_names=np.array(['car']),
+        num_lidar_pts=np.array([10]))], metadata=dict(version='synthetic')),
+        os.path.join(root, 'infos.pkl'))
+    data = NuScenesMultiViewDataset(root, ann_file, ('car',),
+                                    ImagePipelineConfig()).get_data_info(0)
+    n_seen = 0
+    for i, cam in enumerate(NuScenesMultiViewDataset.CAMERAS):
+        l2i = np.asarray(data['extrinsics'][i], np.float64)
+        uvw = l2i[:3, :3] @ gt_gc[:3] + l2i[:3, 3]
+        u, v = (int(uvw[0] / uvw[2]), int(uvw[1] / uvw[2])) if (
+            uvw[2] > 0.5) else (-1, -1)
+        if 0 <= u < w and 0 <= v < h:
+            _blob(imgs[i], u, v, int(fx * gt_gc[4] / 2 / uvw[2]),
+                  int(fx * gt_gc[5] / 2 / uvw[2]))
+            n_seen += 1
+        _write(root, cams[cam]['data_path'], imgs[i])
+    if n_seen == 0:
+        raise AssertionError('the car projects into no camera')
+    return ann_file

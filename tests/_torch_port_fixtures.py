@@ -5,7 +5,10 @@ numpy tree shaped like the JAX ``ImVoxelNet``'s variables, which the port
 loads through ``from_jax_variables``.
 """
 
+import os
+
 import numpy as np
+import pytest
 
 H, W = 96, 320                       # tiny_kitti_test image size
 RATIO = 4.0                          # ori_h / (img_h / stride), ori == img
@@ -231,3 +234,19 @@ def tiny_nuscenes_cfgs():
                                 -1.0),),
                 nms_pre=64, max_out=16)))
     return tuple(out)
+
+
+@pytest.fixture(scope='module', autouse=False)
+def shared_cores():
+    """Under pytest-xdist, this worker's share of the cores for torch's
+    intra-op threads, for the module: each worker otherwise starts a thread
+    per core, and six workers' steps on eight cores spin against each other
+    (a two-step learning loop of 1.2 s alone took 45-79 s in the suite).
+    The count comes back after the module."""
+    import torch
+
+    workers = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, before // workers))
+    yield
+    torch.set_num_threads(before)

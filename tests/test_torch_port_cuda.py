@@ -1248,3 +1248,67 @@ def test_test_tool_runs_a_split_on_the_card(cuda, kitti_split, tmp_path):
     assert counts['rect_clip'] == 1 and counts['nms_scan'] == 1
     assert all(np.isfinite(v) for v in summary['metrics'].values())
     assert 'KITTI/Car_3D_moderate' in summary['metrics']
+
+
+def _train_args(split, work, epochs, *extra):
+    """``tools/train.py`` on imvoxelnet_kitti at full width, b=2 bfloat16,
+    a 4-frame split once an epoch: 2 steps an epoch."""
+    return ['imvoxelnet_kitti', '--data-root', split[0], '--ann-file',
+            split[1], '--work-dir', work, '--epochs', str(epochs),
+            '--batch-size', '2', '--num-workers', '2', '--log-interval', '1',
+            '--override', 'model.compute_dtype=bfloat16', '--override',
+            'data.repeat_times=1', *extra]
+
+
+@pytest.fixture
+def kitti_train_split(tmp_path):
+    from imvoxelnet_tpu_torch.utils import synthetic_splits
+    root = str(tmp_path / 'kitti_train')
+    return root, synthetic_splits.kitti_split(root, 4, seed=4)
+
+
+def test_train_tool_runs_two_steps_on_the_card(cuda, kitti_train_split,
+                                               tmp_path):
+    """Two steps and a validation of the 4 frames at b=4: launches B1 1,
+    its backward 1 and B3 4 a step, B1 1, B3 2, mask 1 and scan 1 the
+    validation batch; finite losses; a ``latest.pth``."""
+    import os
+    from imvoxelnet_tpu_torch import kernels as kernels_lib
+    from imvoxelnet_tpu_torch.tools import train as train_tool
+    kernels_lib.reset_launch_counts()
+    summary = train_tool.main(_train_args(
+        kitti_train_split, str(tmp_path / 'w'), 1, '--val-ann-file',
+        kitti_train_split[1], '--val-batch-size', '4'))
+    counts = kernels_lib.launch_counts()
+    assert summary['steps_per_epoch'] == 2 and summary['step'] == 2
+    assert counts == dict(backproject=2 + 1, backproject_grad=2,
+                          conv3x3x3=2 * 4 + 2, rect_clip=1,
+                          rect_clip_grad=0, nms_scan=1)
+    assert all(np.isfinite(line['loss']) for line in summary['train'])
+    assert len(summary['val']) == 1 and os.path.exists(summary['latest'])
+
+
+def test_train_tool_resume_equals_the_straight_run_on_the_card(
+        cuda, kitti_train_split, tmp_path, monkeypatch):
+    """``--epochs 1`` then ``--epochs 2`` against ``--epochs 2`` under
+    ``cudnn.deterministic``: every tensor of the train state bit for
+    bit."""
+    from imvoxelnet_tpu_torch.tools import train as train_tool
+    from imvoxelnet_tpu_torch.utils import checkpoint as ckpt_lib
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    straight = train_tool.main(_train_args(kitti_train_split,
+                                           str(tmp_path / 's'), 2))
+    train_tool.main(_train_args(kitti_train_split, str(tmp_path / 'r'), 1))
+    resumed = train_tool.main(_train_args(kitti_train_split,
+                                          str(tmp_path / 'r'), 2))
+    assert resumed['start_epoch'] == 1
+    assert [line['loss'] for line in resumed['train']] == [
+        line['loss'] for line in straight['train'][2:]]
+    a, b = (ckpt_lib.load_checkpoint(s['latest'])
+            for s in (straight, resumed))
+    assert a['step'] == b['step'] == 4 and a['scheduler'] == b['scheduler']
+    for key, val in a['state_dict'].items():
+        assert torch.equal(b['state_dict'][key], val), key
+    for i, state in a['optimizer']['state'].items():
+        for key, val in state.items():
+            assert torch.equal(b['optimizer']['state'][i][key], val), (i, key)

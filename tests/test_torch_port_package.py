@@ -34,7 +34,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     + decode, a tiny Total3D one (predicted extrinsics), a tiny 3-view
     ScanNet one, a tiny six-view nuScenes one (DCN backbone) and a tiny
     KITTI val split (PNG files) through ``build_val_dataset`` ->
-    ``run_inference`` -> ``evaluate_results`` in a fresh interpreter leave
+    ``run_inference`` -> ``evaluate_results``, with ``apis``,
+    ``tools.train`` and ``tools.validate_learning`` imported, in a fresh
+    interpreter leave
     every ``jax*``, ``flax*``, ``optax*``, ``ml_dtypes`` and ``cv2``
     module and every
     ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of ``sys.modules``
@@ -45,6 +47,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         import numpy as np
         import torch
         import imvoxelnet_tpu_torch
+        # the training CLI, the API and the learning loops
+        from imvoxelnet_tpu_torch import apis
+        from imvoxelnet_tpu_torch.tools import train, validate_learning
         from imvoxelnet_tpu_torch.configs.presets import get_preset
         from imvoxelnet_tpu_torch.models.detector import (
             build_model, imvoxelnet_predict)

@@ -149,6 +149,27 @@ Phases, each failing the run on its own error:
                 device-to-host copy; the five learning loops of
                 tools/validate_learning.py (cudnn.deterministic) with their
                 criteria.
+  12. export and the paths no preset takes -- imvoxelnet_kitti (bfloat16,
+                weights as inputs) exported with torch.export at b=1 and
+                with a symbolic batch, imvoxelnet_total_sunrgbd_fast at b=1
+                (angles and layout), their kernels torch.ops.imvx nodes;
+                saved, then loaded and run in a fresh interpreter that
+                imports imvoxelnet_tpu_torch.utils.export alone (b=1 and b=8
+                on the poly-batch program), each call's launches asserted
+                (B1 1, B3 2, mask 1, scan 1), the detections held to the
+                eager forward, the b=8 call traced for host syncs; the baked
+                program through tools/export.py --verify; the untruncated
+                NMS (pre_nms_k=0) of imvoxelnet_sunrgbd on a b=8 forward's
+                head outputs: the clip's pairwise entry once and the scan
+                once for all samples and classes, equal to the plain path
+                sample by sample, no host sync, its peak memory and time
+                against the truncated decode; use_rotate_nms=False at
+                imvoxelnet_kitti b=8 (the scan alone) equal to the plain
+                path; giou_3d_loss on 934,400 pairs (the clip's paired entry
+                and its backward) against the plain path; the backbones of
+                imvoxelnet_kitti and imvoxelnet_nuscenes with their frozen
+                BNs folded against unfolded (float32, TF32 off); and
+                tools/test.py --show-dir on a 2-frame KITTI split.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -177,6 +198,7 @@ from imvoxelnet_tpu_torch import apis, kernels
 from imvoxelnet_tpu_torch.configs.presets import apply_overrides, get_preset
 from imvoxelnet_tpu_torch.data import datasets
 from imvoxelnet_tpu_torch.data import loader as loader_lib
+from imvoxelnet_tpu_torch.data.image_io import load_image
 from imvoxelnet_tpu_torch.eval import indoor_eval, kitti_eval, nuscenes_eval
 from imvoxelnet_tpu_torch.eval import runner
 from imvoxelnet_tpu_torch.kernels import backproject as bp_kernel
@@ -186,6 +208,7 @@ from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.core import target_assign
 from imvoxelnet_tpu_torch.models import necks3d
 from imvoxelnet_tpu_torch.models.dcn import DeformConv2d
+from imvoxelnet_tpu_torch.models.resnet import FrozenBatchNorm
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
 from imvoxelnet_tpu_torch.models.detector import (build_model,
                                                   imvoxelnet_loss,
@@ -195,6 +218,7 @@ from imvoxelnet_tpu_torch.ops import boxes as box_ops
 from imvoxelnet_tpu_torch.ops import conv3z
 from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
+from imvoxelnet_tpu_torch.ops import losses as loss_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import train as train_lib
 from imvoxelnet_tpu_torch.tools import test as test_tool
@@ -943,6 +967,9 @@ PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
           nms_ops.rotated_nms_presorted_plain),
          (nms_ops, 'aligned_nms_presorted',
           nms_ops.aligned_nms_presorted_plain),
+         (nms_ops, 'normal_nms_presorted',
+          nms_ops.normal_nms_presorted_plain),
+         (nms_ops, 'nms_in_rank_order', nms_ops.nms_in_rank_order_plain),
          (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
 
 
@@ -3039,6 +3066,601 @@ def run_train_from_files():
                      per_val_batch=cli['launches_per_val_batch'])
 
 
+# --------------------------------------------------------------------------
+# phase 12: serving export, visualization, BN folding, and the NMS and loss
+# paths no preset takes
+# --------------------------------------------------------------------------
+
+EXPORT_PRESET = 'imvoxelnet_kitti'
+TOTAL3D_EXPORT = 'imvoxelnet_total_sunrgbd_fast'
+# the torch.ops.imvx nodes of an exported KITTI program, and the launches
+# of one call of it
+EXPORT_OPS = {'imvx.backproject.default': 1, 'imvx.conv3x3x3.default': 2,
+              'imvx.nms_mask.default': 1, 'imvx.nms_scan.default': 1}
+EXPORT_LAUNCHES = EVAL_BATCH_LAUNCHES['kitti']
+EXPORT_REPS = 5
+# the exact NMS: the clip's pairwise entry once for all samples, the scan
+# once for all samples and classes
+EXACT_LAUNCHES = dict(backproject=0, backproject_grad=0, conv3x3x3=0,
+                      rect_clip=1, rect_clip_grad=0, nms_scan=1)
+NORMAL_NMS_LAUNCHES = dict(EXACT_LAUNCHES, rect_clip=0)
+GIOU_LAUNCHES = dict(EXACT_LAUNCHES, rect_clip_grad=1, nms_scan=0)
+GIOU_PAIRS = 934400
+FOLD_TOL = 1e-4
+
+# Run in a fresh interpreter that imports imvoxelnet_tpu_torch.utils.export
+# alone: each program loaded (load_exported registers torch.ops.imvx), run
+# on its batches with the launches it made counted, timed, and the KITTI
+# program's b=8 call profiled for the host-sync check.
+EXPORT_RUN = r"""
+import json, sys, time
+import torch
+from imvoxelnet_tpu_torch.utils import export as export_lib
+spec = json.loads(sys.argv[1])
+before = sorted(m for m in sys.modules if m.startswith('imvoxelnet_tpu_torch'))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = {'modules_before_load': before, 'runs': {}}
+for prog in spec['programs']:
+    t0 = time.perf_counter()
+    program = export_lib.load_exported(prog['path']).module()
+    kernels = sys.modules['imvoxelnet_tpu_torch.kernels']
+    state = torch.load(prog['state'], map_location='cuda')
+    load_s = time.perf_counter() - t0
+    for tag, path in prog['batches'].items():
+        batch = torch.load(path, map_location='cuda')
+        with torch.no_grad():
+            program(state, batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            res = program(state, batch)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(spec['reps']):
+                program(state, batch)['scores'].sum().item()
+            ms = (time.perf_counter() - t0) * 1e3 / spec['reps']
+            if (tag, prog['name']) == (spec['trace_batch'], spec['trace']):
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    with torch.profiler.record_function(spec['span']):
+                        program(state, batch)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(spec['trace_path'])
+        torch.save({k: v.cpu() for k, v in res.items()},
+                   prog['out'] + f'.{tag}.pt')
+        out['runs'][f"{prog['name']} {tag}"] = dict(
+            launches=counts, ms=ms, load_s=load_s)
+print(json.dumps(out))
+"""
+
+
+def imvx_nodes(exported):
+    """How many times each ``torch.ops.imvx`` operator is called in a
+    program's graph."""
+    counts = {}
+    for node in exported.graph.nodes:
+        if node.op == 'call_function' and str(node.target).startswith('imvx'):
+            counts[str(node.target)] = counts.get(str(node.target), 0) + 1
+    return counts
+
+
+def same_detections(tag, got, ref):
+    """A program's detections against the eager forward's: labels and
+    valid exactly, boxes and scores (angles, layout) within 2e-3; whether
+    they are bit-identical too."""
+    for key in ('labels', 'valid'):
+        if not torch.equal(got[key].cpu(), ref[key].cpu()):
+            raise AssertionError(f'{tag}: {key} differs from eager')
+    keys = [k for k in ('boxes', 'scores', 'angles', 'layout') if k in ref]
+    if set(got) != set(ref):
+        raise AssertionError(f'{tag}: outputs {sorted(got)} != '
+                             f'{sorted(ref)}')
+    err = 0.0
+    for key in keys:
+        a, b = got[key].cpu(), ref[key].cpu()
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+        err = max(err, float((a - b).abs().max()))
+    if int(ref['valid'].sum()) == 0:
+        raise AssertionError(f'{tag}: no detection to compare')
+    return dict(detections=int(ref['valid'].sum()), max_abs_err=err,
+                bit_identical=all(torch.equal(got[k].cpu(), ref[k].cpu())
+                                  for k in keys))
+
+
+def timed_eager(model, cfg, batch, reps=EXPORT_REPS):
+    """The eager forward + decode's ms per call (host clock, a score
+    fetched each call), as the loaded programs are timed."""
+    runner.forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.forward(model, cfg, batch)['scores'].sum().item()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def run_export(root):
+    """(1), (2), (7b), (8a): KITTI (bfloat16, weights as inputs) exported at
+    b=1 and with a symbolic batch, Total3D at b=1, loaded and run in a fresh
+    interpreter and held to the eager forward; the baked KITTI program
+    through tools/export.py --verify."""
+    from imvoxelnet_tpu_torch.tools import export as export_tool
+    from imvoxelnet_tpu_torch.utils import export as export_lib
+
+    preset = apply_overrides(get_preset(EXPORT_PRESET), [BF16])
+    cfg = preset.model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    zero_cls_bias(model)
+    batches = {'b1': kitti_batch(1, 'cuda', seed=SEED),
+               'b8': kitti_batch(8, 'cuda', seed=SEED + 1)}
+    tcfg = get_preset(TOTAL3D_EXPORT).model
+    tmodel = build_model(tcfg, device='cuda', seed=SEED)
+    zero_cls_bias(tmodel)
+    level_angle_head(tmodel)
+    tbatch = sunrgbd_batch(1, 'cuda', seed=SEED)
+
+    out, progs = {}, []
+    for tag, m, c, b, size in (
+            ('kitti b=1', model, cfg, batches['b1'], 1),
+            ('kitti poly', model, cfg, kitti_batch(2, 'cuda', seed=SEED),
+             None),
+            ('total3d b=1', tmodel, tcfg, tbatch, 1)):
+        t0 = time.perf_counter()
+        exported = export_lib.export_serving(c, m, b, batch_size=size)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(root, tag.replace(' ', '_') + '.pt2')
+        nodes = imvx_nodes(exported)
+        want = EXPORT_OPS if tag.startswith('kitti') else dict(
+            EXPORT_OPS, **{'imvx.conv3x3x3.default': 0})
+        if {k: nodes.get(k, 0) for k in want} != want:
+            raise AssertionError(f'export {tag}: imvx nodes {nodes}')
+        out[tag] = dict(export_s=export_s,
+                        bytes=export_lib.save_exported(exported, path),
+                        imvx_nodes=nodes,
+                        outputs=export_lib.output_shapes(exported))
+        state = os.path.join(root, tag.replace(' ', '_') + '.state.pt')
+        torch.save(m.state_dict(), state)
+        runs = ({'b1': batches['b1']} if tag == 'kitti b=1' else
+                batches if tag == 'kitti poly' else {'b1': tbatch})
+        bpaths = {}
+        for k, v in runs.items():
+            bpaths[k] = os.path.join(
+                root, f'batch_{tag.replace(" ", "_")}_{k}.pt')
+            torch.save(v, bpaths[k])
+        progs.append(dict(name=tag, path=path, state=state, batches=bpaths,
+                          out=os.path.join(root, tag.replace(' ', '_'))))
+        log(f'export {tag}: {json.dumps(out[tag])}')
+    trace = os.path.join(root, 'exported_trace.json')
+    spec = dict(programs=progs, reps=EXPORT_REPS, trace='kitti poly',
+                trace_batch='b8', trace_path=trace, span=STEP_SPAN)
+    proc = subprocess.run([sys.executable, '-c', EXPORT_RUN,
+                           json.dumps(spec)], capture_output=True, text=True,
+                          cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f'export: the fresh interpreter failed: '
+                             f'{proc.stderr.strip()[-3000:]}')
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    with compute_precision('float32'):
+        refs = {('kitti', k): runner.forward(model, cfg, v)
+                for k, v in batches.items()}
+        refs[('total3d', 'b1')] = runner.forward(tmodel, tcfg, tbatch)
+        eager_ms = {'kitti b1': timed_eager(model, cfg, batches['b1']),
+                    'kitti b8': timed_eager(model, cfg, batches['b8']),
+                    'total3d b1': timed_eager(tmodel, tcfg, tbatch)}
+    for prog in progs:
+        family = prog['name'].split()[0]
+        for k in prog['batches']:
+            run = fresh['runs'][f"{prog['name']} {k}"]
+            want = (EXPORT_LAUNCHES if family == 'kitti'
+                    else EVAL_BATCH_LAUNCHES['total3d'])
+            assert_launches(f'loaded {prog["name"]} {k}', run['launches'],
+                            want)
+            got = torch.load(prog['out'] + f'.{k}.pt')
+            run.update(same_detections(f'loaded {prog["name"]} {k}', got,
+                                       refs[(family, k)]),
+                       eager_ms=eager_ms[f'{family} {k}'])
+            out[prog['name']][k] = run
+    sync = trace_window(trace, 1)
+    if sync['sync_calls'] or sync['device_to_host_copies']:
+        raise AssertionError(f'loaded kitti poly b=8 waits for the device: '
+                             f'{sync}')
+    out['kitti poly']['b8']['host_sync'] = sync
+    out['fresh_interpreter_modules_before_load'] = \
+        fresh['modules_before_load']
+
+    # the baked program through the tool, verified in the same process
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        baked = export_tool.main([EXPORT_PRESET, '--out',
+                                  os.path.join(root, 'kitti_baked.pt2'),
+                                  '--bake-weights', '--verify',
+                                  '--override', BF16])
+    baked['tool_s'] = time.perf_counter() - t0
+    if not baked['verified']:
+        raise AssertionError('tools/export.py --verify did not verify')
+    out['kitti baked (tools/export.py --verify)'] = baked
+    del model, tmodel
+    return out
+
+
+def per_sample(head_outs, i):
+    """Sample ``i`` of an indoor head's level lists (or a KITTI head's
+    maps), batch dim kept."""
+    return tuple([t[i:i + 1] for t in x] if isinstance(x, (list, tuple))
+                 else x[i:i + 1] for x in head_outs)
+
+
+def cat_results(results):
+    return {k: torch.cat([r[k] for r in results]) for k in results[0]}
+
+
+@contextlib.contextmanager
+def pairwise_probe(seen):
+    """Record the corners that reach the clip's pairwise entry."""
+    wrapped = clip_kernel.rect_intersection_area_pairwise
+
+    def probe(c1, c2):
+        seen.append((c1.clone(), c2.clone()))
+        return wrapped(c1, c2)
+    with swapped((clip_kernel, 'rect_intersection_area_pairwise', probe)):
+        yield
+
+
+def scan_row(mask, valid, label, launches):
+    """A ``kernels`` row of the scan kernel on a mask a decode sent it."""
+    keep = clip_kernel.nms_scan(mask, valid)
+    if not torch.equal(keep, nms_ops.nms_scan_plain(mask, valid)):
+        raise AssertionError(f'nms scan {label}: differs from the plain '
+                             f'version')
+    g, n = valid.shape
+    row = clip_row(
+        'nms_scan', 'imvoxelnet_tpu/ops/nms.py:75',
+        f'nms scan, {label}, G={g} N={n}',
+        time_ms(lambda: clip_kernel.nms_scan(mask, valid), 20,
+                queue_us=QUEUE_US * 4),
+        time_ms(lambda: nms_ops.nms_scan_plain(mask, valid), 1),
+        nbytes(mask, valid, keep), 0,
+        launch_bound_ms=time_ms(lambda: clip_kernel.nms_scan(mask, valid),
+                                20), kept=int(keep.sum()))
+    row['launches'] = launches
+    return row
+
+
+def exact_pairwise_row(c1, c2, launches):
+    """A ``kernels`` row of the clip's pairwise entry on the exact NMS's
+    ``(B, N, 4, 2)`` corners, one launch for all samples; the plain version
+    runs sample by sample (one sample's 9 M pairs at a time)."""
+    got = clip_kernel.rect_intersection_area_pairwise(c1, c2)
+    for i in range(c1.shape[0]):
+        assert_same_bits(
+            f'rect_clip pairwise, exact NMS, sample {i}', got[i:i + 1],
+            iou_ops.rect_intersection_area_pairwise_plain(c1[i:i + 1],
+                                                          c2[i:i + 1]))
+    g, n, m = got.shape
+
+    def plain():
+        for i in range(g):
+            iou_ops.rect_intersection_area_pairwise_plain(c1[i:i + 1],
+                                                          c2[i:i + 1])
+    row = clip_row(
+        'rect_clip', CLIP_REPLACES, f'pairwise, exact NMS of '
+        f'{EXACT_PRESET} b={g}, G={g} N=M={n}, {g * n * m} pairs float32',
+        time_ms(lambda: clip_kernel.rect_intersection_area_pairwise(c1, c2),
+                5), time_ms(plain, 1),
+        nbytes(c1, c2, got), g * n * m * CLIP_FLOPS,
+        plain_note='the plain clip one sample at a time')
+    row['launches'] = launches
+    return row
+
+
+EXACT_PRESET = 'imvoxelnet_sunrgbd'
+
+
+def run_exact_nms(root):
+    """(3), (8b): the untruncated NMS (``pre_nms_k=0``) of imvoxelnet_sunrgbd
+    on one b=8 bfloat16 forward's head outputs: the kernel path against the
+    plain path (sample by sample), launches, no wait for the device, its
+    peak memory and ms against the truncated decode's, and how many
+    detections differ from the truncated path's."""
+    preset = apply_overrides(get_preset(EXACT_PRESET), [BF16])
+    cfg = preset.model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    zero_cls_bias(model)
+    batch = sunrgbd_batch(8, 'cuda', seed=SEED)
+    with torch.no_grad():
+        head_outs, valid = model(batch)
+    del model
+    origins = batch['origins']
+    exact = dataclasses.replace(cfg.indoor_head, pre_nms_k=0)
+
+    def decode(hcfg, outs=head_outs, v=valid, o=origins):
+        return ivh.indoor_head_get_bboxes(outs, v, o, hcfg)
+    decode(exact)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    pairs, scans = [], []
+    with pairwise_probe(pairs), scan_probe(scans):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            res = decode(exact)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    assert_launches('exact nms', counts, EXACT_LAUNCHES)
+    path = os.path.join(root, 'exact_nms_trace.json')
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(STEP_SPAN):
+            decode(exact)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    sync = trace_window(path, 1)
+    if sync['sync_calls'] or sync['device_to_host_copies']:
+        raise AssertionError(f'exact nms waits for the device: {sync}')
+    with plain_path():
+        ref = cat_results([decode(exact, per_sample(head_outs, i),
+                                  valid[i:i + 1], origins[i:i + 1])
+                           for i in range(valid.shape[0])])
+    torch.cuda.synchronize()
+    for key in ('boxes', 'scores', 'labels', 'valid'):
+        if not torch.equal(res[key], ref[key]):
+            raise AssertionError(f'exact nms: {key} differs from the plain '
+                                 f'path')
+    trunc = decode(cfg.indoor_head)
+    differ = ((res['valid'] != trunc['valid']) | (res['valid'] & (
+        (res['labels'] != trunc['labels'])
+        | (res['boxes'] != trunc['boxes']).any(-1))))
+    n_cand = pairs[0][0].shape[1]
+    out = dict(
+        candidates=n_cand, classes=cfg.indoor_head.n_classes,
+        detections=int(res['valid'].sum()),
+        detections_truncated=int(trunc['valid'].sum()),
+        rows_differing_from_truncated=int(differ.sum()),
+        equal_to_plain_path=True, launches=counts,
+        peak_memory_gb=peak_gb, rank_chunk_bools=nms_ops._RANK_CHUNK,
+        decode_ms=time_ms(lambda: decode(exact), 3),
+        truncated_decode_ms=time_ms(lambda: decode(cfg.indoor_head), 5),
+        host_sync=sync, sync_free=True)
+    if not out['detections']:
+        raise AssertionError('exact nms: no detection')
+    log(f'exact nms: {json.dumps(out)}')
+    rows = [exact_pairwise_row(*pairs[0], counts['rect_clip']),
+            scan_row(*scans[0], f'exact NMS of {EXACT_PRESET} b=8',
+                     counts['nms_scan'])]
+    return out, rows
+
+
+def run_normal_nms():
+    """(4): ``use_rotate_nms=False`` at imvoxelnet_kitti b=8 bfloat16: the
+    axis-aligned BEV NMS (a plain mask and the scan kernel) against the
+    plain path, exactly, with its launches."""
+    preset = apply_overrides(get_preset(EXPORT_PRESET), [BF16])
+    cfg = preset.model
+    model = build_model(cfg, device='cuda', seed=SEED)
+    zero_cls_bias(model)
+    with torch.no_grad():
+        head_outs, _ = model(kitti_batch(8, 'cuda', seed=SEED + 1))
+    del model
+    hcfg = dataclasses.replace(cfg.anchor_head, use_rotate_nms=False)
+    a3d.anchor3d_head_get_bboxes(head_outs, hcfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    scans = []
+    with scan_probe(scans):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            res = a3d.anchor3d_head_get_bboxes(head_outs, hcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert_launches('use_rotate_nms=False', counts, NORMAL_NMS_LAUNCHES)
+    with plain_path():
+        ref = a3d.anchor3d_head_get_bboxes(head_outs, hcfg)
+    rotated = a3d.anchor3d_head_get_bboxes(head_outs, cfg.anchor_head)
+    for key in ('boxes', 'scores', 'labels', 'valid'):
+        if not torch.equal(res[key], ref[key]):
+            raise AssertionError(f'use_rotate_nms=False: {key} differs from '
+                                 f'the plain path')
+    out = dict(detections=int(res['valid'].sum()),
+               detections_rotated=int(rotated['valid'].sum()),
+               equal_to_plain_path=True, launches=counts, sync_free=True)
+    if not out['detections']:
+        raise AssertionError('use_rotate_nms=False: no detection')
+    log(f'use_rotate_nms=False: {json.dumps(out)}')
+    return out, [scan_row(*scans[0], f'axis-aligned BEV NMS of '
+                          f'{EXPORT_PRESET} b=8', counts['nms_scan'])]
+
+
+def giou_pairs(rng, n):
+    """``n`` aligned pairs of gravity-center furniture boxes as the IoU-3D
+    loss sees them over a b=4 step's points (``loss_pairs``' mix: near
+    pairs and 5% each disjoint, identical and nested), with a positive
+    weight on 1.1% of them, as a step's positives."""
+    target = np.concatenate([rng.uniform(-3, 3, (n, 2)),
+                             rng.uniform(0.2, 1.5, (n, 1)),
+                             rng.uniform(0.3, 2.5, (n, 3)),
+                             rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    pred = target + np.concatenate([0.2 * rng.randn(n, 3),
+                                    0.15 * rng.randn(n, 3),
+                                    0.3 * rng.randn(n, 1)], -1)
+    pred[:, 3:6] = np.abs(pred[:, 3:6]) + 0.05
+    k = n // 20
+    pred[:k, :2] += 20.0
+    pred[k:2 * k] = target[k:2 * k]
+    pred[2 * k:3 * k, 3:6] = target[2 * k:3 * k, 3:6] * 0.5
+    weight = (rng.uniform(size=n) < 0.011).astype(np.float32)
+    return [torch.tensor(x.astype(np.float32), device='cuda')
+            for x in (pred, target, weight)]
+
+
+def run_giou():
+    """(5): ``giou_3d_loss`` on 934,400 pairs, the kernel path (the clip's
+    paired entry and its backward kernel) against the plain path: the loss
+    within 2e-3, both gradients within 2e-2 of their max-abs; launches."""
+    rng = np.random.RandomState(SEED)
+    pred, target, weight = giou_pairs(rng, GIOU_PAIRS)
+    avg = float(weight.sum())
+
+    def loss_and_grads():
+        p = pred.clone().requires_grad_(True)
+        t = target.clone().requires_grad_(True)
+        loss = loss_ops.giou_3d_loss(p, t, weight, avg_factor=avg)
+        return (loss.detach(), *torch.autograd.grad(loss, (p, t)))
+    kernels.reset_launch_counts()
+    seen = []
+    with clip_grad_probe(seen):
+        got = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert_launches('giou_3d_loss', counts, GIOU_LAUNCHES)
+    with plain_path():
+        ref = loss_and_grads()
+    torch.cuda.synchronize()
+    loss_err = abs(float(got[0]) - float(ref[0]))
+    if not loss_err <= 2e-3 * max(1.0, abs(float(ref[0]))):
+        raise AssertionError(f'giou_3d_loss: {float(got[0])} against '
+                             f'{float(ref[0])}')
+    gaps = []
+    for name, a, b in (('pred', got[1], ref[1]), ('target', got[2], ref[2])):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max()) / scale
+        if not (scale > 0 and gap <= 2e-2):
+            raise AssertionError(f'giou_3d_loss: {name} gradient gap {gap} '
+                                 f'of max-abs {scale}')
+        gaps.append(gap)
+    out = dict(pairs=GIOU_PAIRS, weighted=int(weight.sum()),
+               loss=float(got[0]), loss_abs_err=loss_err,
+               grad_gap_of_max_abs=dict(pred=gaps[0], target=gaps[1]),
+               launches=counts)
+    log(f'giou_3d_loss: {json.dumps(out)}')
+    c1, c2, g = seen[0]
+    rows = check_rect_clip_grad(c1, c2, g, f'giou_3d_loss, {GIOU_PAIRS} '
+                                f'pairs', 1)
+    for row in rows:
+        row['launches'] = counts[row['name']]
+    return out, list(rows)
+
+
+def random_frozen_bn(model, seed=SEED):
+    """Seeded statistics and affines for the backbone's frozen BNs (the
+    init's identity BNs would make the fold a no-op)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.backbone.modules():
+            if isinstance(mod, FrozenBatchNorm):
+                c = mod.weight.shape[0]
+                for t, lo, hi in ((mod.weight, 0.5, 1.5), (mod.running_var,
+                                                           0.5, 1.5)):
+                    t.copy_(torch.rand(c, generator=gen) * (hi - lo) + lo)
+                mod.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                mod.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+
+
+def run_fold():
+    """(6): the backbones of imvoxelnet_kitti and imvoxelnet_nuscenes (DCN
+    offsets nonzero) with their frozen BNs folded
+    (``utils/fuse.py:fuse_backbone``) against the unfolded ones, float32
+    with TF32 off (the gap of every stage within ``FOLD_TOL`` of its
+    max-abs), and the bfloat16 gap logged."""
+    from imvoxelnet_tpu_torch.utils.fuse import fuse_backbone
+
+    out = {}
+    for name in (EXPORT_PRESET, NUSCENES):
+        preset = get_preset(name)
+        model = build_model(preset.model, device='cpu', seed=SEED)
+        dcn_offsets(model)
+        random_frozen_bn(model)
+        fused = build_model(preset.model, device='cpu', seed=SEED)
+        fused.load_state_dict(fuse_backbone(model.state_dict()), strict=True)
+        model.cuda()
+        fused.cuda()
+        w, h = preset.data.test_size
+        v = preset.data.n_images_test
+        x = torch.tensor(np.random.RandomState(SEED).randn(
+            v, 3, h, w).astype(np.float32), device='cuda')
+        gaps = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.no_grad(), compute_precision('float32'):
+                a = model.backbone(x.to(dtype))
+                b = fused.backbone(x.to(dtype))
+            gaps[str(dtype).split('.')[1]] = max(
+                float((p.float() - q.float()).abs().max()
+                      / q.float().abs().max()) for p, q in zip(a, b))
+        if not gaps['float32'] <= FOLD_TOL:
+            raise AssertionError(f'fold {name}: float32 gap {gaps}')
+        out[name] = dict(gap_of_max_abs=gaps, tolerance_float32=FOLD_TOL)
+        del model, fused
+    log(f'fold: {json.dumps(out)}')
+    return out
+
+
+def run_show_dir(root):
+    """(7a): tools/test.py --show-dir on a 2-frame KITTI split (1242x375):
+    one PNG a frame, decoded by the port at the frame's size, differing from
+    the frame where a detection above the threshold was drawn and equal to
+    it where none was."""
+    data_root = os.path.join(root, 'kitti_show')
+    ann = splits.kitti_split(data_root, n=2, seed=SEED)
+    pth = os.path.join(root, 'kitti_show.pth')
+    eval_weights(EXPORT_PRESET, pth)
+    show = os.path.join(root, 'show')
+    thr = 0.05
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = test_tool.main([
+            EXPORT_PRESET, '--data-root', data_root, '--ann-file', ann,
+            '--torch-checkpoint', pth, '--batch-size', '2', '--num-workers',
+            '2', '--override', BF16, '--show-dir', show, '--show-num', '2',
+            '--show-score-thr', str(thr)])
+    dataset, _ = runner.build_val_dataset(get_preset(EXPORT_PRESET),
+                                          EXPORT_PRESET, data_root, ann)
+    drawn = []
+    for idx, r in enumerate(summary['results']):
+        png = os.path.join(show, f'{idx}_0.png')
+        frame = load_image(os.path.join(
+            data_root, dataset.get_data_info(idx)['img_paths'][0]))
+        img = load_image(png)
+        if img.shape != frame.shape:
+            raise AssertionError(f'--show-dir: {png} is {img.shape}, the '
+                                 f'frame {frame.shape}')
+        n_boxes = int((r['scores'] > thr).sum())
+        changed = int((img != frame).any(-1).sum())
+        if (changed > 0) != (n_boxes > 0):
+            raise AssertionError(f'--show-dir: {png}: {n_boxes} boxes, '
+                                 f'{changed} pixels changed')
+        drawn.append(dict(boxes=n_boxes, pixels_changed=changed))
+    if not any(d['boxes'] for d in drawn) or \
+            sorted(summary['shown']) != sorted(
+                os.path.join(show, f'{i}_0.png') for i in range(2)):
+        raise AssertionError(f'--show-dir: {drawn}, {summary["shown"]}')
+    out = dict(frames=drawn, score_thr=thr)
+    log(f'show-dir: {json.dumps(out)}')
+    return out
+
+
+def run_phase12():
+    """Phase 12; returns its summary and its ``kernels`` rows (each with
+    its launches)."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = {'export': run_export(root)}
+        out['exact_nms'], rows = run_exact_nms(root)
+        out['normal_nms'], more = run_normal_nms()
+        rows += more
+        out['giou_3d_loss'], more = run_giou()
+        rows += more
+        out['fold'] = run_fold()
+        out['show_dir'] = run_show_dir(root)
+        out['seconds'] = time.perf_counter() - t0
+    return out, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3209,6 +3831,15 @@ def smoke():
     log(json.dumps({'train_from_files': from_files}))
     log(f'phase 11 (train from files): {time.perf_counter() - t11:.1f} s')
 
+    # serving export, --show-dir, the fold, and the paths no preset takes
+    t12 = time.perf_counter()
+    phase12, phase12_rows = run_phase12()
+    for row in phase12_rows:
+        log(json.dumps(row))
+    log(json.dumps({'phase12': phase12}))
+    log(f'phase 12 (export, show-dir, fold, exact NMS, GIoU): '
+        f'{time.perf_counter() - t12:.1f} s')
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -3232,7 +3863,11 @@ def smoke():
     # 5 timed b=1 steps
     # (the KITTI serving rows also carry their launches in phase 10's
     # tools/test.py run over 4 batches of 8 frames, the pairwise rows the
-    # protocol's launches in the tool's run on their split, all asserted)
+    # protocol's launches in the tool's run on their split, all asserted);
+    # phase 12's rows (the pairwise entry and the scan of the exact NMS at
+    # imvoxelnet_sunrgbd b=8, the scan of the axis-aligned BEV NMS at
+    # imvoxelnet_kitti b=8, the paired entry and its backward under
+    # giou_3d_loss) with the launches of the run that gave their inputs
     for r in serving:
         r['eval_launches'] = eval_counts[r['name']]
     summary = []
@@ -3249,7 +3884,8 @@ def smoke():
             + [(r, (nuscenes_serve if use == 'serve'
                     else nuscenes_train)[r['name']])
                for r, use in nuscenes_rows] \
-            + [(r, r['eval_launches']) for r in eval_rows]:
+            + [(r, r['eval_launches']) for r in eval_rows] \
+            + [(r, r['launches']) for r in phase12_rows]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

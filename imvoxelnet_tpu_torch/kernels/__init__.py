@@ -8,10 +8,15 @@ module (``WRAPPERS`` names the count of each kernel; the clip's three
 forward entry points share one, the clip's backward, the NMS scan and the
 backprojection's backward have their own).  The plain PyTorch versions live
 beside the ops that call the wrappers (``ops/backproject.py``,
-``ops/iou.py``, ``ops/nms.py``, ``ops/conv3z.py``); those ops take the plain version only for CPU tensors.  The gradients of
-B1, B2 (paired) and B3 are ``torch.autograd.Function``s in
-``ops/backproject.py``, ``ops/iou.py`` and ``ops/conv3z.py`` whose backward
-launches a kernel too.
+``ops/iou.py``, ``ops/nms.py``, ``ops/conv3z.py``); those ops take the
+plain version only for CPU tensors.  The gradients of B1, B2 (paired) and
+B3 are ``torch.autograd.Function``s in ``ops/backproject.py``,
+``ops/iou.py`` and ``ops/conv3z.py`` whose backward launches a kernel too.
+The serving entries (B1 and B3 forward, the clip's pairwise and NMS-mask
+entries, the scan) are also registered as ``torch.library`` operators,
+``torch.ops.imvx.*``, with the wrappers as their CUDA implementations and
+no CPU one: a ``torch.export`` program records each launch as one node, and
+importing this package is what a loaded program needs to run them.
 """
 
 from __future__ import annotations

@@ -114,3 +114,23 @@ def backproject_batch_grad(grad_acc, points, projections, valid_hw,
     build.check(err, 'backproject_grad')
     grad_launches += 1
     return out
+
+
+# The forward as an operator of PyTorch's dispatcher (``torch.ops.imvx``),
+# so that ``torch.export`` records the launch as one node: its CUDA
+# implementation is the wrapper above (which counts the launch), its fake
+# implementation gives the outputs' shapes from the inputs'.  No CPU
+# implementation is registered: the plain version is the op layer's.
+backproject_op = torch.library.custom_op(
+    'imvx::backproject', lambda features, points, projections, valid_hw:
+    backproject_batch(features, points, projections, valid_hw),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor features, Tensor points, Tensor projections, '
+           'Tensor valid_hw) -> (Tensor, Tensor)')
+
+
+@backproject_op.register_fake
+def _(features, points, projections, valid_hw):
+    b, _, _, _, c = features.shape
+    p = points.shape[1]
+    return features.new_empty((p, b, c)), features.new_empty((p, b))

@@ -222,3 +222,19 @@ def conv3x3x3(x, kernel, tile=None):
     build.check(err, 'conv3x3x3')
     launches += 1
     return out
+
+
+# The conv as an operator of PyTorch's dispatcher (``torch.ops.imvx``), so
+# that ``torch.export`` records the launch as one node: its CUDA
+# implementation is the wrapper above (which counts the launch), its fake
+# implementation gives the output's shape.  No CPU implementation is
+# registered: the plain version is the op layer's.
+conv3x3x3_op = torch.library.custom_op(
+    'imvx::conv3x3x3', lambda x, kernel: conv3x3x3(x, kernel),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor x, Tensor kernel) -> Tensor')
+
+
+@conv3x3x3_op.register_fake
+def _(x, kernel):
+    return torch.empty_like(x)

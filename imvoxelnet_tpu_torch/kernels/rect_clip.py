@@ -203,3 +203,42 @@ def nms_scan(mask, valid):
             stream_of(valid)), 'imvx_nms_scan')
         scan_launches += 1
     return keep
+
+
+# The serving entries as operators of PyTorch's dispatcher
+# (``torch.ops.imvx``), so that ``torch.export`` records each launch as one
+# node: their CUDA implementations are the wrappers above (which count the
+# launches; the names are looked up at each call), their fake
+# implementations give the outputs' shapes.  No CPU implementation is
+# registered: the plain versions are the op layers'.
+pairwise_op = torch.library.custom_op(
+    'imvx::rect_clip_pairwise', lambda corners1, corners2:
+    rect_intersection_area_pairwise(corners1, corners2),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor corners1, Tensor corners2) -> Tensor')
+nms_mask_op = torch.library.custom_op(
+    'imvx::nms_mask', lambda corners, box_areas, iou_thr:
+    nms_dominance_mask(corners, box_areas, iou_thr),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor corners, Tensor box_areas, float iou_thr) -> Tensor')
+nms_scan_op = torch.library.custom_op(
+    'imvx::nms_scan', lambda mask, valid: nms_scan(mask, valid),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor mask, Tensor valid) -> Tensor')
+
+
+@pairwise_op.register_fake
+def _(corners1, corners2):
+    return corners1.new_empty(
+        (corners1.shape[0], corners1.shape[1], corners2.shape[1]))
+
+
+@nms_mask_op.register_fake
+def _(corners, box_areas, iou_thr):
+    g, n = corners.shape[:2]
+    return corners.new_empty((g, n, mask_words(n)), dtype=torch.int32)
+
+
+@nms_scan_op.register_fake
+def _(mask, valid):
+    return torch.empty_like(valid)

@@ -10,7 +10,6 @@ flatten anchor-major exactly as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Tuple
 
@@ -83,18 +82,27 @@ class Anchor3DHead(nn.Module):
         return nhwc(self.conv_cls(x)), nhwc(self.conv_reg(x)), dir_pred
 
 
-@functools.lru_cache(maxsize=8)
-def _cached_anchors(featmap_size, cfg: Anchor3DHeadConfig, device):
-    return anchor_gen.grid_anchors(
-        featmap_size, cfg.anchor_ranges, cfg.anchor_sizes,
-        cfg.anchor_rotations, cfg.anchor_custom_values, device=device)
+_ANCHORS: dict = {}
 
 
 def head_anchors(featmap_size, cfg: Anchor3DHeadConfig, device=None):
     """Flattened anchors matching the conv-head channel layout.  Built on
     the host once per map size, config and device and then shared: callers
-    must not write to them."""
-    return _cached_anchors(tuple(featmap_size), cfg, device)
+    must not write to them.  Traced by ``torch.export``, a cached set is a
+    constant of the program on its device; one not cached yet is built in
+    the program (a copy from the host at every call) and not cached, so that
+    no traced tensor enters the cache (``utils/export.py`` runs the model
+    once before it traces)."""
+    key = (tuple(featmap_size), cfg,
+           None if device is None else torch.device(device))
+    anchors = _ANCHORS.get(key)
+    if anchors is None:
+        anchors = anchor_gen.grid_anchors(
+            key[0], cfg.anchor_ranges, cfg.anchor_sizes, cfg.anchor_rotations,
+            cfg.anchor_custom_values, device=device)
+        if not torch.compiler.is_compiling():
+            _ANCHORS[key] = anchors
+    return anchors
 
 
 def add_sin_difference(pred_yaw, target_yaw):
@@ -155,8 +163,6 @@ def anchor3d_head_get_bboxes(head_outs, cfg: Anchor3DHeadConfig):
     Returns a dict of ``boxes (B, max_out, 7)``, ``scores``, ``labels`` and
     ``valid`` (``(B, max_out)``).
     """
-    if not cfg.use_rotate_nms:
-        raise NotImplementedError('only rotated NMS is ported')
     cls_score, bbox_pred, dir_pred = head_outs
     b, h, w, _ = cls_score.shape
     anchors = head_anchors((h, w), cfg, device=cls_score.device)
@@ -173,7 +179,7 @@ def anchor3d_head_get_bboxes(head_outs, cfg: Anchor3DHeadConfig):
         boxes, box_ops.bev(boxes), scores[sample, ids],
         torch.ones((b, k), dtype=torch.bool, device=scores.device),
         score_thr=cfg.score_thr, max_num=cfg.max_out,
-        iou_thr=cfg.iou_thr, pre_nms_k=k,
+        iou_thr=cfg.iou_thr, use_rotate_nms=cfg.use_rotate_nms, pre_nms_k=k,
         mlvl_dir_scores=dir_score[sample, ids].to(scores.dtype))
     boxes_out = out['boxes']
     dir_rot = box_ops.limit_period(

@@ -394,7 +394,9 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
     Per level the class scores are multiplied by the centerness and by the
     level's seen mask and the ``nms_pre`` best voxels (ties lowest index
     first) become candidates.  SUN RGB-D: the levels' candidates go through
-    one batched per-class rotated NMS.  ScanNet (``_nms``,
+    one batched per-class rotated NMS, over each class's ``pre_nms_k`` best
+    or, with ``pre_nms_k <= 0``, over all of them
+    (``ops/nms.py:multiclass_nms_3d_exact``).  ScanNet (``_nms``,
     ``imvoxel_head.py:533-550``): each candidate takes its best class and
     score, those above ``score_thr`` go through one batched class-aware
     axis-aligned NMS, and the ``max_out`` best kept ones (ties lowest index
@@ -404,8 +406,6 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
     Returns a dict of ``boxes (B, max_out, 7)`` bottom-center, ``scores``,
     ``labels`` and ``valid`` (``(B, max_out)``).
     """
-    if cfg.dataset == 'sunrgbd' and cfg.pre_nms_k <= 0:
-        raise NotImplementedError('the untruncated NMS is not ported')
     centernesses, bbox_preds, cls_scores = head_outs
     b = valid.shape[0]
     featmap_sizes = [tuple(x.shape[1:4]) for x in centernesses]
@@ -430,11 +430,16 @@ def indoor_head_get_bboxes(head_outs, valid, origins, cfg: IndoorHeadConfig):
     if cfg.dataset != 'sunrgbd':
         return _scannet_nms(boxes, scores, cfg)
 
-    out = nms_ops.multiclass_nms_3d(
-        boxes, box_ops.bev(boxes), scores,
-        torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device),
-        score_thr=cfg.score_thr, max_num=cfg.max_out, iou_thr=cfg.iou_thr,
-        pre_nms_k=cfg.pre_nms_k)
+    ones = torch.ones(boxes.shape[:2], dtype=torch.bool, device=boxes.device)
+    if cfg.pre_nms_k <= 0:
+        out = nms_ops.multiclass_nms_3d_exact(
+            boxes, box_ops.bev(boxes), scores, ones, score_thr=cfg.score_thr,
+            max_num=cfg.max_out, iou_thr=cfg.iou_thr)
+    else:
+        out = nms_ops.multiclass_nms_3d(
+            boxes, box_ops.bev(boxes), scores, ones, score_thr=cfg.score_thr,
+            max_num=cfg.max_out, iou_thr=cfg.iou_thr,
+            pre_nms_k=cfg.pre_nms_k)
     return dict(boxes=box_ops.to_bottom_center(out['boxes']),
                 scores=out['scores'], labels=out['labels'],
                 valid=out['valid'])

@@ -4,7 +4,8 @@ through ctypes.
 Counterpart of ``imvoxelnet_tpu/native/__init__.py``.  ``image_ops.cc``
 holds the loader's fused normalize + pad, the PNG row unfilter and
 the bilinear resize; ``eval_kernels.cc`` the KITTI protocol's greedy
-matcher.  Each source is compiled at first use into
+matcher, and the rotated-rect intersection areas and greedy rotated NMS on
+the host that the tests take as oracles of the clip and NMS paths.  Each source is compiled at first use into
 ``build/lib<name>-<hash>.so`` (the hash is of the source and the flags, so
 an edited source is rebuilt), atomically (a temporary file renamed into
 place, safe under concurrent loaders), never at import.
@@ -42,7 +43,9 @@ SIGNATURES = {
     'eval_kernels': {
         'compute_statistics_thresholds': (
             [_P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _D, _P, _L, _I, _P],
-            None)},
+            None),
+        'rect_intersection_areas': ([_P, _L, _P, _L, _P], None),
+        'rotated_nms_host': ([_P, _P, _L, _D, _P], None)},
 }
 
 _lock = threading.Lock()
@@ -191,3 +194,28 @@ def compute_statistics_thresholds(overlaps, dt_scores, dt_alphas, gt_alphas,
         float(min_overlap), _ptr(thresholds), len(thresholds),
         int(compute_aos), _ptr(out_pr))
 
+
+
+def rect_intersection_areas(boxes1, boxes2):
+    """Intersection areas of every ``(x, y, w, h, r)`` rect of ``boxes1
+    (n, 5)`` with every one of ``boxes2 (k, 5)`` -> ``(n, k)`` float64, by a
+    Sutherland-Hodgman clip in float64 (the corners of
+    ``ops/boxes.py:bev_corners``)."""
+    b1, b2 = _f64(boxes1).reshape(-1, 5), _f64(boxes2).reshape(-1, 5)
+    out = np.zeros((len(b1), len(b2)), np.float64)
+    library('eval_kernels')['rect_intersection_areas'](
+        _ptr(b1), len(b1), _ptr(b2), len(b2), _ptr(out))
+    return out
+
+
+def rotated_nms_host(boxes_xywhr, scores, iou_thr):
+    """Greedy rotated BEV NMS of ``(n, 5)`` xywhr boxes in descending score
+    order (``std::sort``, so equal scores in no promised order), suppressing
+    at ``iou > iou_thr`` -> keep ``(n,)`` bool."""
+    b, s = _f64(boxes_xywhr).reshape(-1, 5), _f64(scores)
+    if len(s) != len(b):
+        raise ValueError(f'{len(b)} boxes, {len(s)} scores')
+    keep = np.zeros(len(b), np.uint8)
+    library('eval_kernels')['rotated_nms_host'](
+        _ptr(b), _ptr(s), len(b), float(iou_thr), _ptr(keep))
+    return keep.astype(bool)

@@ -205,13 +205,18 @@ def backproject_batch(features, points, projections, valid_hw):
 
     On the CPU the plain versions run, the backward too: autograd of the
     plain forward's gather would accumulate with CPU atomics, whose order,
-    and so whose bits, change from run to run.
+    and so whose bits, change from run to run.  On CUDA features that need
+    no gradient the kernel runs as the operator ``torch.ops.imvx.backproject``
+    (one node of a ``torch.export`` program), else through
+    :class:`BackprojectFunction`.
     """
     if features.is_cuda:
-        return BackprojectFunction.apply(
-            features.contiguous(), points.float().contiguous(),
-            projections.float().contiguous(),
-            valid_hw.to(torch.int32).contiguous())
+        args = (features.contiguous(), points.float().contiguous(),
+                projections.float().contiguous(),
+                valid_hw.to(torch.int32).contiguous())
+        if torch.is_grad_enabled() and features.requires_grad:
+            return BackprojectFunction.apply(*args)
+        return bp_kernel.backproject_op(*args)
     return BackprojectFunction.apply(features, points, projections, valid_hw,
                                      True)
 

@@ -74,7 +74,13 @@ class Conv3x3x3Function(torch.autograd.Function):
 def conv3x3x3(x, kernel):
     """3x3x3 SAME stride-1 conv with float32 accumulation; ``x`` and
     ``kernel`` share a dtype.  The CUDA path (tensor cores, both dtypes)
-    takes 64 -> 64 channels only."""
+    takes 64 -> 64 channels only: where no gradient is needed as the
+    operator ``torch.ops.imvx.conv3x3x3`` (one node of a ``torch.export``
+    program), else through :class:`Conv3x3x3Function`."""
     if x.is_cuda:
-        return Conv3x3x3Function.apply(x.contiguous(), kernel.contiguous())
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or kernel.requires_grad):
+            return Conv3x3x3Function.apply(x.contiguous(),
+                                           kernel.contiguous())
+        return conv_kernel.conv3x3x3_op(x.contiguous(), kernel.contiguous())
     return conv3x3x3_plain(x, kernel)

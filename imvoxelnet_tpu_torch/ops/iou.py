@@ -28,9 +28,10 @@ _EPS = 1e-8
 _SLOTS = 8  # rect ∩ rect has at most 8 vertices
 
 
-def bbox_overlaps_2d(boxes1, boxes2, eps: float = 1e-6):
-    """Pairwise axis-aligned IoU of xyxy boxes ``(..., N, 4)`` and
-    ``(..., M, 4)`` -> ``(..., N, M)``; leading dims broadcast."""
+def bbox_overlaps_2d(boxes1, boxes2, mode: str = 'iou', eps: float = 1e-6):
+    """Pairwise axis-aligned IoU (``mode='iou'``) or intersection over the
+    first box's area (``'iof'``) of xyxy boxes ``(..., N, 4)`` and ``(...,
+    M, 4)`` -> ``(..., N, M)``; leading dims broadcast."""
     def area(b):
         return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
 
@@ -39,13 +40,20 @@ def bbox_overlaps_2d(boxes1, boxes2, eps: float = 1e-6):
     rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0)
     overlap = wh[..., 0] * wh[..., 1]
-    union = area1[..., :, None] + area2[..., None, :] - overlap
+    if mode == 'iou':
+        union = area1[..., :, None] + area2[..., None, :] - overlap
+    elif mode == 'iof':
+        union = area1[..., :, None].expand(overlap.shape)
+    else:
+        raise ValueError(mode)
     return overlap / union.clamp(min=eps)
 
 
-def axis_aligned_bbox_overlaps_3d(boxes1, boxes2, is_aligned: bool = False,
+def axis_aligned_bbox_overlaps_3d(boxes1, boxes2, mode: str = 'iou',
+                                  is_aligned: bool = False,
                                   eps: float = 1e-6):
-    """Axis-aligned 3D IoU of corner-form boxes ``(x1, y1, z1, x2, y2, z2)``
+    """Axis-aligned 3D IoU (``mode='iou'``) or GIoU (``'giou'``) of
+    corner-form boxes ``(x1, y1, z1, x2, y2, z2)``
     (``iou3d_calculator.py:207-320``, the ScanNet head's metric):
     ``(..., N, 6)`` x ``(..., M, 6)`` -> ``(..., N, M)``, or, with
     ``is_aligned``, ``(..., N, 6)`` x ``(..., N, 6)`` -> ``(..., N)``."""
@@ -61,14 +69,23 @@ def axis_aligned_bbox_overlaps_3d(boxes1, boxes2, is_aligned: bool = False,
     rb = torch.minimum(boxes1[..., 3:], boxes2[..., 3:])
     wh = (rb - lt).clamp(min=0)
     overlap = wh[..., 0] * wh[..., 1] * wh[..., 2]
-    return overlap / (area1 + area2 - overlap).clamp(min=eps)
+    union = (area1 + area2 - overlap).clamp(min=eps)
+    ious = overlap / union
+    if mode == 'iou':
+        return ious
+    if mode != 'giou':
+        raise ValueError(mode)
+    enc_wh = (torch.maximum(boxes1[..., 3:], boxes2[..., 3:])
+              - torch.minimum(boxes1[..., :3], boxes2[..., :3])).clamp(min=0)
+    enc = (enc_wh[..., 0] * enc_wh[..., 1] * enc_wh[..., 2]).clamp(min=eps)
+    return ious - (enc - union) / enc
 
 
-def bbox_overlaps_nearest_3d(boxes1, boxes2):
-    """Nearest-BEV IoU of ``(..., N, 7)`` and ``(..., M, 7)`` boxes, the
-    MaxIoU assignment metric of the KITTI anchor head."""
+def bbox_overlaps_nearest_3d(boxes1, boxes2, mode: str = 'iou'):
+    """Nearest-BEV IoU (or IoF) of ``(..., N, 7)`` and ``(..., M, 7)``
+    boxes, the MaxIoU assignment metric of the KITTI anchor head."""
     return bbox_overlaps_2d(box_ops.nearest_bev(boxes1),
-                            box_ops.nearest_bev(boxes2))
+                            box_ops.nearest_bev(boxes2), mode=mode)
 
 
 def rect_intersection_area_plain(corners1, corners2):
@@ -206,14 +223,15 @@ def rect_intersection_area_pairwise_plain(corners1, corners2):
 def rect_intersection_area_pairwise(corners1, corners2):
     """Intersection area of every rect of ``corners1 (..., N, 4, 2)`` with
     every rect of ``corners2 (..., M, 4, 2)`` -> ``(..., N, M)`` float32;
-    the leading dims broadcast and are one group axis to the kernel."""
+    the leading dims broadcast and are one group axis to the kernel (the
+    operator ``torch.ops.imvx.rect_clip_pairwise`` on CUDA tensors)."""
     if not corners1.is_cuda:
         return rect_intersection_area_pairwise_plain(corners1, corners2)
     lead = torch.broadcast_shapes(corners1.shape[:-3], corners2.shape[:-3])
     n, m = corners1.shape[-3], corners2.shape[-3]
     c1 = corners1.float().broadcast_to(lead + (n, 4, 2)).reshape(-1, n, 4, 2)
     c2 = corners2.float().broadcast_to(lead + (m, 4, 2)).reshape(-1, m, 4, 2)
-    return clip_kernel.rect_intersection_area_pairwise(
+    return clip_kernel.pairwise_op(
         c1.contiguous(), c2.contiguous()).reshape(lead + (n, m))
 
 
@@ -290,17 +308,20 @@ def iou_3d_aligned(boxes1_gc, boxes2_gc):
 
 def pack_mask(bits):
     """Pack a bool ``(..., N)`` into int32 words ``(..., ceil(N / 32))``:
-    bit ``j % 32`` of word ``j // 32`` is entry ``j``; bits beyond N are 0."""
+    bit ``j % 32`` of word ``j // 32`` is entry ``j``; bits beyond N are 0.
+
+    Packed as bytes (eight bits shifted into one uint8 each), whose
+    little-endian quadruples are the words: no intermediate wider than the
+    bool input."""
     n = bits.shape[-1]
     pad = -n % 32
     if pad:
         bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (pad,))],
                          dim=-1)
-    lanes = torch.arange(32, device=bits.device)
-    words = (bits.reshape(bits.shape[:-1] + (-1, 32)).long() << lanes).sum(-1)
-    # bit 31 is the sign of an int32 word
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
-        torch.int32)
+    lanes = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    octets = bits.reshape(bits.shape[:-1] + (-1, 8)).to(torch.uint8)
+    packed = (octets << lanes).sum(-1, dtype=torch.uint8)
+    return packed.view(torch.int32)
 
 
 def unpack_mask(words, n: int):

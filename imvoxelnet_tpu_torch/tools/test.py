@@ -3,6 +3,7 @@
     python -m imvoxelnet_tpu_torch.tools.test PRESET --data-root R \\
         --ann-file A [--checkpoint latest.pth | --torch-checkpoint X.pth] \\
         [--batch-size B] [--num-workers N] [--out results.pkl] \\
+        [--show-dir D [--show-num 3] [--show-score-thr 0.3]] \\
         [--override PATH=VALUE] [--device cuda]
 
 Counterpart of the JAX package's ``tools/test.py``: info file + image files
@@ -15,6 +16,10 @@ load through one loader, straight into the model, whose parameter names
 are the reference's; without either the weights are
 random from seed 0, as the JAX package's are from its ``PRNGKey(0)``.
 A float32 preset runs with TF32 off (``utils/precision.py``).
+``--show-dir`` (the reference's ``--show``) draws the detections scoring
+above ``--show-score-thr`` into every view of the first ``--show-num``
+samples (``utils/visualize.py``, which needs cv2) and writes them as
+``{index}_{view}.png``, after the inference and the protocol were timed.
 """
 
 from __future__ import annotations
@@ -44,6 +49,11 @@ def parse_args(argv=None):
     parser.add_argument('--batch-size', type=int, default=1)
     parser.add_argument('--num-workers', type=int, default=8)
     parser.add_argument('--out', default=None, help='dump results pkl')
+    parser.add_argument('--show-dir', default=None,
+                        help='render predicted wireframes into each view of '
+                             'the first --show-num samples')
+    parser.add_argument('--show-num', type=int, default=3)
+    parser.add_argument('--show-score-thr', type=float, default=0.3)
     parser.add_argument('--override', action='append', default=None,
                         metavar='PATH=VALUE',
                         help='preset field override, e.g. '
@@ -85,9 +95,20 @@ def main(argv=None):
     if args.out:
         with open(args.out, 'wb') as f:
             pickle.dump(results, f)
+    shown = []
+    if args.show_dir:
+        from ..utils.visualize import show_multi_view_result
+        for idx in range(min(args.show_num, len(results))):
+            r = results[idx]
+            keep = r['scores'] > args.show_score_thr
+            paths = show_multi_view_result(dataset, idx, r['boxes'][keep],
+                                           args.show_dir)
+            print('wrote:', *paths, sep='\n  ')
+            shown += paths
     print(json.dumps(metrics, indent=2))
     return dict(metrics=metrics, results=results, n_samples=len(results),
-                n_batches=len(loader), inference_s=t1 - t0, eval_s=t2 - t1)
+                n_batches=len(loader), inference_s=t1 - t0, eval_s=t2 - t1,
+                shown=shown)
 
 
 if __name__ == '__main__':

@@ -1312,3 +1312,169 @@ def test_train_tool_resume_equals_the_straight_run_on_the_card(
     for i, state in a['optimizer']['state'].items():
         for key, val in state.items():
             assert torch.equal(b['optimizer']['state'][i][key], val), (i, key)
+
+
+# --------------------------------------------------------------------------
+# the exact NMS, the axis-aligned BEV NMS, GIoU-3D and the serving export
+# --------------------------------------------------------------------------
+
+def _tied_candidates(dev, b, n, n_classes, seed=0):
+    """Overlapping BEV boxes with scores on a grid of 1/8 (exact ties)."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 0.6 * np.sqrt(n), (b, n, 2))
+    wh = rng.uniform(0.5, 2.0, (b, n, 2))
+    yaw = rng.uniform(-np.pi, np.pi, (b, n, 1))
+    bev = np.concatenate([xy, wh, yaw], -1)
+    boxes = np.concatenate([xy, rng.uniform(-1, 0, (b, n, 1)), wh,
+                            rng.uniform(0.5, 2, (b, n, 1)), yaw], -1)
+    scores = rng.randint(0, 9, (b, n, n_classes)) / 8
+    return [torch.tensor(x.astype(np.float32), device=dev)
+            for x in (boxes, bev, scores)]
+
+
+@pytest.mark.parametrize('use_rotate_nms', [True, False])
+@pytest.mark.parametrize('b,n,chunk', [(2, 300, None), (3, 97, 97 * 97)])
+def test_exact_nms_never_waits_and_equals_the_plain_path(
+        cuda, b, n, chunk, use_rotate_nms, monkeypatch):
+    """``multiclass_nms_3d_exact`` on the card: one pairwise clip launch
+    (rotated) for all samples, the rank gather + packing (in chunks of one
+    group when ``chunk`` says so) and one scan for all samples and classes,
+    under ``set_sync_debug_mode('error')``, equal to the plain path (the
+    fixpoint on the plain IoU) with exact score ties."""
+    if chunk:
+        monkeypatch.setattr(nms_ops, '_RANK_CHUNK', chunk)
+    boxes, bev, scores = _tied_candidates(cuda, b, n, 4)
+    valid = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    valid[:, ::7] = False
+    kw = dict(score_thr=0.2, max_num=200, iou_thr=0.15,
+              use_rotate_nms=use_rotate_nms)
+    nms_ops.multiclass_nms_3d_exact(boxes, bev, scores, valid, **kw)
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = nms_ops.multiclass_nms_3d_exact(boxes, bev, scores, valid, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['nms_scan'] == 1
+    assert counts['rect_clip'] == int(use_rotate_nms)
+    monkeypatch.setattr(nms_ops, 'nms_in_rank_order',
+                        nms_ops.nms_in_rank_order_plain)
+    monkeypatch.setattr(iou_ops, 'rect_intersection_area_pairwise',
+                        iou_ops.rect_intersection_area_pairwise_plain)
+    ref = nms_ops.multiclass_nms_3d_exact(boxes, bev, scores, valid, **kw)
+    for key in ('boxes', 'scores', 'labels', 'valid', 'dir_scores'):
+        assert torch.equal(res[key], ref[key]), key
+    assert 0 < int(res['valid'].sum())
+
+
+def test_normal_nms_decode_equals_the_plain_path(cuda, monkeypatch):
+    """``use_rotate_nms=False`` at the KITTI head: the axis-aligned mask
+    and one scan, no clip, equal to the fixpoint."""
+    cfg = get_preset('imvoxelnet_kitti').model.anchor_head
+    import dataclasses
+    cfg = dataclasses.replace(cfg, use_rotate_nms=False)
+    rng = np.random.RandomState(4)
+    b, h, w, a = 2, 31, 27, cfg.num_anchors
+    head = (torch.tensor(rng.randn(b, h, w, a).astype(np.float32),
+                         device=cuda),
+            torch.tensor(0.3 * rng.randn(b, h, w, a * 7).astype(np.float32),
+                         device=cuda),
+            torch.tensor(rng.randn(b, h, w, a * 2).astype(np.float32),
+                         device=cuda))
+    a3d.anchor3d_head_get_bboxes(head, cfg)
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = a3d.anchor3d_head_get_bboxes(head, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = kernels.launch_counts()
+    assert counts['nms_scan'] == 1 and counts['rect_clip'] == 0
+    monkeypatch.setattr(nms_ops, 'normal_nms_presorted',
+                        nms_ops.normal_nms_presorted_plain)
+    ref = a3d.anchor3d_head_get_bboxes(head, cfg)
+    for key in ('boxes', 'scores', 'labels', 'valid'):
+        assert torch.equal(res[key], ref[key]), key
+    assert int(res['valid'].sum()) > 0
+
+
+def test_giou_3d_loss_kernel_path_matches_plain(cuda, monkeypatch):
+    """``giou_3d_loss`` through the clip's paired entry and its backward
+    kernel against autograd of the plain clip: the loss 1e-5 relative,
+    the gradients 1e-4 of their max-abs."""
+    rng = np.random.RandomState(5)
+    n = 4099
+    target = np.concatenate([rng.uniform(-2, 2, (n, 3)),
+                             rng.uniform(0.3, 2, (n, 3)),
+                             rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    pred = target + np.concatenate([0.2 * rng.randn(n, 3),
+                                    0.1 * rng.randn(n, 3),
+                                    0.3 * rng.randn(n, 1)], -1)
+    pred[:, 3:6] = np.abs(pred[:, 3:6]) + 0.05
+    pred[:40, :2] += 10.0
+    weight = torch.tensor(rng.uniform(size=n).astype(np.float32),
+                          device=cuda)
+
+    def run():
+        p = torch.tensor(pred.astype(np.float32), device=cuda,
+                         requires_grad=True)
+        t = torch.tensor(target.astype(np.float32), device=cuda,
+                         requires_grad=True)
+        loss = losses.giou_3d_loss(p, t, weight, avg_factor=17.0)
+        return (loss.detach(),) + torch.autograd.grad(loss, (p, t))
+    kernels.reset_launch_counts()
+    got = run()
+    counts = kernels.launch_counts()
+    assert counts['rect_clip'] == 1 and counts['rect_clip_grad'] == 1
+    monkeypatch.setattr(iou_ops, 'rect_intersection_area',
+                        iou_ops.rect_intersection_area_plain)
+    ref = run()
+    assert abs(float(got[0] - ref[0])) <= 1e-5 * abs(float(ref[0]))
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def test_serving_export_round_trip_on_the_card(cuda, tmp_path):
+    """The shallow ``tiny_kitti_test`` exported from the card with a
+    symbolic batch: the kernels are ``torch.ops.imvx`` nodes (B1, the NMS
+    mask and the scan; its 40x32 grid is below B3's gate, which
+    ``chip_smoke.py`` phase 12 covers at ``imvoxelnet_kitti``), the loaded
+    program launches them as the eager forward does, and gives its
+    detections at b=1 and b=3."""
+    import collections
+
+    from imvoxelnet_tpu_torch.configs.presets import apply_overrides
+    from imvoxelnet_tpu_torch.eval import runner
+    from imvoxelnet_tpu_torch.models.detector import build_model
+    from imvoxelnet_tpu_torch.utils import export as export_lib
+
+    cfg = apply_overrides(get_preset('tiny_kitti_test'),
+                          ['model.backbone_stage_blocks=(1,1,1,1)']).model
+    model = build_model(cfg, device='cuda', seed=0)
+    with torch.no_grad():
+        model.bbox_head.conv_cls.bias.zero_()
+    exported = export_lib.export_serving(
+        cfg, model, export_lib.example_batch(2, 1, 96, 320), batch_size=None)
+    nodes = collections.Counter(str(n.target) for n in exported.graph.nodes
+                                if str(n.target).startswith('imvx'))
+    assert nodes == {'imvx.backproject.default': 1,
+                     'imvx.nms_mask.default': 1, 'imvx.nms_scan.default': 1}
+    path = str(tmp_path / 'kitti.pt2')
+    export_lib.save_exported(exported, path)
+    program = export_lib.load_exported(path).module()
+    for b in (1, 3):
+        batch = export_lib.example_batch(b, 1, 96, 320, seed=b)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = program(model.state_dict(), batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        want = runner.forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        assert counts == kernels.launch_counts() == dict(
+            backproject=1, backproject_grad=0, conv3x3x3=0, rect_clip=1,
+            rect_clip_grad=0, nms_scan=1)
+        for key, val in want.items():
+            assert torch.equal(got[key], val), key

@@ -280,3 +280,115 @@ def test_state_dict_keys_are_the_reference_manifest():
     cfg = presets.get_preset('imvoxelnet_kitti').model
     assert set(ImVoxelNet(cfg).state_dict()) == set(
         expected_kitti_state_dict_keys())
+
+
+def test_every_port_module_imports_without_jax_or_cv2():
+    """Every module of the port, the tools and the export, visualization
+    and fold modules included, imported in a fresh interpreter, leaves
+    every ``jax*``, ``flax*``, ``optax*``, ``ml_dtypes`` and ``cv2`` module
+    and every ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of
+    ``sys.modules`` (``utils/visualize.py`` imports cv2 only to draw)."""
+    code = textwrap.dedent('''
+        import importlib, pkgutil, sys
+        import imvoxelnet_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            imvoxelnet_tpu_torch.__path__, 'imvoxelnet_tpu_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        need = {'imvoxelnet_tpu_torch.' + n for n in (
+            'utils.export', 'utils.visualize', 'utils.fuse',
+            'core.box_modes', 'tools.export', 'tools.demo',
+            'tools.fuse_conv_bn', 'tools.publish_model',
+            'tools.print_config')}
+        assert need <= set(names), need - set(names)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0].startswith(('jax', 'flax', 'optax',
+                                                    'ml_dtypes', 'cv2'))
+                     or m == 'imvoxelnet_tpu'
+                     or m.startswith('imvoxelnet_tpu.'))
+        print('MODULES', len(names), 'LOADED', bad)
+        sys.exit(1 if bad else 0)
+    ''')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_load_exported_in_a_fresh_interpreter_registers_the_kernels(
+        tmp_path):
+    """A serving program's loader alone: a fresh interpreter that imports
+    ``imvoxelnet_tpu_torch.utils.export`` and nothing else of the port
+    loads a saved program with ``load_exported``, which registers the
+    ``torch.ops.imvx`` operators (a CUDA program calls them), and imports
+    no JAX.  Without the registration an ``imvx`` operator does not
+    exist; on a CPU tensor a registered one raises (no CPU kernel, no
+    fallback)."""
+    from imvoxelnet_tpu_torch.utils import export as export_lib
+
+    class Tiny(torch.nn.Module):
+        def forward(self, x):
+            return {'y': x * 2}
+
+    path = str(tmp_path / 'tiny.pt2')
+    export_lib.save_exported(torch.export.export(Tiny(), (torch.ones(3),)),
+                             path)
+    code = textwrap.dedent(f'''
+        import sys
+        import torch
+        assert not hasattr(torch.ops.imvx, 'backproject')
+        from imvoxelnet_tpu_torch.utils import export
+        program = export.load_exported({path!r}).module()
+        assert torch.equal(program(torch.ones(3))['y'], torch.full((3,), 2.))
+        names = [op for op in ('backproject', 'conv3x3x3',
+                               'rect_clip_pairwise', 'nms_mask', 'nms_scan')
+                 if hasattr(torch.ops.imvx, op)]
+        assert len(names) == 5, names
+        try:
+            torch.ops.imvx.nms_scan(torch.zeros(1, 3, 1, dtype=torch.int32),
+                                    torch.ones(1, 3, dtype=torch.bool))
+        except NotImplementedError as e:
+            assert 'CPU' in str(e)
+        else:
+            raise AssertionError('an imvx operator ran on the CPU')
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0].startswith(('jax', 'flax', 'cv2'))
+                     or m == 'imvoxelnet_tpu'
+                     or m.startswith('imvoxelnet_tpu.'))
+        print('LOADED', bad)
+        sys.exit(1 if bad else 0)
+    ''')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """Every CLI's ``--device`` and every entry function's ``device``
+    default to ``cuda``; only the caller asks for the CPU."""
+    import inspect
+
+    from imvoxelnet_tpu_torch import apis
+    from imvoxelnet_tpu_torch.eval import runner
+    from imvoxelnet_tpu_torch.models import detector
+    from imvoxelnet_tpu_torch.tools import demo, export, test, train
+    from imvoxelnet_tpu_torch.tools.profile_forward import make_run
+    from imvoxelnet_tpu_torch.utils import export as export_lib
+    from imvoxelnet_tpu_torch.utils import synthetic
+
+    argv = {demo: ['p', '--data-root', 'r', '--ann-file', 'a'],
+            export: ['p', '--out', 'o'],
+            test: ['p', '--data-root', 'r', '--ann-file', 'a'],
+            train: ['p', '--data-root', 'r', '--ann-file', 'a',
+                    '--work-dir', 'w']}
+    for module, args in argv.items():
+        assert module.parse_args(args).device == 'cuda', module.__name__
+    for fn in (apis.init_detector, detector.build_model, runner.run_inference,
+               runner.evaluate_results, runner.build_val_dataset, make_run,
+               export_lib.example_batch, synthetic.kitti_batch,
+               synthetic.serving_batch):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda', \
+            fn.__qualname__

@@ -107,8 +107,8 @@ Phases, each failing the run on its own error:
                 clip once per image with detections and GT, and Total3D's
                 layout_ious once); imvoxelnet_kitti on 32 frames of 1242x375
                 (b=8 bfloat16; the reference's metric names, the GT as the
-                prediction at the protocol's ceiling; the loader alone at 1
-                and 8 workers, run_inference end to end over 4 and over 32
+                prediction at the protocol's ceiling; the loader alone at 8
+                workers, run_inference end to end over 4 and over 32
                 batches (the split listed 8 times) and under the profiler for
                 the card's busy share, the forward + decode alone on the
                 same batches on the card); imvoxelnet_sunrgbd on 16 frames
@@ -141,14 +141,15 @@ Phases, each failing the run on its own error:
                 the CLI's loop, a short and a long epoch of the split listed
                 more often) for imvoxelnet_kitti b=4, imvoxelnet_sunrgbd b=4
                 and imvoxelnet_scannet b=1 with 20 views, beside the
-                synthetic step and the loader alone over the long epoch at 1
-                and 8 workers, with fill + drain, peak memory, launches per step and the card's
-                busy share over 10 steps between two log lines (profiler
-                trace); those 10 KITTI steps and one b=8 serving forward +
-                decode hold no host call that waits for the device and no
-                device-to-host copy; the five learning loops of
-                tools/validate_learning.py (cudnn.deterministic) with their
-                criteria.
+                synthetic step and the loader alone over the long epoch at 8
+                workers, with fill + drain, peak memory, launches per step
+                and the card's busy share over 10 steps between two log
+                lines (profiler trace); those 10 KITTI steps and one b=8
+                serving forward + decode hold no host call that waits for
+                the device and no device-to-host copy; the five learning
+                loops of tools/validate_learning.py (cudnn.deterministic)
+                with their criteria, untimed: phase 13's multihost runs
+                start before them and share the card with them.
   12. export and the paths no preset takes -- imvoxelnet_kitti (bfloat16,
                 weights as inputs) exported with torch.export at b=1 and
                 with a symbolic batch, imvoxelnet_total_sunrgbd_fast at b=1
@@ -170,6 +171,30 @@ Phases, each failing the run on its own error:
                 imvoxelnet_kitti and imvoxelnet_nuscenes with their frozen
                 BNs folded against unfolded (float32, TF32 off); and
                 tools/test.py --show-dir on a 2-frame KITTI split.
+  13. converters and data parallelism -- phase 10's KITTI split (32 frames
+                of 1242x375) and ScanNet scene (50 views of 640x480)
+                written again, their raw trees written from them (KITTI's
+                calibration and label text, a .sens stream of the frames
+                re-encoded as JPEG by this machine's cv2) and converted by
+                tools/create_data.py (kitti; scannet_images, scannet): the
+                infos equal the splits' (the .sens poses as float32);
+                tools/test.py on them (imvoxelnet_kitti b=8 bfloat16,
+                imvoxelnet_scannet at 50 views), launches asserted; the SUN
+                RGB-D (both class lists), Total3D and nuScenes converters
+                on raw trees of their own, read through the datasets;
+                tools/validate_multihost.py, two runs at a time: two gloo
+                ranks on cuda:0 against one process on the same global
+                batch (imvoxelnet_kitti float32 b=2; imvoxelnet_sunrgbd_fast
+                under dp_loss_norm='batch_mean'): loss 1e-6, gradients
+                within twice the gap that reversing the batch's order gives
+                one process, BN statistics 1e-5, each rank's launches;
+                one NCCL rank bit for bit as one process; imvoxelnet_scannet
+                50 views over two ranks of 25 against the unsharded forward
+                (head outputs 2e-3, valid exactly, B1 once a rank);
+                tools/train.py --multihost --ckpt-format orbax as two ranks
+                on the converted KITTI split (bfloat16, global b=4): the DCP
+                directory restored bit for bit, a run resumed from it bit
+                for bit as the straight run; B1 at a rank's 25 views.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -183,9 +208,11 @@ import json
 import os
 import pickle
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -220,14 +247,19 @@ from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
 from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import losses as loss_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
+from imvoxelnet_tpu_torch.parallel import mesh
 from imvoxelnet_tpu_torch.parallel import train as train_lib
+from imvoxelnet_tpu_torch.data.converters import nuscenes_converter
+from imvoxelnet_tpu_torch.tools import create_data
 from imvoxelnet_tpu_torch.tools import test as test_tool
 from imvoxelnet_tpu_torch.tools import train as train_tool
 from imvoxelnet_tpu_torch.tools import validate_learning
+from imvoxelnet_tpu_torch.tools import validate_multihost
 from imvoxelnet_tpu_torch.tools.profile_forward import (dcn_offsets,
                                                         level_angle_head,
                                                         zero_cls_bias)
 from imvoxelnet_tpu_torch.utils import checkpoint as ckpt_lib
+from imvoxelnet_tpu_torch.utils import synthetic_raw
 from imvoxelnet_tpu_torch.utils import synthetic_splits as splits
 from imvoxelnet_tpu_torch.utils.precision import compute_precision
 from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
@@ -302,10 +334,11 @@ def gathered_rows(points, proj, hw, hf, wf):
 
 
 def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
-                      train=False):
+                      train=False, views=None):
     """B1 at the main-path shapes of preset ``name``: its feature map,
     channels, views and voxel grid; ``train``: the preset's padded training
-    size and training views."""
+    size and training views; ``views``: the first of the serving views only
+    (a rank's share of a view-sharded forward)."""
     preset = get_preset(name)
     cfg = preset.model
     if train:
@@ -313,6 +346,9 @@ def check_backproject(b, dtype, tol, rng, name='imvoxelnet_kitti',
     else:
         batch = serving_batch(preset.data.dataset, b, 'cuda', seed=SEED,
                               views=preset.data.n_images_test)
+    if views is not None:
+        batch = {k: v[:, :views] if k in mesh.VIEW_KEYS else v
+                 for k, v in batch.items()}
     v, h, w = batch['images'].shape[1:4]
     hf, wf, c = h // 4, w // 4, cfg.fpn_out_channels
     feats = torch.tensor(rng.randn(b, v, hf, wf, c).astype(np.float32),
@@ -1533,20 +1569,6 @@ INDOOR_MUST_LEARN = ('backbone.layer2.0.conv1.weight',
                      'bbox_head.reg_conv.weight', 'bbox_head.cls_conv.weight')
 
 
-def biases_before_bn(model):
-    """The biases of the convs that feed a batch-statistics BN directly:
-    their true gradient is 0, and both paths give float noise there."""
-    out = set()
-    for name, mod in model.named_modules():
-        if isinstance(mod, torch.nn.Sequential):
-            kids = list(mod.named_children())
-            for (i, a), (_, b) in zip(kids, kids[1:]):
-                if isinstance(b, torch.nn.BatchNorm3d) and getattr(
-                        a, 'bias', None) is not None:
-                    out.add(f'{name}.{i}.bias')
-    return out
-
-
 def positives_per_level(model, cfg, batch):
     """``(B, levels)`` positive counts of the indoor targets on ``batch``
     (labels >= 0 on voxels the camera sees), as the loss finds them; for
@@ -1605,7 +1627,7 @@ def train_vs_plain(name, launches, must_learn):
     cfg = preset.model
     model = build_model(cfg, device='cuda', seed=SEED)
     dcn_offsets(model)
-    noise = biases_before_bn(model)
+    noise = set(validate_multihost.biases_before_bn(model))
     batch1 = train_batch(preset.data, 1, 'cuda', seed=SEED,
                          layout=cfg.layout_head is not None)
     pos = positives_per_level(model, cfg, batch1)
@@ -2087,13 +2109,14 @@ def protocol_clip_calls(key, dataset, results):
                 layout=int(key == 'total3d'))
 
 
-def run_test_tool(key, split, pth, workers=8):
+def run_test_tool(key, split, pth, workers=8, name=None):
     """``imvoxelnet_tpu_torch.tools.test``'s ``main`` on a split, bfloat16,
     with the kernels' launch counts over the run, asserted: a forward
     batch's launches per batch, and the protocol's pairwise clip calls
-    (:func:`protocol_clip_calls`).  The tool's printout is kept out of the
+    (:func:`protocol_clip_calls`).  ``name``: another preset of the
+    family than ``EVAL_SPLITS``'.  The tool's printout is kept out of the
     log."""
-    name, _, _, batch = EVAL_SPLITS[key]
+    name, batch = name or EVAL_SPLITS[key][0], EVAL_SPLITS[key][3]
     args = [name, '--data-root', split[0], '--ann-file', split[1],
             '--torch-checkpoint', pth, '--batch-size', str(batch),
             '--num-workers', str(workers), '--override', BF16]
@@ -2183,7 +2206,7 @@ def timed_inference(model, cfg, loader, n, profile=False):
 def kitti_eval_timing(split, pth):
     """imvoxelnet_kitti's serving from files, b=8 bfloat16, on the split (4
     batches) and on it listed ``EVAL_KITTI_REPEAT`` times (32 batches): the
-    loader alone at 1 and 8 workers, ``run_inference`` warm (host clock to
+    loader alone at 8 workers, ``run_inference`` warm (host clock to
     the last result) and under the profiler (the card's busy share), and
     the forward + decode alone on the long epoch's batches already on the
     card.  The two epochs' difference is the steady state: its frames/s,
@@ -2194,14 +2217,11 @@ def kitti_eval_timing(split, pth):
     cfg = preset.model
     long_split = repeated_split(split, EVAL_KITTI_REPEAT)
     out = dict(cpu_count=os.cpu_count())
-    for workers in (1, 8):
-        _, loader = runner.build_val_dataset(preset, name, *long_split,
-                                             num_workers=workers,
-                                             batch_size=8)
-        t0 = time.perf_counter()
-        n = sum(b['images'].shape[0] for b in loader.epoch(0))
-        out[f'loader_frames_per_s_{workers}_workers'] = n / (
-            time.perf_counter() - t0)
+    _, loader = runner.build_val_dataset(preset, name, *long_split,
+                                         num_workers=8, batch_size=8)
+    t0 = time.perf_counter()
+    n = sum(b['images'].shape[0] for b in loader.epoch(0))
+    out['loader_frames_per_s_8_workers'] = n / (time.perf_counter() - t0)
     model = build_model(cfg, device='cpu', seed=SEED)
     model.load_state_dict(ckpt_lib.load_reference_state_dict(pth),
                           strict=True)
@@ -2645,9 +2665,16 @@ def same_tensors(a, b):
 
 
 def compare_train_states(straight, resumed):
-    """Two ``latest.pth`` files: parameters, buffers and every AdamW tensor
-    (moments and steps) bit for bit, and the schedule's count and step."""
-    a, b = (ckpt_lib.load_checkpoint(p) for p in (straight, resumed))
+    """Two train states (``latest.pth`` files, ``latest.dcp`` directories
+    or their payloads): parameters, buffers and every AdamW tensor (moments
+    and steps) bit for bit, and the schedule's count and step."""
+    def read(state):
+        if isinstance(state, dict):
+            return state
+        if os.path.isdir(state):
+            return ckpt_lib.read_checkpoint_sharded(state)
+        return ckpt_lib.load_checkpoint(state)
+    a, b = read(straight), read(resumed)
     params = {k for k in a['state_dict']
               if not k.endswith(('running_mean', 'running_var',
                                  'num_batches_tracked'))}
@@ -2892,8 +2919,7 @@ def steady_training(key, data, root):
     fill + drain seconds, the long epoch again under the profiler for the
     busy share of 10 steps between two log lines (and, for KITTI, their
     host syncs), the launches per step of the long run, its peak memory;
-    beside it the loader alone at 1 and 8 workers and the synthetic
-    step."""
+    beside it the loader alone at 8 workers and the synthetic step."""
     name, _, _, b, (short_x, long_x) = TRAIN_SPLITS[key]
     preset = apply_overrides(get_preset(name),
                              [BF16, 'data.repeat_times=1'])
@@ -2933,8 +2959,6 @@ def steady_training(key, data, root):
         fill_drain_s=s['short'] - n['short'] * per_step,
         long_steps_per_s=n['long'] / s['long'],
         synthetic_steps_per_s=synth,
-        loader_1_worker=loader_rate(
-            preset, repeated_split(data[key], long_x), b, 1),
         loader_8_workers=loader_rate(
             preset, repeated_split(data[key], long_x), b, 8),
         launches_per_step={k: v / n['long'] for k, v in
@@ -3018,14 +3042,16 @@ def check_apis(latest, data, root):
     return out
 
 
-def run_train_from_files():
+def run_train_from_files(before_loops=None):
     """Phase 11: (a) the KITTI training CLI at full width with validation,
     resume and ``tools/test.py --checkpoint``; (b) the steady state of
     training from files for KITTI, SUN RGB-D and ScanNet beside the
-    synthetic step and the loader alone; (c) the five learning loops;
-    (d) the API against the runner; (e) no host sync in the profiled steady
-    steps and in a serving forward + decode.  Returns the summary and the
-    KITTI CLI's launches per step and per validation batch."""
+    synthetic step and the loader alone; (c) the five learning loops
+    (``before_loops`` called before them: work of its own that the untimed
+    loops may share the card with); (d) the API against the runner; (e) no
+    host sync in the profiled steady steps and in a serving forward +
+    decode.  Returns the summary and the KITTI CLI's launches per step and
+    per validation batch."""
     out = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -3047,6 +3073,8 @@ def run_train_from_files():
         log(f'train from files: no host sync in 10 steady KITTI steps '
             f'between two log lines nor in a b=8 forward + decode '
             f'{json.dumps(sync)}')
+    if before_loops is not None:
+        before_loops()
     out['learning'] = {}
     for family in validate_learning.FAMILIES:
         with tempfile.TemporaryDirectory() as root:
@@ -3661,6 +3689,352 @@ def run_phase12():
     return out, rows
 
 
+# --------------------------------------------------------------------------
+# phase 13: converted splits, and data parallelism on one card
+# --------------------------------------------------------------------------
+
+VALIDATE = [sys.executable, '-m',
+            'imvoxelnet_tpu_torch.tools.validate_multihost', '--device',
+            'cuda', '--timeout', '300']
+# tools/validate_multihost.py runs: arguments, launches of each rank
+MULTIHOST_RUNS = {
+    # two gloo ranks on cuda:0, float32, a global b=2, against one process
+    'kitti_2_ranks': (['--preset', 'imvoxelnet_kitti', '--world', '2',
+                       '--batch', '2'], TRAIN_STEP_LAUNCHES['kitti']),
+    'sunrgbd_fast_batch_mean_2_ranks': (
+        ['--preset', 'imvoxelnet_sunrgbd_fast', '--world', '2', '--batch',
+         '2', '--override', "model.dp_loss_norm='batch_mean'"],
+        TRAIN_STEP_LAUNCHES['sunrgbd']),
+    # one NCCL rank: the step bit for bit as without a group
+    'kitti_1_rank_nccl': (['--preset', 'imvoxelnet_kitti', '--world', '1',
+                           '--batch', '1', '--exact'],
+                          TRAIN_STEP_LAUNCHES['kitti']),
+    # 50 views over 2 ranks of 25, against the unsharded forward
+    'scannet_50_views_2_ranks': (
+        ['--preset', 'imvoxelnet_scannet', '--world', '2', '--views', '50'],
+        dict(backproject=1, backproject_grad=0, rect_clip=0,
+             rect_clip_grad=0, nms_scan=0, conv3x3x3=0)),
+}
+CLI_RANK = r"""
+import json, sys
+import torch
+torch.backends.cudnn.deterministic = True
+from imvoxelnet_tpu_torch.tools import train
+summary = train.main(sys.argv[1:])
+if summary['rank'] == 0:
+    print('SUMMARY ' + json.dumps({k: summary[k] for k in (
+        'start_epoch', 'steps_per_epoch', 'step', 'world', 'epochs',
+        'train')}))
+"""
+CLI13_EPOCHS = 2
+
+
+def check_multihost(tag, out, launches):
+    """A validate_multihost verdict: ok, and every rank's launches."""
+    verdict = json.loads(out.strip().splitlines()[-1])
+    if not verdict['ok']:
+        raise AssertionError(f'{tag}: {json.dumps(verdict)}')
+    for r, counts in enumerate(verdict['launches']):
+        assert_launches(f'{tag} rank {r}', counts, launches)
+    log(f'multihost {tag}: {json.dumps(verdict)}')
+    return verdict
+
+
+def convert_and_compare(key, root, raw_writer, commands):
+    """Phase 10's split of ``key`` written again (the same writer,
+    arguments and seed), its raw tree written from it, converted by
+    ``tools/create_data.py`` (``commands``); the converted infos against
+    the split's: returns ``(split, comparison)``."""
+    _, writer, kwargs, _ = EVAL_SPLITS[key]
+    data_root = os.path.join(root, key)
+    with open(writer(data_root, seed=SEED, **kwargs), 'rb') as f:
+        written = pickle.load(f)
+    t0 = time.perf_counter()
+    raw_writer(data_root, written)
+    raw_s = time.perf_counter() - t0
+    for argv in commands:
+        with contextlib.redirect_stdout(io.StringIO()):
+            create_data.main([*argv, '--root-path', data_root])
+    convert_s = time.perf_counter() - t0 - raw_s
+    ann = os.path.join(data_root, {
+        'kitti': 'kitti_infos_val.pkl',
+        'scannet': 'scannet_imvoxelnet_infos_val.pkl'}[key])
+    with open(ann, 'rb') as f:
+        converted = pickle.load(f)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return all(same(a[k], v) for k, v in b.items())
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(b, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        return a == b
+    if key == 'kitti':
+        fields = {i: same(c['image'], w['image']) and same(
+            c['calib'], w['calib']) and same(c['annos'], w['annos'])
+            for i, (c, w) in enumerate(zip(converted, written))}
+    else:
+        # the .sens format stores the poses and the intrinsic as float32
+        f32 = lambda m: np.asarray(m, np.float32).astype(np.float64)  # noqa
+        fields = {i: c['img_paths'] == w['img_paths'] and same(
+            c['extrinsics'], [f32(p) for p in w['extrinsics']]) and same(
+            c['intrinsics'], f32(w['intrinsics'])) and same(
+            c['annos'], w['annos'])
+            for i, (c, w) in enumerate(zip(converted, written))}
+    if len(converted) != len(written) or not all(fields.values()):
+        raise AssertionError(f'create_data {key}: the converted infos '
+                             f'differ from the split\'s: {fields}')
+    return (data_root, ann), dict(samples=len(converted), raw_s=raw_s,
+                                  convert_s=convert_s, equal=True)
+
+
+def read_converted(name, data_root, ann):
+    """Every sample of a converted split through the port's dataset of the
+    preset: finite images, GT boxes."""
+    dataset, _ = runner.build_val_dataset(get_preset(name), name, data_root,
+                                          ann, device='cuda')
+    dataset.test_mode = False
+    rng = np.random.RandomState(SEED)
+    n_gt = 0
+    for i in range(len(dataset)):
+        sample = dataset.get_sample(i, False, rng)
+        if not np.isfinite(sample['images']).all():
+            raise AssertionError(f'{name}: non-finite sample {i}')
+        n_gt += int(sample['gt_mask'].sum())
+    if not n_gt:
+        raise AssertionError(f'{name}: no GT box in the converted split')
+    return dict(samples=len(dataset), gt_boxes=n_gt)
+
+
+def other_converters(root):
+    """The SUN RGB-D (both class lists), Total3D and nuScenes converters on
+    raw trees of their own, each split read through the port's dataset."""
+    out = {}
+    sun = os.path.join(root, 'sunrgbd_raw')
+    synthetic_raw.sunrgbd_raw(sun, 4, seed=SEED)
+    total = synthetic_raw.total3d_raw(os.path.join(root, 'total3d_raw'), 2,
+                                      seed=SEED)
+    nus = os.path.join(root, 'nuscenes_raw')
+    val_scenes = synthetic_raw.nuscenes_raw(nus, 2, seed=SEED)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for cmd in ('sunrgbd', 'sunrgbd_monocular'):
+            create_data.main([cmd, '--root-path', sun, '--splits', 'val'])
+        create_data.main(['sunrgbd_total', '--root-path',
+                          os.path.dirname(total), '--splits', 'val'])
+        nuscenes_converter.create_nuscenes_infos(nus, 'v1.0-mini',
+                                                 val_scenes)
+    for name, data_root, ann in (
+            ('imvoxelnet_sunrgbd', sun,
+             'sunrgbd_imvoxelnet_infos_val.pkl'),
+            ('imvoxelnet_perspective_sunrgbd', sun,
+             'sunrgbd_monocular_infos_val.pkl'),
+            ('imvoxelnet_total_sunrgbd', os.path.dirname(total),
+             'sunrgbd_total_infos_val.pkl'),
+            ('imvoxelnet_nuscenes', nus, 'nuscenes_infos_train.pkl'),
+            ('imvoxelnet_nuscenes', nus, 'nuscenes_infos_val.pkl')):
+        out[f'{name}:{ann}'] = read_converted(name, data_root,
+                                              os.path.join(data_root, ann))
+    return out
+
+
+def multihost_cli(split, work, epochs, port):
+    """``tools/train.py --multihost --ckpt-format orbax`` as two processes
+    on cuda:0 with torchrun's environment: imvoxelnet_kitti at full width,
+    bfloat16, a global b=4, the converted split listed once,
+    ``cudnn.deterministic``."""
+    argv = ['imvoxelnet_kitti', '--data-root', split[0], '--ann-file',
+            split[1], '--work-dir', work, '--epochs', str(epochs),
+            '--batch-size', '4', '--num-workers', '4', '--log-interval', '4',
+            '--override', BF16, '--override', 'data.repeat_times=1',
+            '--multihost', '--ckpt-format', 'orbax']
+    return mesh.start_ranks([sys.executable, '-c', CLI_RANK, *argv], 2,
+                            port, cwd=REPO)
+
+
+def cli_summary(tag, procs, timeout=600):
+    try:
+        outs = mesh.wait_ranks(procs, timeout)
+    except RuntimeError as e:
+        raise AssertionError(f'{tag}: {e}') from None
+    lines = [x for x in outs[0].splitlines() if x.startswith('SUMMARY ')]
+    if len(lines) != 1:
+        raise AssertionError(f'{tag}: no summary\n{outs[0][-4000:]}')
+    return json.loads(lines[0][len('SUMMARY '):])
+
+
+def free_ports(n):
+    """``n`` distinct free ports of this host (held open together while
+    they are picked)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(('localhost', 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def dcp_restore_check(dcp, steps_per_epoch):
+    """The resume path in this process: the directory's tensors back into
+    a model and optimizer of another seed, against the directory's own
+    tensors read as they are saved."""
+    preset = apply_overrides(get_preset('imvoxelnet_kitti'), [BF16])
+    model = build_model(preset.model, device='cpu', seed=SEED + 1).cuda()
+    optimizer, scheduler = train_lib.make_optimizer(
+        model, preset.lr, preset.weight_decay, preset.backbone_lr_mult,
+        preset.grad_clip_norm, steps_per_epoch, preset.lr_steps)
+    step, meta = ckpt_lib.load_checkpoint_sharded(dcp, model, optimizer,
+                                                  scheduler)
+    restored = dict(state_dict={k: v.cpu() for k, v in
+                                model.state_dict().items()},
+                    optimizer=optimizer.state_dict(),
+                    scheduler={'last_epoch': scheduler.last_epoch},
+                    step=step)
+    restored['optimizer']['state'] = {
+        i: {k: v.cpu() for k, v in st.items()}
+        for i, st in restored['optimizer']['state'].items()}
+    same = compare_train_states(ckpt_lib.read_checkpoint_sharded(dcp),
+                                restored)
+    same['epoch'] = meta['epoch']
+    return same
+
+
+def assert_same_states(tag, same):
+    bad = [k for k in ('parameters', 'buffers', 'adamw')
+           if same[k]['equal'] != same[k]['total']]
+    if bad or not same['same_schedule_and_step']:
+        raise AssertionError(f'{tag}: {json.dumps(same)}')
+
+
+def start_multihost_runs():
+    """The ``MULTIHOST_RUNS`` in their own processes, two runs at a time
+    (all of them at once overfill the card's memory), in two threads;
+    returns ``(threads, outputs)``: each run's output or exception."""
+    ports = dict(zip(MULTIHOST_RUNS, free_ports(len(MULTIHOST_RUNS))))
+    outputs = {}
+
+    def validate_runs(tags):
+        for tag in tags:
+            args = MULTIHOST_RUNS[tag][0] + ['--master-port',
+                                             str(ports[tag])]
+            try:
+                proc = subprocess.Popen(
+                    VALIDATE + args, cwd=REPO, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                outputs[tag] = mesh.wait_ranks([proc], 900)[0]
+            except Exception as e:          # raised again in phase 13
+                outputs[tag] = e
+    tags = list(MULTIHOST_RUNS)
+    threads = [threading.Thread(target=validate_runs, args=(tags[i::2],))
+               for i in range(2)]
+    for thread in threads:
+        thread.start()
+    return threads, outputs
+
+
+def run_phase13(rng, runs=None):
+    """Phase 13; returns its summary and B1's row at a rank's 25 views,
+    with the launches of each rank of the view-sharded forward.  ``runs``:
+    the ``MULTIHOST_RUNS`` as :func:`start_multihost_runs` started them
+    (else it starts them).  Every part runs; a failed part fails the phase
+    at its end, with every error."""
+    out, errors = {}, []
+
+    def attempt(tag, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as e:              # raised again below
+            log(f'phase 13: {tag} failed: {e}')
+            errors.append(f'{tag}: {e}')
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if not runs:
+        runs = start_multihost_runs()
+    ports = free_ports(3)
+    with tempfile.TemporaryDirectory() as root:
+        kitti, out['create_data_kitti'] = convert_and_compare(
+            'kitti', root, synthetic_raw.kitti_raw,
+            [['kitti', '--splits', 'val']])
+        log(f'create_data kitti: {json.dumps(out["create_data_kitti"])}')
+        # the CLI over two ranks: 1 epoch, then resumed to 2; and 2
+        # straight, meanwhile
+        first = multihost_cli(kitti, os.path.join(root, 'resumed'), 1,
+                              ports[0])
+        straight = multihost_cli(kitti, os.path.join(root, 'straight'),
+                                 CLI13_EPOCHS, ports[1])
+        scannet, out['create_data_scannet'] = convert_and_compare(
+            'scannet', root, synthetic_raw.scannet_raw,
+            [['scannet_images', '--max-frames', '50'],
+             ['scannet', '--splits', 'val']])
+        log(f'create_data scannet: '
+            f'{json.dumps(out["create_data_scannet"])}')
+        for key, split, name in (('kitti', kitti, 'imvoxelnet_kitti'),
+                                 ('scannet', scannet, 'imvoxelnet_scannet')):
+            pth = os.path.join(root, f'{name}.pth')
+            eval_weights(name, pth)
+            summary, counts, _ = run_test_tool(key, split, pth, name=name)
+            out[f'test_tool_{key}'] = dict(
+                preset=name, samples=summary['n_samples'],
+                batches=summary['n_batches'], launches=counts,
+                metrics=summary['metrics'],
+                detections=sum(len(r['scores'])
+                               for r in summary['results']))
+        out['other_converters'] = attempt('other converters',
+                                          other_converters, root)
+        log(f'converters read through the datasets: '
+            f'{json.dumps(out["other_converters"])}')
+        torch.cuda.empty_cache()
+
+        cli = {'first': attempt('multihost cli, 1 epoch', cli_summary,
+                                'multihost cli, 1 epoch', first),
+               'straight': attempt('multihost cli, 2 epochs', cli_summary,
+                                   'multihost cli, 2 epochs', straight)}
+        if cli['first'] is not None:
+            dcp = os.path.join(root, 'resumed', 'latest.dcp')
+            out['dcp_restore'] = attempt(
+                'dcp restore', dcp_restore_check, dcp,
+                cli['first']['steps_per_epoch'])
+            cli['resumed'] = attempt(
+                'multihost cli, resumed', cli_summary,
+                'multihost cli, resumed', multihost_cli(
+                    kitti, os.path.join(root, 'resumed'), CLI13_EPOCHS,
+                    ports[2]))
+        if cli['straight'] is not None and cli.get('resumed') is not None:
+            if cli['resumed']['start_epoch'] != 1:
+                errors.append(f'multihost cli: resumed at epoch '
+                              f'{cli["resumed"]["start_epoch"]}')
+            out['dcp_resume_vs_straight'] = compare_train_states(
+                os.path.join(root, 'straight', 'latest.dcp'),
+                os.path.join(root, 'resumed', 'latest.dcp'))
+        out['multihost_cli'] = cli
+        for key in ('dcp_restore', 'dcp_resume_vs_straight',
+                    'multihost_cli'):
+            log(f'{key}: {json.dumps(out.get(key))}')
+    for check in ('dcp_restore', 'dcp_resume_vs_straight'):
+        if out.get(check) is not None:
+            attempt(check, assert_same_states, check, out[check])
+    threads, outputs = runs
+    for thread in threads:
+        thread.join()
+
+    def verdict(tag):
+        if isinstance(outputs[tag], Exception):
+            raise outputs[tag]
+        return check_multihost(tag, outputs[tag], MULTIHOST_RUNS[tag][1])
+    out['multihost'] = {tag: attempt(tag, verdict, tag)
+                        for tag in MULTIHOST_RUNS}
+    row = check_backproject(1, torch.float32, 1e-5, rng,
+                            'imvoxelnet_scannet', views=25)
+    out['seconds'] = time.perf_counter() - t0
+    if errors:
+        raise AssertionError('phase 13: ' + '\n'.join(errors))
+    return out, row, out['multihost']['scannet_50_views_2_ranks'][
+        'launches'][0]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3827,7 +4201,10 @@ def smoke():
 
     # training from files: tools/train.py on splits written to disk
     t11 = time.perf_counter()
-    from_files, cli_counts = run_train_from_files()
+    # phase 13's data-parallel runs share the card with the learning loops
+    multihost = []
+    from_files, cli_counts = run_train_from_files(
+        lambda: multihost.extend(start_multihost_runs()))
     log(json.dumps({'train_from_files': from_files}))
     log(f'phase 11 (train from files): {time.perf_counter() - t11:.1f} s')
 
@@ -3839,6 +4216,13 @@ def smoke():
     log(json.dumps({'phase12': phase12}))
     log(f'phase 12 (export, show-dir, fold, exact NMS, GIoU): '
         f'{time.perf_counter() - t12:.1f} s')
+
+    # converted splits, and data parallelism on one card
+    phase13, views_row, views_launches = run_phase13(rng, multihost)
+    log(json.dumps(views_row))
+    log(json.dumps({'phase13': phase13}))
+    log(f'phase 13 (converters, data parallelism): '
+        f'{phase13["seconds"]:.1f} s')
 
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -3885,7 +4269,8 @@ def smoke():
                     else nuscenes_train)[r['name']])
                for r, use in nuscenes_rows] \
             + [(r, r['eval_launches']) for r in eval_rows] \
-            + [(r, r['launches']) for r in phase12_rows]:
+            + [(r, r['launches']) for r in phase12_rows] \
+            + [(views_row, views_launches['backproject'])]:
         entry = {k: row[k] for k in (
             'name', 'route', 'source', 'replaces', 'max_abs_err', 'ms',
             'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

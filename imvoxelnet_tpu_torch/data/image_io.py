@@ -50,6 +50,72 @@ def load_image(path: str) -> np.ndarray:
     return img[:, :, ::-1].copy()
 
 
+def image_shape(path: str) -> tuple:
+    """``(h, w)`` of an image file as ``cv2.imread(path).shape[:2]`` gives
+    it, read from its header: a PNG's IHDR, a baseline or progressive
+    JPEG's SOF marker, with the EXIF orientation that ``cv2.imread``
+    applies (tags 5-8 swap the axes).  Other files go through ``cv2``."""
+    with open(path, 'rb') as f:
+        head = f.read(33)
+        if head.startswith(PNG_SIGNATURE):
+            w, h = struct.unpack('>II', head[16:24])
+            return int(h), int(w)
+        if head.startswith(b'\xff\xd8'):
+            f.seek(0)
+            shape = _jpeg_shape(f.read(), path)
+            if shape is not None:
+                return shape
+    img = load_image(path)
+    return img.shape[:2]
+
+
+# start-of-frame markers: 0xC0-0xCF but DHT (C4), JPG (C8) and DAC (CC)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def _jpeg_shape(data: bytes, path: str):
+    pos, swap, shape = 2, False, None
+    while pos + 4 <= len(data) and shape is None:
+        if data[pos] != 0xFF:
+            raise ValueError(f'{path}: JPEG marker expected at byte {pos}')
+        marker = data[pos + 1]
+        if marker == 0xFF:                      # fill byte
+            pos += 1
+            continue
+        length = struct.unpack('>H', data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + length]
+        if marker == 0xE1 and body.startswith(b'Exif\0\0'):
+            swap = _exif_orientation(body[6:]) in (5, 6, 7, 8)
+        elif marker in _SOF:
+            h, w = struct.unpack('>HH', body[1:5])
+            shape = (int(h), int(w))
+        elif marker == 0xDA:                    # scan data before any SOF
+            return None
+        pos += 2 + length
+    if shape is None:
+        return None
+    return shape[::-1] if swap else shape
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    """The orientation tag (0x0112) of IFD0 of a TIFF block, 1 if absent."""
+    if len(tiff) < 8 or tiff[:2] not in (b'II', b'MM'):
+        return 1
+    e = '<' if tiff[:2] == b'II' else '>'
+    ifd = struct.unpack(e + 'I', tiff[4:8])[0]
+    if ifd + 2 > len(tiff):
+        return 1
+    n = struct.unpack(e + 'H', tiff[ifd:ifd + 2])[0]
+    for i in range(n):
+        entry = tiff[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
+        if len(entry) < 12:
+            break
+        tag, _, _ = struct.unpack(e + 'HHI', entry[:8])
+        if tag == 0x0112:
+            return struct.unpack(e + 'H', entry[8:10])[0]
+    return 1
+
+
 def _png_chunks(data: bytes, path: str):
     pos = len(PNG_SIGNATURE)
     while pos + 8 <= len(data):

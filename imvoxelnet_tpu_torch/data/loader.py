@@ -9,6 +9,11 @@ dataset's ``collate``: torch tensors on the host.  With ``images_dtype``
 the images are cast on the host (``torch.bfloat16`` rounds to nearest even,
 as the JAX loader's ``ml_dtypes`` cast and the model's own cast do); with
 ``pin_memory`` they are written straight into page-locked memory.
+With ``world_size`` W > 1, ``batch_size`` is the global batch and the
+loader of rank r reads only its slice of each (``parallel/mesh.py:
+batch_slice``): every rank walks the same seeded global order, and each
+sample's augmentation is seeded by its index, so the W slices together are
+the one-process batch.
 
 :func:`device_prefetch` is the one-card analog of
 ``imvoxelnet_tpu/parallel/mesh.py:device_prefetch``: it copies batch N+1 to
@@ -29,7 +34,11 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, train: bool = True,
                  seed: int = 0, num_workers: int = 4, prefetch: int = 2,
                  drop_last: bool = True, images_dtype=None,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, world_size: int = 1,
+                 rank: int = 0):
+        if batch_size % world_size:
+            raise ValueError(f'global batch {batch_size} does not divide by '
+                             f'the world size {world_size}')
         self.dataset = dataset
         self.batch_size = batch_size
         self.train = train
@@ -41,6 +50,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.images_dtype = images_dtype
         self.pin_memory = pin_memory
+        per = batch_size // world_size
+        self.rows = slice(rank * per, (rank + 1) * per)
 
     def __len__(self):
         n = len(self.dataset)
@@ -69,6 +80,7 @@ class DataLoader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        batches = [b[self.rows] for b in batches]
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops import backproject as bp
+from ..parallel import mesh
 from . import fpn as fpn_lib
 from . import necks3d
 from . import resnet as resnet_lib
@@ -69,8 +70,10 @@ class ImVoxelNetConfig:
     indoor_head: Optional[ivh.IndoorHeadConfig] = None
     layout_head: Optional[lh.LayoutHeadConfig] = None
     # the indoor loss's positive-count normalization: 'per_image' (each
-    # image by its own count, the reference's reduce_mean on one card);
-    # the JAX package's multi-chip 'batch_mean' is not ported
+    # image by its own count, the reference's reduce_mean on one card) or
+    # 'batch_mean' (every image by the global batch's mean count, the JAX
+    # package's multi-device choice; tools/train.py picks it for indoor
+    # runs over several ranks)
     dp_loss_norm: str = 'per_image'
     stride: int = 4                 # asserted == 4 in the reference
     compute_dtype: str = 'float32'  # conv-path dtype: float32 | bfloat16
@@ -78,6 +81,12 @@ class ImVoxelNetConfig:
     stage_with_dcn: Tuple[bool, ...] = (False, False, False, False)
     # Bottlenecks per stage; (3, 4, 6, 3) = ResNet-50.
     backbone_stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    # When set, the forward runs on this rank's slice of the views (the
+    # default process group's ranks split them): backbone, FPN and the
+    # backprojection on the local views, the per-voxel (sum, count) pair
+    # summed over the ranks, the 3D neck and the head replicated on the
+    # pooled volume.  See parallel/mesh.py:view_sharded_forward.
+    view_shard_axis: Optional[str] = None
 
 
 def build_neck(cfg: NeckConfig) -> nn.Module:
@@ -167,7 +176,13 @@ class ImVoxelNet(nn.Module):
                                batch['origins']).reshape(b, -1, 3)
         valid_hw = (batch['img_shape'] // cfg.stride).to(torch.int32)
         acc, cnt = bp.backproject_batch(feats, points, projections, valid_hw)
-        vol, seen = bp.mean_pool_from_sums(acc, cnt, n_views=v)
+        if cfg.view_shard_axis is not None:
+            # v above is this rank's view count: pool over all the views
+            acc, cnt = (mesh.all_reduce_sum(t.float()).to(t.dtype)
+                        for t in (acc, cnt))
+            vol, seen = bp.mean_pool_from_sums(acc, cnt)
+        else:
+            vol, seen = bp.mean_pool_from_sums(acc, cnt, n_views=v)
         volume = vol.view(nx, ny, nz, b, -1).permute(3, 4, 0, 1, 2)
         valid = seen.view(nx, ny, nz, b).permute(3, 0, 1, 2)
 
@@ -207,17 +222,14 @@ def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None,
         return a3d.anchor3d_head_loss(head_outs, batch['gt_boxes'],
                                       batch['gt_labels'], batch['gt_mask'],
                                       cfg.anchor_head)
-    if cfg.dp_loss_norm == 'batch_mean':
-        raise NotImplementedError("dp_loss_norm='batch_mean' (the JAX "
-                                  "package's multi-chip normalization) is "
-                                  "not ported")
-    if cfg.dp_loss_norm != 'per_image':
+    if cfg.dp_loss_norm not in ('per_image', 'batch_mean'):
         raise ValueError(f'unknown dp_loss_norm {cfg.dp_loss_norm!r}')
     if valid is None:
         raise ValueError('the indoor loss needs the forward\'s valid mask')
     losses = ivh.indoor_head_loss(head_outs, valid, batch['origins'],
                                   batch['gt_boxes'], batch['gt_labels'],
-                                  batch['gt_mask'], cfg.indoor_head)
+                                  batch['gt_mask'], cfg.indoor_head,
+                                  batch_mean=cfg.dp_loss_norm == 'batch_mean')
     if cfg.layout_head is not None and features_2d is not None:
         losses.update(lh.layout_head_loss(*features_2d, batch['gt_angles'],
                                           batch['gt_layout'],

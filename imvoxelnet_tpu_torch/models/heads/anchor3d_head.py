@@ -23,6 +23,7 @@ from ...core.target_assign import AssignerConfig
 from ...ops import boxes as box_ops
 from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
+from ...parallel import mesh
 from ..layers import Conv2d
 
 CLS_BIAS_INIT = -4.59511985013459   # -log((1 - 0.01) / 0.01)
@@ -116,6 +117,12 @@ def anchor3d_head_loss(head_outs, gt_boxes, gt_labels, gt_mask,
     """The batch's ``loss_cls``, ``loss_bbox`` and ``loss_dir``, each
     normalised by the batch's positive count ``sum_i max(n_pos_i, 1)``.
 
+    Under a process group of W > 1 ranks, each holding a slice of the
+    global batch, the count is the global batch's (JAX ``anchor3d_head.py:
+    136`` sees the global batch) and each rank's losses are its share of
+    the global losses times W: normalised by the global count over W, so
+    that the mean of the ranks' gradients is the global loss's gradient.
+
     ``head_outs`` as :class:`Anchor3DHead` returns them; ``gt_boxes (B, G,
     7)``, ``gt_labels (B, G)``, ``gt_mask (B, G)`` padded GT.  The targets
     carry no gradient; nothing here waits for the device.
@@ -127,6 +134,9 @@ def anchor3d_head_loss(head_outs, gt_boxes, gt_labels, gt_mask,
         anchors, gt_boxes, gt_labels, gt_mask, cfg.assigner, cfg.num_classes,
         cfg.dir_offset)
     num_total = targets['n_pos'].sum().float()
+    world = mesh.world_size()
+    if world > 1:
+        num_total = mesh.all_reduce_sum(num_total) / world
 
     loss_cls = loss_ops.sigmoid_focal_loss(
         cls_score.reshape(-1, cfg.num_classes), targets['labels'].reshape(-1),

@@ -31,6 +31,7 @@ from ...ops import backproject as bp
 from ...ops import boxes as box_ops
 from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
+from ...parallel import mesh
 from ..layers import BatchNorm3d, Conv3d
 
 INF = 1e8
@@ -326,11 +327,16 @@ def _level_constants(level_sizes, regress_ranges, device):
 
 
 def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
-                     cfg: IndoorHeadConfig):
+                     cfg: IndoorHeadConfig, batch_mean: bool = False):
     """The batch loss (``ImVoxelHead.loss/_loss_single``,
     ``imvoxel_head.py:86-224``) with each image normalized by its own
     positive count, the reference's ``reduce_mean`` on one card
-    (``dp_loss_norm='per_image'``).
+    (``dp_loss_norm='per_image'``), or with ``batch_mean`` by the mean
+    count of the global batch (JAX ``imvoxel_heads.py:430-441``, the
+    multi-device ``'batch_mean'``): under a process group of several ranks
+    the counts and the images are summed over the ranks.  The losses are
+    means over the rank's images; with every rank holding as many images,
+    the mean of the ranks' gradients is the global batch's.
 
     Per image: the focal loss over the seen voxels, the centerness BCE over
     the positives, and the box loss weighted by the centerness target (SUN
@@ -366,7 +372,13 @@ def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
     pos = (labels_t >= 0) & flat_valid
     pred_boxes = BBOX_PRED_TO_BBOX[cfg.dataset](points, flat_bbox)
 
-    n_pos = pos.sum(1).float().clamp(min=1.0)                  # (B,)
+    n_pos = pos.sum(1).float()                                  # (B,)
+    if batch_mean:
+        total = torch.stack([n_pos.sum(), torch.full_like(n_pos[0], b)])
+        if mesh.world_size() > 1:
+            total = mesh.all_reduce_sum(total)
+        n_pos = (total[0] / total[1]).expand(b)
+    n_pos = n_pos.clamp(min=1.0)
     cls_labels = torch.where(labels_t >= 0, labels_t, cfg.n_classes)
     loss_cls = loss_ops.sigmoid_focal_loss(
         flat_cls, cls_labels, weight=flat_valid.float(), avg_factor=n_pos)

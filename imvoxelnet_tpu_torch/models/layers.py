@@ -1,5 +1,5 @@
 """Convolutions that compute in their input's dtype, and the 3D necks' batch
-norm.
+norm (global statistics under a process group of several ranks).
 
 Parameters stay float32; the forward casts them to the dtype of the input
 (bfloat16 when the model's ``compute_dtype`` is ``'bfloat16'``), as the JAX
@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh
 
 
 class Conv2d(nn.Conv2d):
@@ -47,11 +49,17 @@ class BatchNorm3d(nn.BatchNorm3d):
     leaves ``(1 - m) * rv_old + m * var``.  All on the device, no host read.
     Torch updates a copy of the buffer, which autograd may keep; the buffer
     takes the result.
+
+    In training under a process group of W > 1 ranks the statistics are
+    those of the global batch, as the JAX package's GSPMD program computes
+    them (``parallel/mesh.py``): see :meth:`_global_forward`.
     """
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x).to(x.dtype)
+        if mesh.world_size() > 1:
+            return self._global_forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         var = self.running_var.clone()
@@ -61,6 +69,39 @@ class BatchNorm3d(nn.BatchNorm3d):
         with torch.no_grad():
             old = self.running_var
             old.copy_(var - (var - (1.0 - self.momentum) * old) / n)
+        return out.to(x.dtype)
+
+    def _global_forward(self, x):
+        """Training over W ranks: in float32 (or the input's wider dtype),
+        the per-channel sum and count of the rank's values are summed over
+        the ranks, then the sum of squares about the global mean (two
+        passes, as torch's own batch norm takes the variance about the
+        mean: ``E[x^2] - mean^2`` in one pass would cancel where the
+        variance is small against the squared mean); every rank normalises
+        with the global mean and biased variance.  Both sums go through
+        autograd (the backward sums their gradients over the ranks).
+        ``running_mean`` and ``running_var`` move by flax's rule toward the
+        global mean and biased variance (``N`` the global count);
+        ``nn.SyncBatchNorm`` would take the unbiased variance."""
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        c = x.shape[1]
+        view = (1, c) + (1,) * (x.dim() - 2)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype,
+                           device=x.device)
+        sums = mesh.all_reduce_sum(torch.cat([xf.sum(dims), count]))
+        n = sums[c]
+        mean = sums[:c] / n
+        d = xf - mean.view(view)
+        var = mesh.all_reduce_sum((d * d).sum(dims)) / n
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = d * scale.view(view) + self.bias.view(view)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
         return out.to(x.dtype)
 
 

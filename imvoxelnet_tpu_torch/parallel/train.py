@@ -20,6 +20,20 @@ One step is: forward in train mode, targets and losses, backward, clip,
 update, LR step -- all queued on the device, with no host read, at the
 precision of the model's ``compute_dtype`` (``utils/precision.py``: float32
 means TF32 off).
+
+Over a process group of W > 1 ranks (``parallel/mesh.py``), each on its
+slice of the global batch, the step is the JAX package's one program over
+the global batch: the batch norms and the loss normalizers take the global
+batch's statistics inside the forward, and after the backward the gradients
+are averaged over the ranks (:func:`mesh.average_gradients`) before the one
+joint clip, so every rank makes the same update.  An explicit bucketed
+all-reduce rather than ``DistributedDataParallel``: DDP would wrap the
+module (``module.`` in every ``state_dict`` name), broadcast the buffers at
+every forward and demand ``find_unused_parameters`` for the parameters
+that reach no loss (the FPN's unused output convs, a layout head), while
+here every trainable parameter already holds a gradient and the reduction
+is one call at a known point.  The cost: the all-reduce does not overlap
+the backward.
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import torch
 
 from ..models.detector import imvoxelnet_loss
 from ..utils.precision import compute_precision
+from . import mesh
 
 def param_label(name: str) -> str:
     """``'frozen'``, ``'backbone'`` or ``'rest'`` for a parameter of
@@ -104,7 +119,8 @@ def make_train_step(model, optimizer, scheduler):
     losses (KITTI: ``loss_cls``, ``loss_bbox``, ``loss_dir``; indoor:
     ``loss_centerness``, ``loss_bbox``, ``loss_cls``, and with a layout head
     ``angle_loss`` and ``layout_loss`` too) and their sum ``loss``, in that
-    order, as device tensors.
+    order, as device tensors; over several ranks, their means over the
+    ranks (the global batch's losses).
     Every trainable parameter gets a zero gradient up front, so that one that
     does not reach the loss (the FPN's unused output convs) still decays, as
     under optax.
@@ -124,10 +140,15 @@ def make_train_step(model, optimizer, scheduler):
                                      *features_2d)
             total = sum(losses.values())
             total.backward()
+            mesh.average_gradients(params)
             optimizer.step()
             scheduler.step()
-        return dict({k: v.detach() for k, v in losses.items()},
-                    loss=total.detach())
+        metrics = dict({k: v.detach() for k, v in losses.items()},
+                       loss=total.detach())
+        if mesh.world_size() > 1:
+            mean = mesh.mean_over_ranks(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, mean.unbind()))
+        return metrics
     return step
 
 

@@ -350,3 +350,121 @@ def load_reference_state_dict(path) -> dict:
     are the reference's."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     return ckpt.get('state_dict', ckpt)
+
+
+# --------------------------------------------------------------------------
+# the train state as a torch.distributed.checkpoint directory
+# --------------------------------------------------------------------------
+# Counterpart of the JAX package's save/load_checkpoint_sharded
+# (utils/checkpoint.py:430-522, orbax): every rank writes its share of the
+# tensors, nothing is gathered on one host.  The directory holds the model's
+# state_dict under 'model.<name>' and AdamW's tensors under
+# 'optim.<index>.<name>' (DCP's files, each replicated tensor written once),
+# and 'train_state.pt', written by rank 0: the optimizer's param groups,
+# the scheduler's count, the step and the metadata.
+
+TRAIN_STATE = 'train_state.pt'
+
+
+def _barrier():
+    from ..parallel import mesh
+    if mesh.is_distributed():
+        torch.distributed.barrier()
+
+
+def save_checkpoint_sharded(path, model, optimizer, scheduler, step: int,
+                            meta=None):
+    """Write the train state to the directory ``path`` atomically, from
+    every rank of the process group (or from one process without one): the
+    ranks write ``path.tmp``; after a barrier rank 0 adds
+    ``train_state.pt`` and renames it to ``path`` (an older ``path`` moves
+    aside first and is removed after)."""
+    import shutil
+
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel import mesh
+
+    path = Path(path)
+    tmp = path.with_name(path.name + '.tmp')
+    if mesh.rank() == 0 and tmp.exists():
+        shutil.rmtree(tmp)
+    _barrier()
+    tensors = {f'model.{k}': v for k, v in model.state_dict().items()}
+    for i, state in optimizer.state_dict()['state'].items():
+        tensors.update({f'optim.{i}.{k}': v for k, v in state.items()})
+    dcp.save(tensors, checkpoint_id=str(tmp))
+    _barrier()
+    if mesh.rank() == 0:
+        torch.save(dict(param_groups=optimizer.state_dict()['param_groups'],
+                        scheduler={'last_epoch': scheduler.last_epoch},
+                        step=int(step), meta=dict(meta or {})),
+                   tmp / TRAIN_STATE)
+        old = path.with_name(path.name + '.old')
+        if path.exists():
+            path.rename(old)
+        tmp.rename(path)
+        if old.exists():
+            shutil.rmtree(old)
+    _barrier()
+
+
+def _dcp_targets(path, model_sd=None, devices=None):
+    """Tensors for every entry of a DCP directory: the model's own where
+    ``model_sd`` is given, else new ones on ``devices[index]`` (AdamW's
+    step counts on the host, as AdamW keeps them) or the host; and the
+    AdamW state they form, ``{index: {name: tensor}}``."""
+    import torch.distributed.checkpoint as dcp
+
+    saved = dcp.FileSystemReader(str(path)).read_metadata()
+    target, state = {}, {}
+    for key, info in saved.state_dict_metadata.items():
+        part, name = key.split('.', 1)
+        if part == 'model' and model_sd is not None:
+            target[key] = model_sd[name]
+            continue
+        device = 'cpu'
+        if part == 'optim':
+            index, name = name.split('.', 1)
+            if devices is not None and name != 'step':
+                device = devices[int(index)]
+        target[key] = torch.empty(info.size, dtype=info.properties.dtype,
+                                  device=device)
+        if part == 'optim':
+            state.setdefault(int(index), {})[name] = target[key]
+    dcp.load(target, checkpoint_id=str(path))
+    return target, state
+
+
+def read_checkpoint_sharded(path):
+    """The payload of a DCP directory as :func:`load_checkpoint` gives a
+    ``latest.pth``'s (host tensors): ``state_dict``, ``optimizer``,
+    ``scheduler``, ``step``, ``meta``."""
+    path = Path(path)
+    target, state = _dcp_targets(path)
+    extra = torch.load(path / TRAIN_STATE, map_location='cpu',
+                       weights_only=True)
+    return dict(state_dict={k[len('model.'):]: v for k, v in target.items()
+                            if k.startswith('model.')},
+                optimizer=dict(state=state,
+                               param_groups=extra['param_groups']),
+                scheduler=extra['scheduler'], step=extra['step'],
+                meta=extra['meta'])
+
+
+def load_checkpoint_sharded(path, model, optimizer, scheduler):
+    """Restore the directory :func:`save_checkpoint_sharded` wrote into the
+    model and the optimizer and scheduler ``make_optimizer`` built for it
+    (:func:`restore_train_state`), on every rank; returns ``(step,
+    meta)``.  The weights load in place, AdamW's tensors onto their
+    parameters' devices."""
+    path = Path(path)
+    model_sd = model.state_dict()
+    devices = [p.device for g in optimizer.param_groups for p in g['params']]
+    _, state = _dcp_targets(path, model_sd, devices)
+    extra = torch.load(path / TRAIN_STATE, map_location='cpu',
+                       weights_only=True)
+    restore_train_state(model, optimizer, scheduler, model_sd,
+                        dict(state=state, param_groups=extra['param_groups']),
+                        extra['scheduler']['last_epoch'])
+    return extra['step'], extra['meta']

@@ -679,12 +679,30 @@ def test_indoor_head_loss_matches_jax(kind):
 
 
 def test_dp_loss_norm_batch_mean_is_named_as_not_ported():
+    """``per_image`` stays the default; ``batch_mean`` (ported since the
+    data-parallel slice: each image normalized by the batch's mean positive
+    count) reaches the head loss through ``imvoxelnet_loss``, and another
+    value raises.  ``test_torch_port_distributed.py`` holds ``batch_mean``
+    to the JAX loss, over one and two ranks."""
     _, cfg = _cfgs('v1')
     assert cfg.dp_loss_norm == 'per_image'
-    with pytest.raises(NotImplementedError, match='batch_mean'):
+    batch = {k: _t(v) for k, v in _slice_batch_np().items()}
+    rng = np.random.RandomState(7)
+    heads = tuple([_t(x) for x in lv] for lv in _head_outs(rng, 2, cfg))
+    valid = _t(rng.uniform(size=(2, *cfg.n_voxels)) > 0.3)
+    mean_cfg = dataclasses.replace(cfg, dp_loss_norm='batch_mean')
+    got = detector.imvoxelnet_loss(mean_cfg, heads, batch, valid)
+    ref = ivh.indoor_head_loss(heads, valid, batch['origins'],
+                               batch['gt_boxes'], batch['gt_labels'],
+                               batch['gt_mask'], cfg.indoor_head,
+                               batch_mean=True)
+    assert set(got) == set(ref)
+    for key in ref:
+        assert torch.equal(got[key], ref[key]), key
+    with pytest.raises(ValueError, match='dp_loss_norm'):
         detector.imvoxelnet_loss(
-            dataclasses.replace(cfg, dp_loss_norm='batch_mean'), None,
-            {}, None)
+            dataclasses.replace(cfg, dp_loss_norm='per_rank'), heads, batch,
+            valid)
 
 
 SLICE_LR_MULT = 0.1

@@ -284,7 +284,9 @@ def test_state_dict_keys_are_the_reference_manifest():
 
 def test_every_port_module_imports_without_jax_or_cv2():
     """Every module of the port, the tools and the export, visualization
-    and fold modules included, imported in a fresh interpreter, leaves
+    and fold modules, the converters and the data-parallel modules
+    included, imported in a fresh interpreter, starts no process group and
+    leaves
     every ``jax*``, ``flax*``, ``optax*``, ``ml_dtypes`` and ``cv2`` module
     and every ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of
     ``sys.modules`` (``utils/visualize.py`` imports cv2 only to draw)."""
@@ -299,8 +301,17 @@ def test_every_port_module_imports_without_jax_or_cv2():
             'utils.export', 'utils.visualize', 'utils.fuse',
             'core.box_modes', 'tools.export', 'tools.demo',
             'tools.fuse_conv_bn', 'tools.publish_model',
-            'tools.print_config')}
+            'tools.print_config', 'data.converters.kitti_converter',
+            'data.converters.sunrgbd_converter',
+            'data.converters.sunrgbd_total_converter',
+            'data.converters.scannet_converter',
+            'data.converters.nuscenes_converter', 'tools.create_data',
+            'parallel.mesh', 'tools.validate_multihost',
+            'utils.synthetic_raw')}
         assert need <= set(names), need - set(names)
+        # no process group is started by an import
+        import torch.distributed as dist
+        assert not dist.is_initialized()
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0].startswith(('jax', 'flax', 'optax',
                                                     'ml_dtypes', 'cv2'))

@@ -143,13 +143,16 @@ Phases, each failing the run on its own error:
                 and imvoxelnet_scannet b=1 with 20 views, beside the
                 synthetic step and the loader alone over the long epoch at 8
                 workers, with fill + drain, peak memory, launches per step
-                and the card's busy share over 10 steps between two log
-                lines (profiler trace); those 10 KITTI steps and one b=8
+                and, for KITTI, the card's busy share over 10 steps between
+                two log lines (profiler trace); those 10 steps and one b=8
                 serving forward + decode hold no host call that waits for
                 the device and no device-to-host copy; the five learning
                 loops of tools/validate_learning.py (cudnn.deterministic)
-                with their criteria, untimed: phase 13's multihost runs
-                start before them and share the card with them.
+                with their criteria, untimed, each through the CLI in a
+                process of its own and all five at once: phase 13's
+                multihost runs start before them and share the card, and
+                are joined before phase 12, which times kernels and
+                programs with nothing else on the card.
   12. export and the paths no preset takes -- imvoxelnet_kitti (bfloat16,
                 weights as inputs) exported with torch.export at b=1 and
                 with a symbolic batch, imvoxelnet_total_sunrgbd_fast at b=1
@@ -194,7 +197,44 @@ Phases, each failing the run on its own error:
                 tools/train.py --multihost --ckpt-format orbax as two ranks
                 on the converted KITTI split (bfloat16, global b=4): the DCP
                 directory restored bit for bit, a run resumed from it bit
-                for bit as the straight run; B1 at a rank's 25 views.
+                for bit as the straight run; B1 at a rank's 25 views,
+                timed after phase 14, once its processes are gone.
+  14. the export tool's multi-device programs and the measurement tools --
+                in processes of their own, started beside phase 13:
+                tools/export.py --platforms cuda,cpu
+                (imvoxelnet_sunrgbd_fast b=1 float32: the card's program
+                launches B1, the mask and the scan once, the CPU's
+                nothing, each equal to the eager forward on its device),
+                --view-sharded (imvoxelnet_scannet, 50 views over two gloo
+                ranks on cuda:0, B1 once a rank at V=25) and
+                --data-sharded (imvoxelnet_kitti float32, global b=2 over
+                two ranks), each program's detections held to the eager
+                forward on the same inputs (a sharded one's on each rank's
+                share, the gaps bounded here), the sharded forward's head
+                outputs to the unsharded ones (1e-5 of max-abs) and the
+                detections to the unsharded eager forward (a decode that
+                breaks a near tie held to the same counts, labels and
+                scores), and tools/eval_nms_truncation.py (the mAP pair,
+                both decodes' launches); then, alone on the card,
+                tools/benchmark.py on imvoxelnet_kitti (b=8 bfloat16
+                serving and a b=4 step; 10 iterations, then 5 under the
+                profiler with --trace), its launches an iteration asserted,
+                and tools/analyze_trace.py on each trace (--top 15
+                --by-source): its device time equal to the profiler's own
+                total (key_averages), the device time of the kernels
+                launched in a span no more than the CUDA-event time of an
+                iteration, B3's kernel among the top rows and billed to
+                models/necks3d.py; bench_conv3z (B3 at block0 and at
+                nuScenes' block0, forward and dx, beside this run's phase 2
+                and 9 rows), bench_iou_kernel (B2's pairwise entry at
+                N=256/1,000/3,000 bit for bit with its plain version, and
+                the exact NMS at 3,000 candidates with its launches),
+                bench_scatter (B1's backward against index_add_) and
+                bench_loader; last the FLOP count (tools/flops.py, its
+                counted 3D neck equal to the analytic inventory), a
+                synthetic KITTI split (tools/make_synthetic_kitti.py, read
+                back through the dataset) and tools/analyze_logs.py on
+                phase 11's training log.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
 float32 work runs with TF32 off (utils/precision.py).  Weights are random
 from a seed.  Needs a CUDA device; imports no JAX.
@@ -208,7 +248,7 @@ import json
 import os
 import pickle
 import re
-import socket
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -250,10 +290,11 @@ from imvoxelnet_tpu_torch.ops import nms as nms_ops
 from imvoxelnet_tpu_torch.parallel import mesh
 from imvoxelnet_tpu_torch.parallel import train as train_lib
 from imvoxelnet_tpu_torch.data.converters import nuscenes_converter
-from imvoxelnet_tpu_torch.tools import create_data
+from imvoxelnet_tpu_torch.tools import analyze_trace, create_data
 from imvoxelnet_tpu_torch.tools import test as test_tool
 from imvoxelnet_tpu_torch.tools import train as train_tool
 from imvoxelnet_tpu_torch.tools import validate_learning
+from imvoxelnet_tpu_torch.tools import microbench
 from imvoxelnet_tpu_torch.tools import validate_multihost
 from imvoxelnet_tpu_torch.tools.profile_forward import (dcn_offsets,
                                                         level_angle_head,
@@ -267,42 +308,20 @@ from imvoxelnet_tpu_torch.utils.synthetic import (kitti_batch,
                                                   serving_batch,
                                                   sunrgbd_batch, train_batch)
 
-# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SEED = 0
+# milliseconds a call between CUDA events (``queue_us``: the launches
+# queued behind a spin kernel, so that a kernel of microseconds is timed
+# and not its launches)
+time_ms = microbench.cuda_ms
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps, warmup=1, queue_us=0):
-    """Milliseconds per call of ``fn`` between two CUDA events.
-
-    A kernel of a few microseconds runs faster than the host can launch it,
-    and the events then time the host.  ``queue_us`` (the host's cost per
-    call, generously) holds the device in a spin kernel while the host
-    queues all ``reps`` launches, so that the events time the device alone.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queue_us:
-        torch.cuda._sleep(int(reps * queue_us * 2000))   # ~2 cycles a ns
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(n_bytes, n_flops, dtype):
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = n_bytes / microbench.PEAK_BYTES * 1e3
+    t_ops = n_flops / microbench.PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -2574,12 +2593,6 @@ KITTI_VAL_FRAMES = 16
 CLI_EPOCHS = 2
 LOG_INTERVAL = 10
 STEP_SPAN = 'phase11_step'
-# host calls that wait for the device (cudaFree and cudaFreeHost
-# synchronize it too)
-SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
-              'cudaEventSynchronize', 'cudaMemcpy', 'cudaMemcpy2D',
-              'cuStreamSynchronize', 'cuCtxSynchronize', 'cuEventSynchronize',
-              'cuMemcpyDtoH_v2', 'cudaFree', 'cudaFreeHost')
 
 
 @contextlib.contextmanager
@@ -2803,50 +2816,10 @@ def kitti_cli_runs(data, root):
 
 
 def trace_window(path, n_steps):
-    """The ``n_steps`` step spans of a chrome trace: the host window from
-    the first span's start to the last one's end, the device window from
-    the first to the last kernel launched in it, the host calls in the
-    host window that wait for the device, the device-to-host copies in the
-    device window, and the card's busy share of the device window (the
-    union of all kernels' intervals in it)."""
-    with open(path) as f:
-        events = [e for e in json.load(f)['traceEvents']
-                  if e.get('ph') == 'X']
-    spans = sorted((e for e in events if e['name'] == STEP_SPAN
-                    and e.get('cat') == 'user_annotation'),
-                   key=lambda e: e['ts'])
-    if len(spans) != n_steps:
-        raise AssertionError(f'trace: {len(spans)} step spans, not '
-                             f'{n_steps}')
-    h0, h1 = spans[0]['ts'], spans[-1]['ts'] + spans[-1]['dur']
-    calls = [e for e in events if e.get('cat') in ('cuda_runtime',
-                                                   'cuda_driver')
-             and h0 <= e['ts'] <= h1]
-    corr = {e['args'].get('correlation') for e in calls}
-    device = [e for e in events if e.get('cat') in ('kernel', 'gpu_memcpy',
-                                                    'gpu_memset')]
-    launched = [e for e in device if e['cat'] == 'kernel'
-                and e['args'].get('correlation') in corr]
-    if not launched:
-        raise AssertionError('trace: no kernel launched in the step spans')
-    d0 = min(e['ts'] for e in launched)
-    d1 = max(e['ts'] + e['dur'] for e in launched)
-    syncs = sorted({e['name'] for e in calls if e['name'] in SYNC_CALLS})
-    dtoh = [e['name'] for e in device if e['cat'] == 'gpu_memcpy'
-            and 'DtoH' in e['name'] and e['ts'] < d1
-            and e['ts'] + e['dur'] > d0]
-    union, end = 0.0, d0
-    for a, b in sorted((max(e['ts'], d0), min(e['ts'] + e['dur'], d1))
-                       for e in device if e['cat'] == 'kernel'
-                       and e['ts'] < d1 and e['ts'] + e['dur'] > d0):
-        if b > end:
-            union += b - max(a, end)
-            end = b
-    return dict(steps=n_steps, host_window_ms=(h1 - h0) / 1e3,
-                device_window_ms=(d1 - d0) / 1e3, kernels=len(launched),
-                runtime_calls=len(calls), sync_calls=syncs,
-                device_to_host_copies=len(dtoh),
-                busy_share=union / (d1 - d0))
+    """The ``n_steps`` ``STEP_SPAN`` spans of a chrome trace as one window
+    (``tools/analyze_trace.py:window``)."""
+    return analyze_trace.window(analyze_trace.load_events(path), STEP_SPAN,
+                                n_steps)
 
 
 def profiled_cli(args, trace_path):
@@ -2916,10 +2889,11 @@ def steady_training(key, data, root):
     """(b): one family's bfloat16 training from files through the CLI's
     loop: a short and a long epoch (the split listed more often,
     ``repeat_times`` 1) for the steady state (steps/s, scenes/s) and the
-    fill + drain seconds, the long epoch again under the profiler for the
-    busy share of 10 steps between two log lines (and, for KITTI, their
-    host syncs), the launches per step of the long run, its peak memory;
-    beside it the loader alone at 8 workers and the synthetic step."""
+    fill + drain seconds, for KITTI the long epoch again under the profiler
+    for the busy share of 10 steps between two log lines and their host
+    syncs (the other families' busy shares were measured once), the
+    launches per step of the long run, its peak memory; beside it the
+    loader alone at 8 workers and the synthetic step."""
     name, _, _, b, (short_x, long_x) = TRAIN_SPLITS[key]
     preset = apply_overrides(get_preset(name),
                              [BF16, 'data.repeat_times=1'])
@@ -2940,12 +2914,13 @@ def steady_training(key, data, root):
             out['peak_memory_gb'] = torch.cuda.max_memory_allocated() / 1e9
             assert_cli_launches(f'train from files {key}', runs[tag],
                                 TRAIN_STEP_LAUNCHES[key])
-            profiled, window = profiled_cli(
-                cli(split, f'{key}_profiled'),
-                os.path.join(root, f'{key}_trace.json'))
-            out['profiled_window'] = window
-            out['profiled_steps_per_s'] = profiled['epochs'][0]['steps'] / \
-                profiled['epochs'][0]['seconds']
+            if key == 'kitti':
+                profiled, window = profiled_cli(
+                    cli(split, f'{key}_profiled'),
+                    os.path.join(root, f'{key}_trace.json'))
+                out['profiled_window'] = window
+                out['profiled_steps_per_s'] = profiled['epochs'][0][
+                    'steps'] / profiled['epochs'][0]['seconds']
     n = {t: runs[t]['epochs'][0]['steps'] for t in runs}
     s = {t: runs[t]['epochs'][0]['seconds'] for t in runs}
     per_step = (s['long'] - s['short']) / (n['long'] - n['short'])
@@ -3042,16 +3017,19 @@ def check_apis(latest, data, root):
     return out
 
 
-def run_train_from_files(before_loops=None):
+def run_train_from_files(before_loops=None, keep_log=None):
     """Phase 11: (a) the KITTI training CLI at full width with validation,
     resume and ``tools/test.py --checkpoint``; (b) the steady state of
     training from files for KITTI, SUN RGB-D and ScanNet beside the
-    synthetic step and the loader alone; (c) the five learning loops
-    (``before_loops`` called before them: work of its own that the untimed
-    loops may share the card with); (d) the API against the runner; (e) no
+    synthetic step and the loader alone; (c) the five learning loops, all
+    at once, each through ``tools/validate_learning.py`` in a process of
+    its own (``before_loops`` called before them: work of its own that the
+    untimed loops may share the card with); (d) the API against the
+    runner; (e) no
     host sync in the profiled steady steps and in a serving forward +
     decode.  Returns the summary and the KITTI CLI's launches per step and
-    per validation batch."""
+    per validation batch; ``keep_log``: where the KITTI CLI's
+    ``train_log.jsonl`` is copied (phase 14 reads it)."""
     out = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -3060,6 +3038,9 @@ def run_train_from_files(before_loops=None):
         log(f'train from files: splits written in {out["write_splits_s"]:.1f}'
             f' s')
         out['kitti_cli'], latest = kitti_cli_runs(data, root)
+        if keep_log:
+            shutil.copy(os.path.join(root, 'straight', 'train_log.jsonl'),
+                        keep_log)
         out['apis'] = check_apis(latest, data, root)
         for key in TRAIN_SPLITS:
             out[key] = steady_training(key, data, root)
@@ -3076,9 +3057,18 @@ def run_train_from_files(before_loops=None):
     if before_loops is not None:
         before_loops()
     out['learning'] = {}
-    for family in validate_learning.FAMILIES:
-        with tempfile.TemporaryDirectory() as root:
-            r = validate_learning.learn(family, root, 'cuda')
+    # the five loops at once, each through the CLI in a process of its own
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'imvoxelnet_tpu_torch.tools.'
+         'validate_learning', '--family', family, '--device', 'cuda'],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for family in validate_learning.FAMILIES]
+    try:
+        outs = mesh.wait_ranks(procs, 900)
+    except RuntimeError as e:
+        raise AssertionError(f'learning loops: {e}') from None
+    for family, text in zip(validate_learning.FAMILIES, outs):
+        r = tool_line(f'learning loop {family}', text)
         log(f'learning loop {family}: {json.dumps(r)}')
         if not r['passed']:
             raise AssertionError(f'learning loop {family} failed its '
@@ -3863,19 +3853,6 @@ def cli_summary(tag, procs, timeout=600):
     return json.loads(lines[0][len('SUMMARY '):])
 
 
-def free_ports(n):
-    """``n`` distinct free ports of this host (held open together while
-    they are picked)."""
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for sock in socks:
-            sock.bind(('localhost', 0))
-        return [sock.getsockname()[1] for sock in socks]
-    finally:
-        for sock in socks:
-            sock.close()
-
-
 def dcp_restore_check(dcp, steps_per_epoch):
     """The resume path in this process: the directory's tensors back into
     a model and optimizer of another seed, against the directory's own
@@ -3912,7 +3889,7 @@ def start_multihost_runs():
     """The ``MULTIHOST_RUNS`` in their own processes, two runs at a time
     (all of them at once overfill the card's memory), in two threads;
     returns ``(threads, outputs)``: each run's output or exception."""
-    ports = dict(zip(MULTIHOST_RUNS, free_ports(len(MULTIHOST_RUNS))))
+    ports = dict(zip(MULTIHOST_RUNS, mesh.free_ports(len(MULTIHOST_RUNS))))
     outputs = {}
 
     def validate_runs(tags):
@@ -3934,12 +3911,12 @@ def start_multihost_runs():
     return threads, outputs
 
 
-def run_phase13(rng, runs=None):
-    """Phase 13; returns its summary and B1's row at a rank's 25 views,
-    with the launches of each rank of the view-sharded forward.  ``runs``:
-    the ``MULTIHOST_RUNS`` as :func:`start_multihost_runs` started them
-    (else it starts them).  Every part runs; a failed part fails the phase
-    at its end, with every error."""
+def run_phase13(runs=None):
+    """Phase 13; returns its summary and the launches of each rank of the
+    view-sharded forward (B1's row at a rank's 25 views is timed apart).
+    ``runs``: the ``MULTIHOST_RUNS`` as :func:`start_multihost_runs`
+    started them (else it starts them).  Every part runs; a failed part
+    fails the phase at its end, with every error."""
     out, errors = {}, []
 
     def attempt(tag, fn, *args):
@@ -3953,7 +3930,7 @@ def run_phase13(rng, runs=None):
     t0 = time.perf_counter()
     if not runs:
         runs = start_multihost_runs()
-    ports = free_ports(3)
+    ports = mesh.free_ports(3)
     with tempfile.TemporaryDirectory() as root:
         kitti, out['create_data_kitti'] = convert_and_compare(
             'kitti', root, synthetic_raw.kitti_raw,
@@ -4026,13 +4003,301 @@ def run_phase13(rng, runs=None):
         return check_multihost(tag, outputs[tag], MULTIHOST_RUNS[tag][1])
     out['multihost'] = {tag: attempt(tag, verdict, tag)
                         for tag in MULTIHOST_RUNS}
-    row = check_backproject(1, torch.float32, 1e-5, rng,
-                            'imvoxelnet_scannet', views=25)
     out['seconds'] = time.perf_counter() - t0
     if errors:
         raise AssertionError('phase 13: ' + '\n'.join(errors))
-    return out, row, out['multihost']['scannet_50_views_2_ranks'][
-        'launches'][0]
+    return out, out['multihost']['scannet_50_views_2_ranks']['launches'][0]
+
+
+# --------------------------------------------------------------------------
+# phase 14: the export tool's multi-device programs and the measurement tools
+# --------------------------------------------------------------------------
+
+PLATFORM_PRESET = 'imvoxelnet_sunrgbd_fast'
+# a call of each program: the platforms' (b=1 float32 SUN RGB-D _fast), a
+# rank of the view-sharded ScanNet (25 of 50 views) and of the
+# data-sharded KITTI (b=1 of 2)
+PLATFORM_LAUNCHES = {'cuda': EVAL_BATCH_LAUNCHES['sunrgbd'],
+                     'cpu': dict.fromkeys(EVAL_BATCH_LAUNCHES['sunrgbd'], 0)}
+VIEW_RANK_LAUNCHES = EVAL_BATCH_LAUNCHES['scannet']
+DATA_RANK_LAUNCHES = EVAL_BATCH_LAUNCHES['kitti']
+# the benchmark's launches an iteration: KITTI b=8 serving, a b=4 step
+BENCH_LAUNCHES = {'fwd': EVAL_BATCH_LAUNCHES['kitti'],
+                  'train': TRAIN_STEP_LAUNCHES['kitti']}
+BENCH_ITERS = 10
+TRACED_ITERS = 5
+# the decodes of the truncation study: the NMS-mask entry and the scan;
+# the exact one B2's pairwise entry and the scan
+TRUNCATION_LAUNCHES = dict(backproject=0, backproject_grad=0, rect_clip=1,
+                           rect_clip_grad=0, nms_scan=1, conv3x3x3=0)
+B3_KERNEL = 'conv_wgmma'
+NECK_SOURCE = 'imvoxelnet_tpu_torch/models/necks3d.py'
+
+
+def tool_line(tag, out):
+    """The last JSON line a tool printed."""
+    lines = [x for x in out.splitlines() if x.startswith('{')]
+    if not lines:
+        raise AssertionError(f'{tag}: no JSON line\n{out[-3000:]}')
+    return json.loads(lines[-1])
+
+
+def start_untimed_tools(root):
+    """The phase's untimed runs, in processes of their own on the card:
+    the export of ``PLATFORM_PRESET`` for the card and the CPU, the
+    view-sharded ScanNet and data-sharded KITTI exports over two gloo ranks
+    each, and the truncation study.  Returns ``{tag: processes}``."""
+    weights = {}
+    for name in (PLATFORM_PRESET, 'imvoxelnet_scannet', 'imvoxelnet_kitti'):
+        weights[name] = os.path.join(root, f'{name}.pth')
+        eval_weights(name, weights[name])
+
+    def tool(name, *args):
+        # at a lower CPU priority than phase 13's own work, which they share
+        # the host with
+        return ['nice', '-n', '10', sys.executable, '-m',
+                f'imvoxelnet_tpu_torch.tools.{name}', *args]
+
+    def export(name, *flags):
+        return tool('export', name, '--out', os.path.join(
+            root, f'{name}.pt2'), '--torch-checkpoint', weights[name],
+            '--verify', *flags)
+
+    def start(cmd):
+        return [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)]
+    ports = mesh.free_ports(2)
+    return {
+        'platforms': start(export(PLATFORM_PRESET, '--platforms',
+                                  'cuda,cpu')),
+        'truncation': start(tool(
+            'eval_nms_truncation', '--scenes', '16', '--train-scenes', '8',
+            '--steps', '40', '--root', os.path.join(root, 'truncation'))),
+        'view': mesh.start_ranks(export('imvoxelnet_scannet',
+                                        '--view-sharded'), 2, ports[0],
+                                 cwd=REPO),
+        'data': mesh.start_ranks(export('imvoxelnet_kitti', '--data-sharded',
+                                        '--batch-size', '2'), 2, ports[1],
+                                 cwd=REPO)}
+
+
+def check_exports(outs):
+    """The three export runs' verdicts, read from their lines and bounded
+    here: each program's largest gap from the eager forward on its device
+    or, for a sharded one, on each rank's share; a sharded forward's head
+    outputs against the unsharded ones; where a sharded decode broke a near
+    tie, that it was held to the same detection counts, labels and scores;
+    with the launches of a call (a rank's), and detections to compare."""
+    from imvoxelnet_tpu_torch.tools.export import DET_TOL, OUT_TOL
+
+    out = {}
+    line = tool_line('export --platforms', outs['platforms'][0])
+    for platform, want in PLATFORM_LAUNCHES.items():
+        got = line['per_platform'][platform]
+        assert_launches(f'export --platforms, the {platform} program',
+                        got['launches'], want)
+        if not got['program_gap'] <= DET_TOL or not got['detections']:
+            raise AssertionError(f'export --platforms, the {platform} '
+                                 f'program: {got}')
+    out['platforms'] = line
+    for tag, want in (('view', VIEW_RANK_LAUNCHES),
+                      ('data', DATA_RANK_LAUNCHES)):
+        line = tool_line(f'export --{tag}-sharded', outs[tag][0])
+        for r, counts in enumerate(line['launches']):
+            assert_launches(f'export --{tag}-sharded rank {r}', counts, want)
+        if line['devices'] != 2 or line['collectives'] != (
+                2 if tag == 'view' else 0) or line['error'] or \
+                len(line['program_gaps']) != 2 or \
+                not max(line['program_gaps']) <= DET_TOL or \
+                not line['head_outputs_gap'] <= OUT_TOL or \
+                not line['detections']:
+            raise AssertionError(f'export --{tag}-sharded: {line}')
+        out[tag] = line
+    for tag, line in out.items():
+        if not line['verified']:
+            raise AssertionError(f'export {tag}: not verified: {line}')
+    return out
+
+
+def traced_benchmark(mode, root):
+    """The benchmark CLI on ``imvoxelnet_kitti`` (bfloat16; b=8 serving or
+    a b=4 step): untimed by the profiler first, then with ``--trace``, and
+    ``tools/analyze_trace.py --top 15 --by-source`` on the trace."""
+    from imvoxelnet_tpu_torch.tools import benchmark
+
+    b = '8' if mode == 'fwd' else '4'
+    argv = ['imvoxelnet_kitti', '--batch-size', b] + (
+        ['--train'] if mode == 'train' else [])
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = benchmark.main(argv + ['--iters', str(BENCH_ITERS)])
+        traced = benchmark.main(argv + ['--iters', str(TRACED_ITERS),
+                                        '--trace',
+                                        os.path.join(root, mode)])
+    for run in (plain, traced):
+        assert_launches(f'benchmark {mode}', {
+            k: round(v, 6) for k, v in run['launches_per_iter'].items()},
+            BENCH_LAUNCHES[mode])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        digest = analyze_trace.main([traced['traced'], '--top', '15',
+                                     '--by-source', '--steps',
+                                     str(TRACED_ITERS)])
+        kernels_top = analyze_trace.main([traced['traced'], '--top', '15'])
+    log(f'analyze_trace {mode}:\n{text.getvalue()}')
+    # the digest's device time against the profiler's own total
+    # (key_averages), and its kernels launched in the spans against the
+    # CUDA-event window of the same run: on one stream the kernels of an
+    # iteration take no more than the iteration
+    own = traced['profiler_device_ms']
+    span_ms, window_ms = digest['spans']['device_ms'], traced['ms_per_batch']
+    if abs(digest['device_ms'] - own) > 1e-3 * own or \
+            digest['spans']['count'] != TRACED_ITERS or \
+            not 0 < span_ms <= window_ms:
+        raise AssertionError(f'analyze_trace {mode}: {digest["device_ms"]} '
+                             f'ms of device time against the profiler\'s '
+                             f'{own}, {digest["spans"]} against '
+                             f'{window_ms} ms a batch')
+    in_spans = span_ms * TRACED_ITERS / digest['device_ms']
+    # B3's kernel among the top rows, billed to the KITTI neck (its dx
+    # kernels to the neck's forward code)
+    b3 = [r for r in kernels_top['table'] if B3_KERNEL in r['name']]
+    b3_sources = {src.replace(' (backward)', '')
+                  for name, billed in digest['sources'].items()
+                  if B3_KERNEL in name for src in billed}
+    if not b3 or b3_sources != {NECK_SOURCE}:
+        raise AssertionError(f'analyze_trace {mode}: B3 rows {b3}, billed to '
+                             f'{b3_sources}')
+    return dict(
+        scenes_per_sec=plain['scenes_per_sec'], ms_per_batch=plain[
+            'ms_per_batch'], traced_ms_per_batch=traced['ms_per_batch'],
+        launches_per_iter=plain['launches_per_iter'], card=plain['card'],
+        device_ms_per_iter=digest['device_ms'] / TRACED_ITERS,
+        profiler_device_ms_per_iter=own / TRACED_ITERS,
+        span_device_ms=digest['spans']['device_ms'],
+        span_host_ms=digest['spans']['host_ms'],
+        device_ms_in_spans_share=in_spans,
+        b3_rank=kernels_top['table'].index(b3[0]) + 1, b3_row=b3[0],
+        top_sources=digest['table'][:6])
+
+
+def microbenchmarks(refs):
+    """The four ``bench_*`` tools at reduced repetitions, each checking
+    its kernel against its reference; B3's and B2's times beside the same
+    kernels' rows of this run's phases 2 and 9 (``refs``)."""
+    from imvoxelnet_tpu_torch.tools import (bench_conv3z, bench_iou_kernel,
+                                            bench_loader, bench_scatter)
+
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        conv = bench_conv3z.main(['--iters', '10'])
+        iou = bench_iou_kernel.main(['--iters', '10'])
+        nms = bench_iou_kernel.main(['--nms', '--iters', '5'])
+        scatter = bench_scatter.main(['--iters', '5'])
+        loader = bench_loader.main(['--samples', '64', '--workers', '1,8',
+                                    '--target', '136'])
+    chosen = {(s['name'], r['pass']): r for s in conv['shapes']
+              for r in s['rows'] if r['impl'].endswith('(chosen)')}
+    for r in chosen.values():
+        if r['max_rel_err'] > 2e-2:
+            raise AssertionError(f'bench_conv3z: {r}')
+    out['bench_conv3z'] = conv
+    out['b3_against_this_run'] = {
+        key: dict(bench_ms=chosen[key]['ms'], phase_ms=refs[key],
+                  ratio=chosen[key]['ms'] / refs[key])
+        for key in (('block0', 'forward'), ('nuscenes', 'forward'),
+                    ('nuscenes', 'dx')) if key in refs}
+    out['b3_against_this_run'] = {
+        ' '.join(k): v for k, v in out['b3_against_this_run'].items()}
+    for row in iou['pairwise']:
+        if 'bit_identical' in row and not row['bit_identical']:
+            raise AssertionError(f'bench_iou_kernel: {row}')
+    assert_launches('bench_iou_kernel --nms', nms['nms']['launches'],
+                    EXACT_LAUNCHES)
+    out['bench_iou_kernel'] = dict(pairwise=iou['pairwise'], nms=nms['nms'])
+    out['bench_scatter'] = scatter['runs']
+    out['bench_loader'] = loader
+    return out
+
+
+def run_phase14(refs, train_log, untimed=None):
+    """Phase 14; returns its summary.  ``refs``: the ms of B3's rows of
+    phases 2 and 9 (block0 forward, nuScenes forward and dx), which the
+    microbenchmarks' times are set beside; ``train_log``: phase 11's
+    ``train_log.jsonl`` (``None`` when the phase runs alone: no summary);
+    ``untimed``: ``(root, processes)`` of :func:`start_untimed_tools`, as
+    ``smoke`` starts them beside phase 13 (else they start here).  Their
+    results are read first; then the timed tools run alone on the card,
+    and last the FLOP count, the synthetic KITTI split and the log
+    summary."""
+    from imvoxelnet_tpu_torch.tools import (analyze_logs, flops,
+                                            make_synthetic_kitti)
+
+    out = {}
+    t0 = time.perf_counter()
+    if untimed is None:
+        root = tempfile.mkdtemp(prefix='phase14_')
+        untimed = (root, start_untimed_tools(root))
+    root, procs = untimed
+    try:
+        try:
+            outs = {tag: mesh.wait_ranks(group, 900)
+                    for tag, group in procs.items()}
+        finally:
+            for group in procs.values():
+                for proc in group:
+                    if proc.poll() is None:
+                        proc.kill()
+        out['untimed_wait_s'] = time.perf_counter() - t0
+        out['exports'] = check_exports(outs)
+        for tag, line in out['exports'].items():
+            log(f'export {tag}: {json.dumps(line)}')
+        study = tool_line('eval_nms_truncation', outs['truncation'][0])
+        for decode in ('truncated', 'exact'):
+            assert_launches(f'eval_nms_truncation {decode}',
+                            study['launches'][decode], TRUNCATION_LAUNCHES)
+        out['truncation'] = study
+        log(f'eval_nms_truncation: {json.dumps(study)}')
+
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        for mode in ('fwd', 'train'):
+            out[f'benchmark_{mode}'] = traced_benchmark(mode, root)
+            log(f'benchmark {mode}: {json.dumps(out[f"benchmark_{mode}"])}')
+        out.update(microbenchmarks(refs))
+        for key in ('b3_against_this_run', 'bench_iou_kernel',
+                    'bench_scatter', 'bench_loader'):
+            log(f'{key}: {json.dumps(out[key])}')
+        out['timed_s'] = time.perf_counter() - t1
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            out['flops'] = flops.main(['imvoxelnet_kitti'])
+            syn = os.path.join(root, 'synthetic_kitti')
+            make_synthetic_kitti.main(['--out', syn, '--train', '8',
+                                       '--val', '4'])
+            if train_log:
+                out['analyze_logs'] = analyze_logs.main(
+                    [train_log, '--keys', 'loss', 'loss_cls', 'loss_bbox',
+                     'loss_dir'])
+        log(f'flops: {json.dumps(out["flops"])}')
+        if abs(out['flops']['counted_neck_tf'] -
+               out['flops']['analytic_neck_tf']) > 1e-9:
+            raise AssertionError(f'flops: the counted neck differs from the '
+                                 f'inventory {out["flops"]}')
+        out['synthetic_kitti'] = {
+            split: read_converted('imvoxelnet_kitti', syn, os.path.join(
+                syn, f'kitti_infos_{split}.pkl'))
+            for split in ('train', 'val')}
+        log(f'synthetic kitti read back: '
+            f'{json.dumps(out["synthetic_kitti"])}')
+        if train_log:
+            if out['analyze_logs']['loss']['n'] < 2:
+                raise AssertionError(f'analyze_logs: {out["analyze_logs"]}')
+            log(f'analyze_logs on phase 11\'s log: '
+                f'{json.dumps(out["analyze_logs"])}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out['seconds'] = time.perf_counter() - t0
+    return out
 
 
 def main():
@@ -4074,7 +4339,7 @@ def smoke():
         raise AssertionError('conv3x3x3: no tensor-core instruction built')
 
     log(f'HBM: 1 GiB device copy at {copy_rate_tb_s():.4g} TB/s read+write '
-        f'(published peak {PEAK_BYTES / 1e12:.3g} TB/s)')
+        f'(published peak {microbench.PEAK_BYTES / 1e12:.3g} TB/s)')
     iou_thr = get_preset('imvoxelnet_kitti').model.anchor_head.iou_thr
     mask_row, scan_row = check_nms_kernels(8, 100, iou_thr, rng)
     serving = [check_backproject(8, torch.bfloat16, 2e-2, rng), mask_row,
@@ -4202,11 +4467,21 @@ def smoke():
     # training from files: tools/train.py on splits written to disk
     t11 = time.perf_counter()
     # phase 13's data-parallel runs share the card with the learning loops
+    # (beside phase 13 itself and phase 14's untimed runs they overfill
+    # the card's memory)
     multihost = []
+    keep = tempfile.mkdtemp(prefix='phase11_log_')
+    train_log = os.path.join(keep, 'train_log.jsonl')
     from_files, cli_counts = run_train_from_files(
-        lambda: multihost.extend(start_multihost_runs()))
+        lambda: multihost.extend(start_multihost_runs()), train_log)
     log(json.dumps({'train_from_files': from_files}))
     log(f'phase 11 (train from files): {time.perf_counter() - t11:.1f} s')
+    # phase 12 times kernels and programs: nothing else on the card then
+    t_join = time.perf_counter()
+    for thread in multihost[0]:
+        thread.join()
+    log(f'phase 13\'s multihost runs joined {time.perf_counter() - t_join:.1f}'
+        f' s after phase 11; nothing else runs on the card in phase 12')
 
     # serving export, --show-dir, the fold, and the paths no preset takes
     t12 = time.perf_counter()
@@ -4217,18 +4492,35 @@ def smoke():
     log(f'phase 12 (export, show-dir, fold, exact NMS, GIoU): '
         f'{time.perf_counter() - t12:.1f} s')
 
-    # converted splits, and data parallelism on one card
-    phase13, views_row, views_launches = run_phase13(rng, multihost)
-    log(json.dumps(views_row))
+    # converted splits, and data parallelism on one card; phase 14's
+    # untimed exports and truncation study run beside it
+    untimed_root = tempfile.mkdtemp(prefix='phase14_')
+    untimed = (untimed_root, start_untimed_tools(untimed_root))
+    phase13, views_launches = run_phase13(multihost)
     log(json.dumps({'phase13': phase13}))
     log(f'phase 13 (converters, data parallelism): '
         f'{phase13["seconds"]:.1f} s')
 
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    # the export tool's multi-device programs and the measurement tools
+    refs = {('block0', 'forward'): serving[3]['ms'],
+            ('nuscenes', 'forward'): nuscenes_rows[1][0]['ms'],
+            ('nuscenes', 'dx'): nuscenes_rows[2][0]['ms']}
+    try:
+        phase14 = run_phase14(refs, train_log, untimed)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    log(json.dumps({'phase14': phase14}))
+    log(f'phase 14 (multi-device export, measurement tools): '
+        f'{phase14["seconds"]:.1f} s (the untimed runs started with phase '
+        f'13: {phase14["untimed_wait_s"]:.1f} s more; the timed tools '
+        f'{phase14["timed_s"]:.1f} s)')
+    # B1 at a rank's 25 views of phase 13's view-sharded ScanNet, timed
+    # once phase 14's processes are gone
+    views_row = check_backproject(1, torch.float32, 1e-5, rng,
+                                  'imvoxelnet_scannet', views=25)
+    log(json.dumps(views_row))
+
+    log(microbench.card())
     # the summary line: the kernels at the KITTI serving shapes (b=8
     # bfloat16; the NMS of 8 samples x 100 candidates) with the launches of
     # the b=8 forward; the backprojection's backward, its forward and B3's

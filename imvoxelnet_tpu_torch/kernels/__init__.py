@@ -16,7 +16,11 @@ The serving entries (B1 and B3 forward, the clip's pairwise and NMS-mask
 entries, the scan) are also registered as ``torch.library`` operators,
 ``torch.ops.imvx.*``, with the wrappers as their CUDA implementations and
 no CPU one: a ``torch.export`` program records each launch as one node, and
-importing this package is what a loaded program needs to run them.
+importing this package is what a loaded program needs to run them.  An
+operator makes its operands contiguous before the wrapper checks them: the
+trace drops a ``.contiguous()`` of a tensor that was contiguous there, and
+a loaded program's intermediate tensors may carry other strides (a b=1
+float32 KITTI program's conv input did on the card).
 """
 
 from __future__ import annotations

@@ -123,7 +123,8 @@ def backproject_batch_grad(grad_acc, points, projections, valid_hw,
 # implementation is registered: the plain version is the op layer's.
 backproject_op = torch.library.custom_op(
     'imvx::backproject', lambda features, points, projections, valid_hw:
-    backproject_batch(features, points, projections, valid_hw),
+    backproject_batch(features.contiguous(), points.contiguous(),
+                      projections.contiguous(), valid_hw.contiguous()),
     mutates_args=(), device_types='cuda',
     schema='(Tensor features, Tensor points, Tensor projections, '
            'Tensor valid_hw) -> (Tensor, Tensor)')

@@ -15,6 +15,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from ._checks import require, same_device, stream_of
@@ -230,7 +231,8 @@ def conv3x3x3(x, kernel, tile=None):
 # implementation gives the output's shape.  No CPU implementation is
 # registered: the plain version is the op layer's.
 conv3x3x3_op = torch.library.custom_op(
-    'imvx::conv3x3x3', lambda x, kernel: conv3x3x3(x, kernel),
+    'imvx::conv3x3x3', lambda x, kernel: conv3x3x3(x.contiguous(),
+                                                   kernel.contiguous()),
     mutates_args=(), device_types='cuda',
     schema='(Tensor x, Tensor kernel) -> Tensor')
 
@@ -238,3 +240,12 @@ conv3x3x3_op = torch.library.custom_op(
 @conv3x3x3_op.register_fake
 def _(x, kernel):
     return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.imvx.conv3x3x3)
+def _(x_shape, kernel_shape, *args, out_shape=None, **kwargs):
+    """Dense operations of the op for ``torch.utils.flop_counter``: two
+    (a multiply and an add) per tap, input and output channel and output
+    site, padded taps included, as the count of ``F.conv3d`` goes."""
+    b, nx, ny, nz, cin = x_shape
+    return 2 * b * nx * ny * nz * 27 * cin * kernel_shape[-1]

@@ -213,16 +213,19 @@ def nms_scan(mask, valid):
 # registered: the plain versions are the op layers'.
 pairwise_op = torch.library.custom_op(
     'imvx::rect_clip_pairwise', lambda corners1, corners2:
-    rect_intersection_area_pairwise(corners1, corners2),
+    rect_intersection_area_pairwise(corners1.contiguous(),
+                                    corners2.contiguous()),
     mutates_args=(), device_types='cuda',
     schema='(Tensor corners1, Tensor corners2) -> Tensor')
 nms_mask_op = torch.library.custom_op(
     'imvx::nms_mask', lambda corners, box_areas, iou_thr:
-    nms_dominance_mask(corners, box_areas, iou_thr),
+    nms_dominance_mask(corners.contiguous(), box_areas.contiguous(),
+                       iou_thr),
     mutates_args=(), device_types='cuda',
     schema='(Tensor corners, Tensor box_areas, float iou_thr) -> Tensor')
 nms_scan_op = torch.library.custom_op(
-    'imvx::nms_scan', lambda mask, valid: nms_scan(mask, valid),
+    'imvx::nms_scan', lambda mask, valid: nms_scan(mask.contiguous(),
+                                                   valid.contiguous()),
     mutates_args=(), device_types='cuda',
     schema='(Tensor mask, Tensor valid) -> Tensor')
 

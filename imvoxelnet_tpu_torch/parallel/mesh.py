@@ -130,7 +130,15 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks (a new tensor), through autograd."""
+    """``x`` summed over the ranks (a new tensor), through autograd.
+
+    Where no gradient is recorded (serving) it is the functional
+    collective, which ``torch.export`` traces to ``_c10d_functional.
+    all_reduce`` + ``wait_tensor`` nodes of the default group: an exported
+    view-sharded program pools its views that way on every rank."""
+    if not torch.is_grad_enabled():
+        from torch.distributed import _functional_collectives as fc
+        return fc.all_reduce(x, 'sum', dist.group.WORLD)
     return _AllReduceSum.apply(x)
 
 
@@ -198,10 +206,22 @@ def view_sharded_forward(model):
     return forward
 
 
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports of this host, held open together while
+    they are picked (ranks started together once shared a port picked
+    alone)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(('localhost', 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('localhost', 0))
-        return s.getsockname()[1]
+    return free_ports(1)[0]
 
 
 def start_ranks(cmd, world: int, port: int = 0, cwd=None, **env):

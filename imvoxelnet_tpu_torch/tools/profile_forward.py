@@ -52,22 +52,23 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
 from torch.autograd import DeviceType
 
-from ..configs.presets import get_preset
+from ..configs.presets import apply_overrides, get_preset
 from ..models.dcn import DeformConv2d
 from ..models.detector import build_model, imvoxelnet_predict
 from ..models.heads import imvoxel_heads as ivh
 from ..models.heads import layout_head as lh
 from ..ops import losses as loss_ops
+from ..parallel import mesh
 from ..parallel import train as train_lib
 from ..utils.precision import compute_precision
 from ..utils.synthetic import serving_batch, train_batch
+from . import microbench
 
 STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
@@ -235,13 +236,23 @@ def dcn_events(model, events, backward: bool):
 
 
 def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
-             device='cuda'):
+             device='cuda', overrides=(), view_sharded: bool = False):
     """The preset's model (random weights from ``SEED``) and ``run()``, one
     forward + decode or one training step on its synthetic batch, at the
     precision ``dtype`` names (``utils/precision.py``: float32 means TF32
-    off).  Returns ``(model, optimizer or None, run)``."""
-    preset = get_preset(preset_name)
-    cfg = dataclasses.replace(preset.model, compute_dtype=dtype)
+    off).  ``overrides``: ``PATH=VALUE`` preset fields
+    (``configs/presets.py:apply_overrides``).  ``view_sharded`` (serving
+    only, in a process group): the forward takes this rank's share of the
+    views and pools the voxel sums over the ranks
+    (``parallel/mesh.py:view_sharded_forward``).  Returns ``(model,
+    optimizer or None, run)``."""
+    preset = apply_overrides(get_preset(preset_name), list(overrides))
+    cfg = dataclasses.replace(preset.model, compute_dtype=dtype,
+                              view_shard_axis='view' if view_sharded
+                              else None)
+    if view_sharded and train:
+        raise ValueError('the view-sharded forward serves; it does not '
+                         'train')
     model = build_model(cfg, device=device, seed=SEED)
     dcn_offsets(model)
     if train:
@@ -260,12 +271,13 @@ def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
     level_angle_head(model)
     batch = serving_batch(preset.data.dataset, batch_size, device, seed=SEED,
                           views=preset.data.n_images_test)
+    forward = mesh.view_sharded_forward(model) if view_sharded else model
     # Total3D serves with the extrinsics its layout head predicts
     predicted = cfg.layout_head is not None
 
     def run():
         with compute_precision(dtype), torch.no_grad():
-            head_outs, valid, *features_2d = model(
+            head_outs, valid, *features_2d = forward(
                 batch, use_predicted_extrinsics=predicted)
             return imvoxelnet_predict(cfg, head_outs, valid,
                                       batch['origins'], *features_2d)
@@ -384,10 +396,7 @@ def main(argv=None):
                 ms_per_iter=ev.self_device_time_total / 1e3 / ITERS)
            for ev in kernels if any(k in ev.key for k in OWN_KERNELS)]
 
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = microbench.card()
     wall = sorted(walls)[len(walls) // 2]
     result = dict(
         card=smi, preset=args.preset,

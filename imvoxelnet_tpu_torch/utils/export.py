@@ -23,6 +23,31 @@ Two weight conventions, as in the JAX package:
 ``batch_size=None`` exports with a symbolic batch dimension
 (``torch.export.Dim``): one program serves any batch size.
 
+The multi-device forms of the JAX ``export_serving`` (``platforms``,
+``view_mesh``, ``data_mesh``):
+
+* **platforms** (:func:`export_platforms`): one archive, one program per
+  platform (``cuda``, ``cpu``) keyed by its name, each traced from inputs
+  on its own device; the CPU program holds the kernels' plain versions.
+  :func:`load_exported` picks the program of the current device.
+* **view-sharded** (:func:`export_sharded` with ``'view'``): the program
+  that every rank of a process group loads; its batch is the rank's view
+  shard (``images (b, V/W, ...)``, ``extrinsics (b, V/W, 4, 4)``, the
+  other entries whole), as the JAX artifact is called with arguments
+  sharded over its view axis.  The backbone, FPN and backprojection run on
+  the shard, the per-voxel (sum, count) pair is summed over the ranks by a
+  traced ``_c10d_functional.all_reduce`` of the default group
+  (``parallel/mesh.py:all_reduce_sum``), and the neck, head and decode run
+  replicated: every rank returns the whole batch's detections.  The rank is
+  not part of the program.
+* **data-sharded** (``'data'``): the single-device program at ``b / W``,
+  which every rank runs on its ``mesh.shard_batch`` slice; no collective,
+  the outputs batch-sharded.
+
+Every archive is one PT2 package of programs keyed by platform (a single
+program by the platform it was traced on) and records ``devices`` (W),
+``sharding`` and ``platforms`` beside them (:func:`load_meta`).
+
 A program traced from CUDA inputs holds the port's kernels as the
 operators ``torch.ops.imvx.*`` (``kernels/``: the backprojection, the
 3x3x3 conv, the clip's pairwise and NMS-mask entries, the NMS scan), whose
@@ -41,12 +66,21 @@ part of the program: run a float32 program inside
 from __future__ import annotations
 
 import collections
+import copy
+import json
 import os
+import zipfile
 
 import numpy as np
 import torch
 
 from ..models.detector import imvoxelnet_predict
+from ..parallel import mesh
+
+# the platforms an archive may hold a program for
+PLATFORMS = ('cuda', 'cpu')
+# the archive's record of the devices and sharding of its programs
+_META = 'imvoxelnet_meta.json'
 
 # the batch entries of a serving program, in order
 BATCH_KEYS = ('images', 'intrinsics', 'extrinsics', 'origins', 'img_shape',
@@ -196,17 +230,112 @@ def export_serving(model_cfg, model, batch, bake_variables: bool = False,
     return exported
 
 
-def save_exported(exported, path: str) -> int:
-    """Serialize to ``path``; returns the byte size."""
-    torch.export.save(exported, path)
+def export_platforms(model_cfg, model, batch, platforms=PLATFORMS,
+                     bake_variables: bool = False, batch_size=1):
+    """``{platform: program}``: :func:`export_serving` once per platform,
+    each traced from ``batch`` and a copy of ``model`` on that platform's
+    device (the tensors a program makes live on the device it was traced
+    on).  A CUDA program calls the kernels as ``torch.ops.imvx``
+    operators, a CPU one holds their plain versions."""
+    programs = {}
+    for platform in platforms:
+        if platform not in PLATFORMS:
+            raise ValueError(f'platform {platform!r} is not one of '
+                             f'{PLATFORMS}')
+        device = torch.device(platform)
+        here = next(model.parameters()).device.type == device.type
+        programs[platform] = export_serving(
+            model_cfg, model if here else copy.deepcopy(model).to(device),
+            {k: v.to(device) for k, v in batch.items()}, bake_variables,
+            batch_size)
+    return programs
+
+
+def export_sharded(model_cfg, model, batch, sharding: str,
+                   bake_variables: bool = False):
+    """The program of one rank of the default process group, and the
+    rank's share of the global ``batch`` that it takes.
+
+    ``sharding='view'``: ``model`` must be built with ``view_shard_axis``
+    set; every rank traces the same program (the view pooling a traced
+    all-reduce), so every rank must call this together.  ``'data'``: the
+    unsharded program at the global batch over W."""
+    if not mesh.is_distributed():
+        raise ValueError('a sharded export runs in a process group '
+                         '(parallel/mesh.py:init_distributed)')
+    if sharding == 'view':
+        if model.cfg.view_shard_axis is None:
+            raise ValueError('a view-sharded export needs a model built '
+                             'with view_shard_axis set')
+        shard = mesh.shard_views(batch)
+    elif sharding == 'data':
+        shard = mesh.shard_batch(batch)
+    else:
+        raise ValueError(f'sharding {sharding!r} is not view or data')
+    return export_serving(model_cfg, model, shard, bake_variables,
+                          batch_size=shard['images'].shape[0]), shard
+
+
+def traced_platform(exported) -> str:
+    """The platform a program was traced on: ``cuda`` if one of the inputs
+    its caller passes lay on the card, else ``cpu`` (the weights, buffers
+    and constants it lifted are not asked: a constant may stay on the
+    CPU)."""
+    names = set(exported.graph_signature.user_inputs)
+    devices = {node.meta['val'].device.type for node in exported.graph.nodes
+               if node.op == 'placeholder' and node.name in names
+               and isinstance(node.meta.get('val'), torch.Tensor)}
+    return 'cuda' if 'cuda' in devices else 'cpu'
+
+
+def save_exported(exported, path: str, devices: int = 1,
+                  sharding=None) -> int:
+    """Serialize one program (keyed by :func:`traced_platform`), or a
+    ``{platform: program}`` dict, to ``path`` as one PT2 archive with the
+    ``devices`` and ``sharding`` it was exported for; returns the byte
+    size."""
+    from torch.export.pt2_archive._package import package_pt2
+
+    programs = (exported if isinstance(exported, dict)
+                else {traced_platform(exported): exported})
+    unknown = sorted(set(programs) - set(PLATFORMS))
+    if unknown:
+        raise ValueError(f'platforms {unknown} are not among {PLATFORMS}')
+    meta = dict(devices=devices, sharding=sharding,
+                platforms=sorted(programs))
+    package_pt2(path, exported_programs=programs,
+                extra_files={_META: json.dumps(meta)})
     return os.path.getsize(path)
 
 
-def load_exported(path: str):
-    """Deserialize a program; run it as ``loaded.module()(batch)`` (baked)
-    or ``loaded.module()(model.state_dict(), batch)``.  Imports
+def load_meta(path: str) -> dict:
+    """The ``devices``, ``sharding`` and ``platforms`` an archive of
+    :func:`save_exported` records, read from its zip directory without
+    loading the programs."""
+    with zipfile.ZipFile(path) as archive:
+        names = [n for n in archive.namelist()
+                 if n.endswith('/extra/' + _META)]
+        if not names:
+            raise ValueError(f'{path} is not an archive of save_exported '
+                             f'(no {_META})')
+        return json.loads(archive.read(names[0]))
+
+
+def load_exported(path: str, platform=None):
+    """Deserialize the program of ``platform`` (by default the current
+    device's: ``cuda`` where a card is visible, else ``cpu``); run it as
+    ``loaded.module()(batch)`` (baked) or
+    ``loaded.module()(model.state_dict(), batch)``.  Raises ``KeyError`` if
+    the archive holds no program for that platform.  Imports
     ``imvoxelnet_tpu_torch.kernels`` first: its modules register the
     ``torch.ops.imvx`` operators a CUDA program calls."""
+    from torch.export.pt2_archive._package import load_pt2
+
     from .. import kernels  # noqa: F401  (registers torch.ops.imvx.*)
 
-    return torch.export.load(path)
+    programs = load_pt2(path).exported_programs
+    platform = platform or ('cuda' if torch.cuda.is_available() else 'cpu')
+    if platform not in programs:
+        raise KeyError(f'{path} holds no program for {platform!r} (it '
+                       f'holds {sorted(programs)})')
+    return programs[platform]

@@ -50,15 +50,17 @@ LIDAR_TO_CAM = np.array([[0, -1, 0, 0.0], [0, 0, -1, -0.08],
 KITTI_ORIGIN = (34.56 + 0.0137, 0.0 - 0.0213, -1.0 + 0.0071)
 
 
-def kitti_batch(b: int, device='cuda', seed: int = 0):
-    """A ``b``-sample, one-view batch in the detector's layout."""
+def kitti_batch(b: int, device='cuda', seed: int = 0,
+                size=(KITTI_W, KITTI_H), views: int = 1):
+    """A ``b``-sample batch in the detector's layout, padded images of
+    ``size (W, H)``; ``views`` images a sample, all from camera 2's pose."""
     rng = np.random.RandomState(seed)
-    h, w = KITTI_H, KITTI_W
+    w, h = size
     return dict(
-        images=torch.tensor(rng.randn(b, 1, h, w, 3).astype(np.float32),
+        images=torch.tensor(rng.randn(b, views, h, w, 3).astype(np.float32),
                             device=device),
         intrinsics=torch.tensor(np.stack([K_KITTI] * b), device=device),
-        extrinsics=torch.tensor(np.stack([LIDAR_TO_CAM[None]] * b),
+        extrinsics=torch.tensor(np.stack([[LIDAR_TO_CAM] * views] * b),
                                 device=device),
         origins=torch.tensor([KITTI_ORIGIN] * b, dtype=torch.float32,
                              device=device),
@@ -523,18 +525,20 @@ def nuscenes_train_batch(b: int, device='cuda', seed: int = 0,
 
 
 def serving_batch(dataset: str, b: int, device='cuda', seed: int = 0,
-                  views: int = 1):
+                  views: int = 1, size=None):
     """The synthetic serving batch of a preset's ``data.dataset``;
-    ``views`` (its ``data.n_images_test``) for ScanNet (nuScenes has its
-    six cameras)."""
+    ``views`` (its ``data.n_images_test``) for ScanNet and KITTI (nuScenes
+    has its six cameras); ``size (W, H)``: the padded images' (by default
+    the dataset's frames')."""
+    kw = {} if size is None else dict(size=tuple(size))
     if dataset == 'sunrgbd':
-        return sunrgbd_batch(b, device, seed=seed)
+        return sunrgbd_batch(b, device, seed=seed, **kw)
     if dataset == 'kitti':
-        return kitti_batch(b, device, seed=seed)
+        return kitti_batch(b, device, seed=seed, views=views, **kw)
     if dataset == 'scannet':
-        return scannet_batch(b, views, device, seed=seed)
+        return scannet_batch(b, views, device, seed=seed, **kw)
     if dataset == 'nuscenes':
-        return nuscenes_batch(b, device, seed=seed)
+        return nuscenes_batch(b, device, seed=seed, **kw)
     raise NotImplementedError(f'no synthetic {dataset!r} batch')
 
 

@@ -284,9 +284,9 @@ def test_state_dict_keys_are_the_reference_manifest():
 
 def test_every_port_module_imports_without_jax_or_cv2():
     """Every module of the port, the tools and the export, visualization
-    and fold modules, the converters and the data-parallel modules
-    included, imported in a fresh interpreter, starts no process group and
-    leaves
+    and fold modules, the converters, the data-parallel modules and the
+    measurement tools included, imported in a fresh interpreter, starts no
+    process group and leaves
     every ``jax*``, ``flax*``, ``optax*``, ``ml_dtypes`` and ``cv2`` module
     and every ``imvoxelnet_tpu``/``imvoxelnet_tpu.*`` module out of
     ``sys.modules`` (``utils/visualize.py`` imports cv2 only to draw)."""
@@ -307,7 +307,11 @@ def test_every_port_module_imports_without_jax_or_cv2():
             'data.converters.scannet_converter',
             'data.converters.nuscenes_converter', 'tools.create_data',
             'parallel.mesh', 'tools.validate_multihost',
-            'utils.synthetic_raw')}
+            'utils.synthetic_raw', 'tools.benchmark', 'tools.analyze_trace',
+            'tools.analyze_logs', 'tools.flops', 'tools.bench_conv3z',
+            'tools.bench_iou_kernel', 'tools.bench_scatter',
+            'tools.bench_loader', 'tools.eval_nms_truncation',
+            'tools.make_synthetic_kitti', 'tools.microbench')}
         assert need <= set(names), need - set(names)
         # no process group is started by an import
         import torch.distributed as dist
@@ -385,7 +389,8 @@ def test_entry_points_default_to_the_card():
     from imvoxelnet_tpu_torch import apis
     from imvoxelnet_tpu_torch.eval import runner
     from imvoxelnet_tpu_torch.models import detector
-    from imvoxelnet_tpu_torch.tools import demo, export, test, train
+    from imvoxelnet_tpu_torch.tools import (demo, eval_nms_truncation,
+                                            export, flops, test, train)
     from imvoxelnet_tpu_torch.tools.profile_forward import make_run
     from imvoxelnet_tpu_torch.utils import export as export_lib
     from imvoxelnet_tpu_torch.utils import synthetic
@@ -394,7 +399,7 @@ def test_entry_points_default_to_the_card():
             export: ['p', '--out', 'o'],
             test: ['p', '--data-root', 'r', '--ann-file', 'a'],
             train: ['p', '--data-root', 'r', '--ann-file', 'a',
-                    '--work-dir', 'w']}
+                    '--work-dir', 'w'], flops: [], eval_nms_truncation: []}
     for module, args in argv.items():
         assert module.parse_args(args).device == 'cuda', module.__name__
     for fn in (apis.init_detector, detector.build_model, runner.run_inference,

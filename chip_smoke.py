@@ -122,7 +122,8 @@ Phases, each failing the run on its own error:
                 (NDS of the GT as the prediction at 1).  The port must not
                 import cv2, PIL, ml_dtypes or JAX on this path; where the
                 machine has cv2, a separate interpreter holds the port's
-                PNG decode and resize to it bit for bit.
+                PNG decode and resize to it bit for bit (the exact 2x
+                downscale, cv2's INTER_AREA, per channel count 1-5).
   11. train from files -- imvoxelnet_tpu_torch.tools.train on splits
                 written to a temporary directory: imvoxelnet_kitti at full
                 width, b=4 bfloat16, 48 frames of 1242x375 (3 repeats, 36
@@ -151,8 +152,9 @@ Phases, each failing the run on its own error:
                 with their criteria, untimed, each through the CLI in a
                 process of its own and all five at once: phase 13's
                 multihost runs start before them and share the card, and
-                are joined before phase 12, which times kernels and
-                programs with nothing else on the card.
+                are joined once phase 12's untimed fold and --show-dir are
+                done, before it times kernels and programs with nothing
+                else on the card.
   12. export and the paths no preset takes -- imvoxelnet_kitti (bfloat16,
                 weights as inputs) exported with torch.export at b=1 and
                 with a symbolic batch, imvoxelnet_total_sunrgbd_fast at b=1
@@ -2320,21 +2322,40 @@ for path, factor in resizes:
         sys.exit(f'{path} x {factor}: imresize differs from cv2.resize')
     out['resized'] += 1
     out['pixels'] += got.size
+# the exact 2x downscale (cv2's INTER_AREA) of 1-5 channels, an even and
+# an odd output width: the native resize and its plain version against cv2
+out['exact_2x'] = {}
+rng = np.random.RandomState(1)
+for c in (1, 2, 3, 4, 5):
+    verdict = 'equal'
+    for h, w in ((48, 64), (242, 322)):
+        img = rng.randint(0, 256, (h, w, c)).astype(np.uint8)
+        img = img[..., 0] if c == 1 else img
+        ref = cv2.resize(img, (w // 2, h // 2),
+                         interpolation=cv2.INTER_LINEAR)
+        for got in (image_io.resize_linear_u8(img, (h // 2, w // 2)),
+                    image_io.resize_linear_u8_plain(img, (h // 2, w // 2))):
+            if got.shape != ref.shape or (got != ref).any():
+                verdict = 'differs'
+    out['exact_2x'][c] = verdict
 print(json.dumps(out))
 """
 # a frame of each split and its test resize (the KITTI train scales'
-# extremes on the KITTI frame; ScanNet's and nuScenes' are identities)
+# extremes on the KITTI frame; ScanNet's and nuScenes' are identities),
+# and an exact 2x downscale (cv2's INTER_AREA) of the 730x530 and 640x480
 CV2_RESIZES = {'kitti': (1.024, min(1173 / 1242, 352 / 375),
                          min(1387 / 1242, 416 / 375)),
-               'sunrgbd': (min(640 / 730, 480 / 530),),
-               'scannet': (1.0,), 'nuscenes': (1.0,)}
+               'sunrgbd': (min(640 / 730, 480 / 530), 0.5),
+               'scannet': (1.0, 0.5), 'nuscenes': (1.0,)}
 
 
 def check_image_io_against_cv2(data):
     """Where this machine has cv2: the port's PNG decode and resize against
     it, bit for bit, in a separate interpreter (cv2 never enters this one):
     frames of the splits (the port's writer), the port's and libpng's files
-    of 1-4 channels, and each split's test resize."""
+    of 1-4 channels, each split's test resize and an exact 2x downscale of
+    the SUN RGB-D and ScanNet frames, and the exact 2x downscale of random
+    1-5 channel arrays, reported per channel count, each equal to cv2."""
     paths, resizes = [], []
     for key, factors in CV2_RESIZES.items():
         frames = sorted(
@@ -2351,6 +2372,10 @@ def check_image_io_against_cv2(data):
         raise AssertionError(f'eval: image_io against cv2: '
                              f'{proc.stderr.strip()[-2000:]}')
     out = json.loads(proc.stdout.strip().splitlines()[-1])
+    half = out.get('exact_2x', {})
+    if 'differs' in half.values():
+        raise AssertionError(f'eval: the exact 2x downscale against cv2 '
+                             f'{out["cv2"]}, by channel count: {half}')
     log(f'eval: image_io against this machine\'s cv2: {json.dumps(out)}')
     return out
 
@@ -3662,19 +3687,21 @@ def run_show_dir(root):
     return out
 
 
-def run_phase12():
+def run_phase12(before_timed=lambda: None):
     """Phase 12; returns its summary and its ``kernels`` rows (each with
-    its launches)."""
+    its launches).  The untimed fold and ``--show-dir`` run first, then
+    ``before_timed`` (the wait for what else is on the card), then the
+    exports and the rows that time kernels and programs."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        out = {'export': run_export(root)}
+        out = {'fold': run_fold(), 'show_dir': run_show_dir(root)}
+        before_timed()
+        out['export'] = run_export(root)
         out['exact_nms'], rows = run_exact_nms(root)
         out['normal_nms'], more = run_normal_nms()
         rows += more
         out['giou_3d_loss'], more = run_giou()
         rows += more
-        out['fold'] = run_fold()
-        out['show_dir'] = run_show_dir(root)
         out['seconds'] = time.perf_counter() - t0
     return out, rows
 
@@ -4476,16 +4503,21 @@ def smoke():
         lambda: multihost.extend(start_multihost_runs()), train_log)
     log(json.dumps({'train_from_files': from_files}))
     log(f'phase 11 (train from files): {time.perf_counter() - t11:.1f} s')
-    # phase 12 times kernels and programs: nothing else on the card then
-    t_join = time.perf_counter()
-    for thread in multihost[0]:
-        thread.join()
-    log(f'phase 13\'s multihost runs joined {time.perf_counter() - t_join:.1f}'
-        f' s after phase 11; nothing else runs on the card in phase 12')
 
-    # serving export, --show-dir, the fold, and the paths no preset takes
+    def join_multihost():
+        # phase 12 times kernels and programs: nothing else on the card then
+        t_join = time.perf_counter()
+        for thread in multihost[0]:
+            thread.join()
+        log(f'phase 13\'s multihost runs joined '
+            f'{time.perf_counter() - t_join:.1f} s after phase 12\'s fold '
+            f'and --show-dir; nothing else runs on the card in the rest of '
+            f'phase 12')
+
+    # --show-dir and the fold while phase 13's multihost runs finish; then
+    # serving export and the paths no preset takes
     t12 = time.perf_counter()
-    phase12, phase12_rows = run_phase12()
+    phase12, phase12_rows = run_phase12(join_multihost)
     for row in phase12_rows:
         log(json.dumps(row))
     log(json.dumps({'phase12': phase12}))

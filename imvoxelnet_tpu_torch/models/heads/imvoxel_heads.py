@@ -57,8 +57,8 @@ class IndoorHeadConfig:
     iou_thr: float = 0.15           # rotated (sunrgbd) / aligned (scannet)
     # fixed-size detection output; the reference caps at max_num = nms_pre
     max_out: int = 1000
-    # per-class candidate cap of the rotated NMS (<= 0, the JAX package's
-    # untruncated path, is not ported)
+    # per-class candidate cap of the rotated NMS; <= 0 takes every
+    # candidate (ops/nms.py:multiclass_nms_3d_exact)
     pre_nms_k: int = 256
 
     @property

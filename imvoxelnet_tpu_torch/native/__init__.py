@@ -2,10 +2,11 @@
 through ctypes.
 
 Counterpart of ``imvoxelnet_tpu/native/__init__.py``.  ``image_ops.cc``
-holds the loader's fused normalize + pad, the PNG row unfilter and
-the bilinear resize; ``eval_kernels.cc`` the KITTI protocol's greedy
-matcher, and the rotated-rect intersection areas and greedy rotated NMS on
-the host that the tests take as oracles of the clip and NMS paths.  Each source is compiled at first use into
+holds the loader's fused normalize + pad, the PNG row unfilter, the
+bilinear resize and the exact 2x downscale; ``eval_kernels.cc`` the KITTI
+protocol's greedy matcher, and the rotated-rect intersection areas and
+greedy rotated NMS on the host that the tests take as oracles of the clip
+and NMS paths.  Each source is compiled at first use into
 ``build/lib<name>-<hash>.so`` (the hash is of the source and the flags, so
 an edited source is rebuilt), atomically (a temporary file renamed into
 place, safe under concurrent loaders), never at import.
@@ -13,7 +14,8 @@ place, safe under concurrent loaders), never at import.
 The JAX package falls back to numpy when no compiler is found; the port
 does not: a failed build raises.  The numpy functions the tests hold these
 to are ``data/pipeline.py:normalize``/``pad_to``,
-``data/image_io.py:png_unfilter_plain`` / ``resize_linear_u8_plain`` and
+``data/image_io.py:png_unfilter_plain`` / ``resize_linear_u8_plain`` /
+``resize_half_u8_plain`` and
 ``eval/kitti_eval.py:compute_statistics``.
 """
 
@@ -39,7 +41,8 @@ SIGNATURES = {
     'image_ops': {
         'normalize_pad_u8': ([_P, _L, _L, _P, _P, _P, _L, _L], None),
         'png_unfilter': ([_P, _L, _L, _L, _P], ctypes.c_int64),
-        'resize_linear_u8': ([_P, _L, _L, _L, _P, _L, _L] + [_P] * 8, None)},
+        'resize_linear_u8': ([_P, _L, _L, _L, _P, _L, _L] + [_P] * 8, None),
+        'resize_half_u8': ([_P, _L, _L, _L, _P], None)},
     'eval_kernels': {
         'compute_statistics_thresholds': (
             [_P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _D, _P, _L, _I, _P],
@@ -163,6 +166,22 @@ def resize_linear_u8(img, out_hw, x_taps, y_taps):
     out = np.empty((oh, ow, cn), np.uint8)
     library('image_ops')['resize_linear_u8'](
         _ptr(img), h, w, cn, _ptr(out), oh, ow, *[_ptr(t) for t in taps])
+    return out
+
+
+def resize_half_u8(img):
+    """Exact 2x downscale of an ``(2 * oh, 2 * ow, c)`` uint8 image to
+    ``(oh, ow, c)``: each 2x2 block's mean, rounded half up for 1, 3 or 4
+    channels and half to even for any other count, as cv2's area path
+    (``data/image_io.py:resize_half_u8_plain``)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[0] % 2 or \
+            img.shape[1] % 2:
+        raise ValueError(f'resize_half_u8 takes an (h, w, c) uint8 image of '
+                         f'even h and w, got {img.dtype} {img.shape}')
+    oh, ow, cn = img.shape[0] // 2, img.shape[1] // 2, img.shape[2]
+    out = np.empty((oh, ow, cn), np.uint8)
+    library('image_ops')['resize_half_u8'](_ptr(img), oh, ow, cn, _ptr(out))
     return out
 
 

@@ -143,4 +143,29 @@ void resize_linear_u8(const uint8_t* src, int64_t h, int64_t w, int64_t cn,
   }
 }
 
+// src: (2 * oh, 2 * ow, cn) uint8; dst: (oh, ow, cn) uint8.  s is the sum
+// of a channel's 2x2 source block: (s + 2) >> 2 for 1, 3 or 4 channels
+// (OpenCV's resizeAreaFast vector path), s / 4 rounded half to even for
+// any other count (its generic area path).
+void resize_half_u8(const uint8_t* src, int64_t oh, int64_t ow, int64_t cn,
+                    uint8_t* dst) {
+  const bool half_up = cn == 1 || cn == 3 || cn == 4;
+  const int64_t n = ow * cn, stride = 2 * n;
+  for (int64_t y = 0; y < oh; ++y) {
+    const uint8_t* r0 = src + 2 * y * stride;
+    const uint8_t* r1 = r0 + stride;
+    uint8_t* d = dst + y * n;
+    for (int64_t x = 0; x < ow; ++x) {
+      for (int64_t c = 0; c < cn; ++c) {
+        const int64_t i = 2 * x * cn + c;
+        const int32_t s = r0[i] + r0[i + cn] + r1[i] + r1[i + cn];
+        // s / 4 half to even: round half up, less one on an exact .5
+        // above an even quotient (s % 8 == 2)
+        d[x * cn + c] = static_cast<uint8_t>(
+            half_up ? (s + 2) >> 2 : ((s + 2) >> 2) - ((s & 7) == 2));
+      }
+    }
+  }
+}
+
 }  // extern "C"

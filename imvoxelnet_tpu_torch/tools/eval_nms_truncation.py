@@ -15,10 +15,8 @@ the port's step for ``--steps`` steps, so that its scores are realistic and
 imperfect (hundreds of candidates a class above ``score_thr`` 0); then each
 val batch runs one forward and two decodes, truncated and exact
 (``pre_nms_k=0``: B2's pairwise entry once and the scan, on the card), and
-both go through ``eval/indoor_eval.py`` at mAP@0.25 and @0.15.  The
-frames are resized to 341 x 256 (:data:`IMAGES`), not the JAX tool's
-320 x 240.  Prints the
-two mAPs, their difference and the exact decode's detections a scene; the
+both go through ``eval/indoor_eval.py`` at mAP@0.25 and @0.15.  Prints
+the two mAPs, their difference and the exact decode's detections a scene; the
 launches of each decode's first call are in the returned summary.
 """
 
@@ -49,11 +47,8 @@ FX, CX, CY = 400.0, 320.0, 240.0
 CLASSES = ('bed', 'table', 'chair')
 # distinct base colors per class (BGR); intensity jittered per box
 COLORS = ((255, 80, 80), (80, 255, 80), (80, 80, 255))
-# the JAX tool resizes the 640x480 frames to 320x240, an exact 2x
-# downscale, which cv2 serves with INTER_AREA and the port's resize does
-# not (data/image_io.py): 341x256, padded to 352x256, as
-# tools/validate_learning.py does
-IMAGES = ImagePipelineConfig(test_scale=(352, 256), pad_size=(256, 352))
+# the JAX tool's: the 640x480 frames at 320x240, padded to 320x256
+IMAGES = ImagePipelineConfig(test_scale=(320, 256), pad_size=(256, 320))
 
 
 def make_scene(rng, root, idx):

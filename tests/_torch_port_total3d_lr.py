@@ -14,9 +14,10 @@ score it with the JAX package's protocol against the JAX script's
 criterion.  Scene ``script`` is ``tools/validate_learning_total3d.py``'s
 (a 640x480 JPEG resized to 320x240; the stored box centre 0.5 m under the
 blob); scene ``port`` is ``utils/synthetic_splits.py:
-sunrgbd_learning_scene(total3d=True)`` (a PNG resized to 341x256; the box
-centred on the blob).  Prints one JSON line: the metrics, whether the
-criterion held and the losses of every step.
+sunrgbd_learning_scene(total3d=True)`` (a PNG resized to 320x240, as the
+port's ``INDOOR_IMAGES`` reads it; the box centred on the blob).  Prints
+one JSON line: the metrics, whether the criterion held and the losses of
+every step.
 """
 
 import argparse

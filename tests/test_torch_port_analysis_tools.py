@@ -120,6 +120,59 @@ def test_truncation_study_scene_writer_equals_the_jax_tool(tmp_path):
             (tmp_path / 'jax' / rel).read_bytes()
 
 
+def _jax_tool_img_cfg(name):
+    """The keywords of ``img_cfg = ImagePipelineConfig(...)`` in the root
+    ``tools/{name}.py``, read from its source (it builds the config inside
+    ``main``)."""
+    import ast
+    with open(os.path.join(REPO, 'tools', f'{name}.py')) as f:
+        tree = ast.parse(f.read())
+    calls = [node.value for node in ast.walk(tree)
+             if isinstance(node, ast.Assign) and
+             [getattr(t, 'id', None) for t in node.targets] == ['img_cfg']]
+    assert len(calls) == 1
+    return {kw.arg: ast.literal_eval(kw.value) for kw in calls[0].keywords}
+
+
+def test_truncation_study_scenes_read_as_the_jax_tool_reads_them(tmp_path):
+    """The study's frames through the port's ``IMAGES`` equal the JAX
+    tool's through its ``img_cfg`` (640x480 at 320x240, an exact 2x
+    downscale), bit for bit, with the same image metadata."""
+    pytest.importorskip('cv2')
+    from imvoxelnet_tpu.data.datasets import SunRgbdMultiViewDataset as Jds
+    from imvoxelnet_tpu.data.pipeline import ImagePipelineConfig as JCfg
+
+    from imvoxelnet_tpu_torch.data.datasets import SunRgbdMultiViewDataset
+
+    jax_tool = _jax_tool('eval_nms_truncation')
+    kw = _jax_tool_img_cfg('eval_nms_truncation')
+    assert kw == dict(test_scale=(320, 256), pad_size=(256, 320))
+    assert eval_nms_truncation.IMAGES == ImagePipelineConfig(**kw)
+    made = []
+    for name, writer, dataset, img_cfg in (
+            ('jax', jax_tool.make_scene, Jds, JCfg(**kw)),
+            ('port', eval_nms_truncation.make_scene,
+             SunRgbdMultiViewDataset, eval_nms_truncation.IMAGES)):
+        root = tmp_path / name
+        os.makedirs(root / 'image')
+        rng = np.random.RandomState(6)
+        infos = [writer(rng, str(root), i)[0] for i in range(2)]
+        with open(root / 'infos.pkl', 'wb') as f:
+            pickle.dump(infos, f)
+        ds = dataset(str(root), str(root / 'infos.pkl'),
+                     eval_nms_truncation.CLASSES, img_cfg, max_gt=8)
+        made.append([ds.get_sample(i, False, np.random.RandomState(0))
+                     for i in range(2)])
+    for ref, got in zip(*made):
+        assert got['images'].shape == ref['images'].shape == (1, 256, 320, 3)
+        assert got['images'].tobytes() == ref['images'].tobytes()
+        assert tuple(got['img_shape']) == (240, 320)
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            np.testing.assert_array_equal(np.asarray(got[key]),
+                                          np.asarray(ref[key]), err_msg=key)
+
+
 def test_analyze_logs_summary_equals_the_jax_tool(tmp_path, monkeypatch,
                                                   capsys):
     log = tmp_path / 'train_log.jsonl'

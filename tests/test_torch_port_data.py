@@ -150,10 +150,52 @@ def test_imresize_equals_cv2_bit_for_bit(hw, factor):
         image_io.resize_linear_u8_plain(img, (new_h, new_w)), ref)
 
 
-def test_imresize_refuses_cv2s_inter_area_shapes():
-    """cv2 computes an exact 2x downscale with INTER_AREA."""
-    with pytest.raises(NotImplementedError, match='INTER_AREA'):
-        image_io.imresize(np.zeros((40, 60, 3), np.uint8), 0.5)
+def _random_u8(seed, hw, channels):
+    """A random ``(h, w)`` (one channel: cv2 drops the axis) or ``(h, w,
+    c)`` uint8 image."""
+    img = np.random.RandomState(seed).randint(0, 256, hw + (channels,))
+    return img.astype(np.uint8)[..., 0] if channels == 1 else \
+        img.astype(np.uint8)
+
+
+@pytest.mark.parametrize('channels', [1, 2, 3, 4, 5])
+@pytest.mark.parametrize('hw', [(480, 640), (242, 322), (2, 2)])
+def test_exact_2x_downscale_equals_cv2s_inter_area_bit_for_bit(hw,
+                                                               channels):
+    """cv2.resize(INTER_LINEAR) serves an exact 2x downscale with
+    INTER_AREA: the 2x2 mean rounded half up for 1, 3 and 4 channels, half
+    to even for 2 and 5.  ``imresize``, the native resize and the plain
+    one all give cv2's bits (242x322: an odd output width)."""
+    cv2 = pytest.importorskip('cv2')
+    img = _random_u8(hw[0] + channels, hw, channels)
+    out_hw = (hw[0] // 2, hw[1] // 2)
+    ref = cv2.resize(img, out_hw[::-1], interpolation=cv2.INTER_LINEAR)
+    for got in (image_io.imresize(img, 0.5),
+                image_io.resize_linear_u8(img, out_hw),
+                image_io.resize_linear_u8_plain(img, out_hw)):
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        native.resize_half_u8(img.reshape(hw + (channels,))),
+        ref.reshape(out_hw + (channels,)))
+
+
+@pytest.mark.parametrize('hw,out_hw', [
+    ((480, 640), (120, 160)),      # exact 4x: linear in cv2
+    ((480, 640), (240, 640)),      # 2x along one axis: linear
+    ((480, 640), (480, 320)),
+    ((482, 640), (241, 320)),      # exact 2x with an odd output height
+])
+def test_resize_takes_cv2s_path_around_exact_2x(hw, out_hw):
+    """Only an exact 2x in both axes leaves the linear path, as in cv2;
+    no size needs a special case in the test."""
+    cv2 = pytest.importorskip('cv2')
+    img = _random_u8(hw[0] + out_hw[1], hw, 3)
+    ref = cv2.resize(img, out_hw[::-1], interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_array_equal(image_io.resize_linear_u8(img, out_hw),
+                                  ref)
+    np.testing.assert_array_equal(
+        image_io.resize_linear_u8_plain(img, out_hw), ref)
 
 
 PIPE_CFGS = {
@@ -181,6 +223,23 @@ def test_process_image_equals_jax_bit_for_bit(name, train):
         np.testing.assert_array_equal(got.view(np.int32),
                                       ref.view(np.int32))
         assert ginfo == rinfo
+
+
+def test_process_image_at_the_jax_tools_320x240_equals_jax_bit_for_bit():
+    """The indoor learning and truncation tools' frames: a 640x480 frame at
+    ``test_scale=(320, 256), pad_size=(256, 320)``, an exact 2x downscale
+    that the JAX pipeline sends through cv2."""
+    pytest.importorskip('cv2')
+    img = splits.frame(np.random.RandomState(11), 480, 640)
+    kw = dict(test_scale=(320, 256), pad_size=(256, 320))
+    got, ginfo = tpl.process_image(img, tpl.ImagePipelineConfig(**kw),
+                                   False, np.random.RandomState(0))
+    ref, rinfo = jpl.process_image(img, jpl.ImagePipelineConfig(**kw),
+                                   False, np.random.RandomState(0))
+    assert got.shape == ref.shape == (256, 320, 3)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert ginfo == rinfo and ginfo['img_shape'][:2] == (240, 320)
+    assert ginfo['scale_factor'] == rinfo['scale_factor'] == 0.5
 
 
 def test_normalize_pad_u8_equals_jax_and_its_plain_version():

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.tracing import span
 from .layers import Conv2d
 
 
@@ -93,6 +94,7 @@ class DeformConv2d(nn.Module):
         return om[..., :18].reshape(b, oh, ow, 9, 2), torch.sigmoid(
             om[..., 18:])
 
+    @span('dcn')
     def forward(self, x):
         b, c, _, _ = x.shape
         offset, mask = self.offsets_and_masks(x)

@@ -36,6 +36,7 @@ from torch import nn
 
 from ..ops import backproject as bp
 from ..parallel import mesh
+from ..utils.tracing import span
 from . import fpn as fpn_lib
 from . import necks3d
 from . import resnet as resnet_lib
@@ -136,6 +137,7 @@ class ImVoxelNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    @span('forward')
     def forward(self, batch, use_predicted_extrinsics: bool = False):
         """Returns ``(head_outs, valid)``: the head's float32 channel-last
         outputs (KITTI: ``(cls_score, bbox_pred, dir_pred)`` maps; indoor:
@@ -152,46 +154,55 @@ class ImVoxelNet(nn.Module):
         cfg = self.cfg
         images = batch['images']
         b, v, h, w, _ = images.shape
-        # NHWC images viewed as NCHW: channels_last memory, no copy
-        x = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).to(self.dtype)
-        c = self.backbone(x)
-        features_2d = None
-        if cfg.layout_head is not None:
-            c5 = c[-1].reshape((b, v) + c[-1].shape[1:])[:, 0]
-            features_2d = self.head_2d(c5)
-        x = self.neck(c)[0]
+        with span('backbone_fpn'):
+            # NHWC images viewed as NCHW: channels_last memory, no copy
+            x = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2).to(
+                self.dtype)
+            c = self.backbone(x)
+            features_2d = None
+            if cfg.layout_head is not None:
+                c5 = c[-1].reshape((b, v) + c[-1].shape[1:])[:, 0]
+                features_2d = self.head_2d(c5)
+            x = self.neck(c)[0]
         hf, wf = x.shape[2:]
         if h // hf != cfg.stride:
             raise ValueError(f'feature stride {h // hf} != {cfg.stride}')
-        feats = x.permute(0, 2, 3, 1).reshape(b, v, hf, wf, -1)
 
         nx, ny, nz = cfg.n_voxels
-        extrinsics = batch['extrinsics']
-        if use_predicted_extrinsics and features_2d is not None:
-            extrinsics = lh.predicted_extrinsics(features_2d[0])[
-                :, None].expand(extrinsics.shape)
-        projections = bp.compute_projection(
-            batch['intrinsics'], extrinsics, batch['ratios'])
-        points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
-                               batch['origins']).reshape(b, -1, 3)
-        valid_hw = (batch['img_shape'] // cfg.stride).to(torch.int32)
-        acc, cnt = bp.backproject_batch(feats, points, projections, valid_hw)
-        if cfg.view_shard_axis is not None:
-            # v above is this rank's view count: pool over all the views
-            acc, cnt = (mesh.all_reduce_sum(t.float()).to(t.dtype)
-                        for t in (acc, cnt))
-            vol, seen = bp.mean_pool_from_sums(acc, cnt)
-        else:
-            vol, seen = bp.mean_pool_from_sums(acc, cnt, n_views=v)
-        volume = vol.view(nx, ny, nz, b, -1).permute(3, 4, 0, 1, 2)
-        valid = seen.view(nx, ny, nz, b).permute(3, 0, 1, 2)
+        with span('backproject'):
+            feats = x.permute(0, 2, 3, 1).reshape(b, v, hf, wf, -1)
+            extrinsics = batch['extrinsics']
+            if use_predicted_extrinsics and features_2d is not None:
+                extrinsics = lh.predicted_extrinsics(features_2d[0])[
+                    :, None].expand(extrinsics.shape)
+            projections = bp.compute_projection(
+                batch['intrinsics'], extrinsics, batch['ratios'])
+            points = bp.get_points(cfg.n_voxels, cfg.voxel_size,
+                                   batch['origins']).reshape(b, -1, 3)
+            valid_hw = (batch['img_shape'] // cfg.stride).to(torch.int32)
+            acc, cnt = bp.backproject_batch(feats, points, projections,
+                                            valid_hw)
+            if cfg.view_shard_axis is not None:
+                # v above is this rank's view count: pool over all the views
+                acc, cnt = (mesh.all_reduce_sum(t.float()).to(t.dtype)
+                            for t in (acc, cnt))
+                vol, seen = bp.mean_pool_from_sums(acc, cnt)
+            else:
+                vol, seen = bp.mean_pool_from_sums(acc, cnt, n_views=v)
+            volume = vol.view(nx, ny, nz, b, -1).permute(3, 4, 0, 1, 2)
+            valid = seen.view(nx, ny, nz, b).permute(3, 0, 1, 2)
+            volume = volume.to(self.dtype)
 
-        head_outs = self.bbox_head(self.neck_3d(volume.to(self.dtype)))
+        with span('neck3d'):
+            volume = self.neck_3d(volume)
+        with span('head'):
+            head_outs = self.bbox_head(volume)
         if cfg.layout_head is None:
             return head_outs, valid
         return head_outs, valid, features_2d
 
 
+@span('predict')
 def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
                        origins=None, features_2d=None):
     """Test-time detections (``imvoxelnet.py:93-106``), fixed-shape.  The
@@ -209,6 +220,7 @@ def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
     return results
 
 
+@span('loss')
 def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None,
                     features_2d=None):
     """Training losses (``imvoxelnet.py:82-87``): a dict of scalars,

@@ -24,6 +24,7 @@ from ...ops import boxes as box_ops
 from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
 from ...parallel import mesh
+from ...utils.tracing import span
 from ..layers import Conv2d
 
 CLS_BIAS_INIT = -4.59511985013459   # -log((1 - 0.01) / 0.01)
@@ -130,9 +131,10 @@ def anchor3d_head_loss(head_outs, gt_boxes, gt_labels, gt_mask,
     cls_score, bbox_pred, dir_pred = head_outs
     b, h, w, _ = cls_score.shape
     anchors = head_anchors((h, w), cfg, device=cls_score.device)
-    targets = target_assign.anchor_targets(
-        anchors, gt_boxes, gt_labels, gt_mask, cfg.assigner, cfg.num_classes,
-        cfg.dir_offset)
+    with span('targets'):
+        targets = target_assign.anchor_targets(
+            anchors, gt_boxes, gt_labels, gt_mask, cfg.assigner,
+            cfg.num_classes, cfg.dir_offset)
     num_total = targets['n_pos'].sum().float()
     world = mesh.world_size()
     if world > 1:

@@ -32,6 +32,7 @@ from ...ops import boxes as box_ops
 from ...ops import losses as loss_ops
 from ...ops import nms as nms_ops
 from ...parallel import mesh
+from ...utils.tracing import span
 from ..layers import BatchNorm3d, Conv3d
 
 INF = 1e8
@@ -367,8 +368,9 @@ def indoor_head_loss(head_outs, valid, origins, gt_boxes, gt_labels, gt_mask,
                                   cfg.regress_ranges, valid.device)
     points = torch.cat(mlvl_points(featmap_sizes, cfg.voxel_size, origins),
                        dim=1)                                  # (B, P, 3)
-    centerness_t, bbox_t, labels_t = indoor_targets(
-        points, scales, rr, gt_boxes, gt_labels, gt_mask, cfg)
+    with span('targets'):
+        centerness_t, bbox_t, labels_t = indoor_targets(
+            points, scales, rr, gt_boxes, gt_labels, gt_mask, cfg)
     pos = (labels_t >= 0) & flat_valid
     pred_boxes = BBOX_PRED_TO_BBOX[cfg.dataset](points, flat_bbox)
 

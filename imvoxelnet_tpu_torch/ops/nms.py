@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import rect_clip as clip_kernel
+from ..utils.tracing import span
 from . import boxes as box_ops
 from . import iou as iou_ops
 
@@ -295,6 +296,7 @@ def aligned_nms_presorted(boxes_corner, classes, valid, iou_thr: float):
     return clip_kernel.nms_scan_op(mask, valid.contiguous())
 
 
+@span('nms')
 def aligned_3d_nms(boxes_corner, scores, classes, valid, iou_thr: float):
     """Class-aware axis-aligned 3D NMS (``box3d_nms.py:91-138``, the ScanNet
     head's test-time NMS) of ``([B,] N, 6)`` corner-form boxes with
@@ -326,6 +328,7 @@ def take_per_sample(x, idx):
     return x[b.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
+@span('nms')
 def multiclass_nms_3d(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
                       mlvl_valid, *, score_thr: float, max_num: int,
                       iou_thr: float, use_rotate_nms: bool = True,
@@ -402,6 +405,7 @@ def multiclass_nms_3d(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
     return out
 
 
+@span('nms')
 def multiclass_nms_3d_exact(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
                             mlvl_valid, *, score_thr: float, max_num: int,
                             iou_thr: float, use_rotate_nms: bool = True,

@@ -42,6 +42,7 @@ import torch
 
 from ..models.detector import imvoxelnet_loss
 from ..utils.precision import compute_precision
+from ..utils.tracing import span
 from . import mesh
 
 def param_label(name: str) -> str:
@@ -131,18 +132,22 @@ def make_train_step(model, optimizer, scheduler):
         if p.grad is None:
             p.grad = torch.zeros_like(p)
 
+    @span('train_step')
     def step(batch):
         with compute_precision(cfg.compute_dtype):
             model.train()
-            optimizer.zero_grad(set_to_none=False)
+            with span('zero_grad'):
+                optimizer.zero_grad(set_to_none=False)
             head_outs, valid, *features_2d = model(batch)
             losses = imvoxelnet_loss(cfg, head_outs, batch, valid,
                                      *features_2d)
             total = sum(losses.values())
-            total.backward()
-            mesh.average_gradients(params)
-            optimizer.step()
-            scheduler.step()
+            with span('backward'):
+                total.backward()
+                mesh.average_gradients(params)
+            with span('optimizer'):
+                optimizer.step()
+                scheduler.step()
         metrics = dict({k: v.detach() for k, v in losses.items()},
                        loss=total.detach())
         if mesh.world_size() > 1:

@@ -56,6 +56,8 @@ SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
               'cuStreamSynchronize', 'cuCtxSynchronize', 'cuEventSynchronize',
               'cuMemcpyDtoH_v2', 'cudaFree', 'cudaFreeHost')
 SPAN = 'benchmark_iter'
+# the port's layer spans (utils/tracing.py)
+SPAN_PREFIX = 'imvx.'
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 # frames of the port's wrapper layers: the caller above them is billed
@@ -199,34 +201,75 @@ def launch_sources(events, launches, root, repo_only):
     number of the forward operator it differentiates, whose stack is read
     instead, and ``backward`` is set."""
     frames = _intervals(events, 'python_function', _frame)
-    ops = _intervals(events, 'cpu_op', lambda e: e)
     calls = [(corr, e['pid'], e['tid'], e['ts'])
              for corr, e in launches.items()]
-    stacks, op_stacks = enclosing(frames, calls), enclosing(ops, calls)
-    # the forward operators by sequence number (a backward operator names
-    # its forward's thread by a nonzero 'Fwd thread id')
+    stacks = enclosing(frames, calls)
+    out = {}
+    for corr in launches:
+        src = source_of(stacks.get(corr, []), root, repo_only)
+        if src is not None:
+            out[corr] = src + (False,)
+    pending = forward_points(
+        events, [c for c in calls if c[0] not in out])
+    for corr, stack in enclosing(frames, pending).items():
+        src = source_of(stack, root, repo_only)
+        if src is not None:
+            out[corr] = src + (True,)
+    return out
+
+
+def forward_points(events, calls):
+    """For each ``(key, pid, tid, ts)`` host call of ``calls`` inside a
+    backward operator, ``(key, pid, tid, ts)`` of the forward operator it
+    differentiates: the innermost backward operator around the call names
+    its forward by sequence number (and the forward's thread by a nonzero
+    ``Fwd thread id``)."""
+    ops = _intervals(events, 'cpu_op', lambda e: e)
     forward = {}
     for group in ops.values():
         for _, _, e in group:
             args = e.get('args', {})
             if 'Sequence number' in args and not args.get('Fwd thread id'):
                 forward.setdefault(args['Sequence number'], e)
-    out, pending = {}, {}
-    for corr in launches:
-        src = source_of(stacks.get(corr, []), root, repo_only)
-        if src is not None:
-            out[corr] = src + (False,)
-            continue
-        for op in op_stacks.get(corr, []):
+    out = []
+    for key, op_stack in enclosing(ops, calls).items():
+        for op in op_stack:
             args = op.get('args', {})
             fwd = forward.get(args.get('Sequence number'))
             if args.get('Fwd thread id') and fwd is not None:
-                pending[corr] = (corr, fwd['pid'], fwd['tid'], fwd['ts'])
+                out.append((key, fwd['pid'], fwd['tid'], fwd['ts']))
                 break
-    for corr, stack in enclosing(frames, pending.values()).items():
-        src = source_of(stack, root, repo_only)
-        if src is not None:
-            out[corr] = src + (True,)
+    return out
+
+
+def launch_spans(events, launches, prefix=SPAN_PREFIX):
+    """``{correlation: [span name, ...]}``: the port's layer spans
+    (``utils/tracing.py``: ``record_function`` ranges named ``prefix +
+    name``) open around each runtime call on its thread, innermost first.
+    A call with none there (the autograd engine's thread) takes the spans
+    around the forward operator that its backward operator differentiates
+    (:func:`forward_points`); one with neither, the spans open on the main
+    thread (the one that opened the first span) at the call: the training
+    step's ``backward``."""
+    spans = _intervals(events, 'user_annotation',
+                       lambda e: e['name'][len(prefix):]
+                       if e.get('name', '').startswith(prefix) else None)
+    if not spans:
+        return {}
+    main = min(spans, key=lambda t: spans[t][0][0])
+    calls = [(corr, e['pid'], e['tid'], e['ts'])
+             for corr, e in launches.items()]
+    out = {corr: found for corr, found in enclosing(spans, calls).items()
+           if found}
+    pending = forward_points(events, [c for c in calls if c[0] not in out])
+    for corr, found in enclosing(spans, pending).items():
+        if found:
+            out[corr] = found
+    rest = [(corr, main[0], main[1], e['ts'])
+            for corr, e in launches.items() if corr not in out]
+    for corr, found in enclosing(spans, rest).items():
+        if found:
+            out[corr] = found
     return out
 
 

@@ -22,21 +22,30 @@ between pixels and off the map), or with ``--train`` the training step of
 padded train size (KITTI 1408x416, nuScenes 1600x928, SUN RGB-D 768x576,
 ScanNet 640x480 with ``n_images_train`` views).  It reports:
 
-* stage times from CUDA events recorded by forward hooks around the
-  backbone, FPN, 3D neck and head; backprojection is the span between the
-  FPN's end and the neck's start, decode + NMS the span after the head.
-  With ``--train`` also the step's phases: forward, targets + loss (their
-  forward and backward, up to the last gradient of the head's outputs), the
-  rest of the backward, and the optimizer (clip + AdamW, up to its step's
-  end); for an indoor preset also the forward of the pieces of targets +
-  loss (``indoor_targets``, the focal loss, the centerness BCE, the box
-  loss -- rotated IoU-3D or, for ScanNet, axis-aligned IoU -- and for
-  Total3D the layout head's loss; a piece called twice, as the IoU-3D loss
-  is with a layout head, counts both calls); for a DCN backbone (nuScenes)
-  the forward of every DCN (``dcn``) and, with ``--train``, their
-  backward, from each one's output gradient to its input gradient
-  (``dcn_backward``);
-* the device's busy share over the timed iterations, the top device
+* the median wall time of an iteration (host clock, synchronised);
+* ``stage_ms``: device ms an iteration by the port's own layer spans
+  (``utils/tracing.py``), keyed by span name, read from the
+  ``torch.profiler`` trace of the profiled iterations
+  (``tools/analyze_trace.py:launch_spans``): each span's kernels and those
+  of every span inside it, a backward kernel in the span of the forward
+  operator it differentiates.  Serving: ``forward``, ``backbone_fpn``,
+  ``backproject``, ``neck3d``, ``head``, ``predict``, ``nms``; with
+  ``--train`` ``train_step``, ``zero_grad``, ``forward`` and its layers,
+  ``loss``, ``targets``, ``backward`` (what the autograd engine launches
+  for no forward operator) and ``optimizer`` (clip, AdamW, LR step); for a
+  DCN backbone (nuScenes) ``dcn``, every DCN's forward and, with
+  ``--train``, its backward;
+* ``sync_calls``: by the innermost port span around them, the host calls in
+  the profiled iterations that wait for the device (``cudaMemcpy``,
+  ``cudaStreamSynchronize``, ...); a span that reads nothing back to the
+  host has none;
+* ``host_ms``: host ms an iteration by span, each span's whole interval,
+  from ``ITERS`` further iterations under ``utils/tracing.py:recording``
+  (the host clock, without the profiler's cost of recording every
+  operator), and their median wall time beside the plain one;
+  ``cold_ms``: the same for the first, cold iteration (kernel builds,
+  cuDNN's choice of algorithms, lazy CUDA modules);
+* the device's busy share over the profiled iterations, the top device
   kernels by self time and the device time of the port's own kernels, from
   ``torch.profiler``;
 * the card's name and power limit.
@@ -49,10 +58,12 @@ Needs a CUDA device.  One JSON object goes to ``--out``; a summary to stdout.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -61,16 +72,13 @@ from torch.autograd import DeviceType
 from ..configs.presets import apply_overrides, get_preset
 from ..models.dcn import DeformConv2d
 from ..models.detector import build_model, imvoxelnet_predict
-from ..models.heads import imvoxel_heads as ivh
-from ..models.heads import layout_head as lh
-from ..ops import losses as loss_ops
 from ..parallel import mesh
 from ..parallel import train as train_lib
 from ..utils.precision import compute_precision
 from ..utils.synthetic import serving_batch, train_batch
-from . import microbench
+from ..utils.tracing import recording
+from . import analyze_trace, microbench
 
-STAGES = ('backbone', 'neck', 'neck_3d', 'bbox_head')
 ITERS = 5
 # name fragments of the kernels in kernels/csrc/*.cu
 OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
@@ -78,21 +86,6 @@ OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
                'rect_clip_grad_zero_kernel', 'rect_clip_grad_sweep_kernel',
                'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
 SEED = 0
-# the indoor loss's pieces timed on their own: (span, module, function)
-INDOOR_LOSS_SPANS = (('indoor_targets', ivh, 'indoor_targets'),
-                     ('focal_loss', loss_ops, 'sigmoid_focal_loss'),
-                     ('centerness_bce', loss_ops, 'binary_cross_entropy'))
-
-
-def loss_spans(cfg):
-    """The indoor loss's pieces of ``cfg``: the shared ones, its box loss
-    and, with a layout head, the layout head's loss."""
-    box = ('iou_3d_loss' if cfg.indoor_head.dataset == 'sunrgbd'
-           else 'axis_aligned_iou_loss')
-    spans = INDOOR_LOSS_SPANS + ((box, loss_ops, box),)
-    if cfg.layout_head is not None:
-        spans += (('layout_head_loss', lh, 'layout_head_loss'),)
-    return spans
 
 
 def zero_cls_bias(model):
@@ -139,100 +132,40 @@ def dcn_offsets(model, seed: int = SEED, pixels: float = 3.0):
             conv.bias.copy_(b)
 
 
-def record(events, key):
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    events[key] = ev
+def span_ms(events, iters: int) -> dict:
+    """Device ms an iteration by the port's layer spans of a chrome trace:
+    a device event counts in every span that
+    ``analyze_trace.launch_spans`` finds around its launch."""
+    launches = analyze_trace.launch_map(events)
+    stacks = analyze_trace.launch_spans(events, launches)
+    out = collections.Counter()
+    for e in analyze_trace.device_events(events):
+        for name in set(stacks.get(e.get('args', {}).get('correlation'),
+                                   ())):
+            out[name] += e.get('dur', 0) / 1e3 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def stage_events(model, events):
-    """Record a CUDA event before and after each top-level stage."""
-    def hook(name, when):
-        return lambda *_: record(events, (name, when))
-
-    handles = []
-    for name in STAGES:
-        mod = getattr(model, name)
-        handles.append(mod.register_forward_pre_hook(hook(name, 'start')))
-        handles.append(mod.register_forward_hook(hook(name, 'end')))
-    return handles
-
-
-def step_events(model, optimizer, events):
-    """Events at the training step's phase boundaries: the model's forward,
-    the last gradient of the head's outputs to arrive (the loss's backward
-    is done), and the optimizer's step."""
-    def grad_hook(_):
-        record(events, ('backward', 'start'))
-
-    def forward_end(_mod, _args, out):
-        record(events, ('forward', 'end'))
-        head_outs = out[0]
-        for t in head_outs:
-            for leaf in (t if isinstance(t, (list, tuple)) else [t]):
-                leaf.register_hook(grad_hook)
-
-    return [model.register_forward_pre_hook(
-                lambda *_: record(events, ('forward', 'start'))),
-            model.register_forward_hook(forward_end),
-            optimizer.register_step_pre_hook(
-                lambda *_: record(events, ('optimizer', 'start'))),
-            optimizer.register_step_post_hook(
-                lambda *_: record(events, ('optimizer', 'end')))]
+def span_syncs(events) -> dict:
+    """``{span: count}``: the host calls of a chrome trace that wait for
+    the device (``analyze_trace.SYNC_CALLS``), by the innermost port span
+    open around them (``None``: outside every span)."""
+    calls = dict(enumerate(
+        e for e in events if e.get('ph') == 'X'
+        and e.get('cat') in analyze_trace.LAUNCH_CATS
+        and e.get('name') in analyze_trace.SYNC_CALLS))
+    stacks = analyze_trace.launch_spans(events, calls)
+    return dict(collections.Counter(
+        (stacks.get(i) or [None])[0] for i in calls))
 
 
-def span_events(events, spans):
-    """Wrap each ``(name, module, function)`` of ``spans`` so that CUDA
-    events bracket its calls, listed under ``events[name]``; returns the
-    originals to restore."""
-    saved = []
-    for name, mod, attr in spans:
-        fn = getattr(mod, attr)
-
-        def timed(*a, _fn=fn, _name=name, **k):
-            pair = {}
-            record(pair, 'start')
-            out = _fn(*a, **k)
-            record(pair, 'end')
-            events.setdefault(_name, []).append((pair['start'], pair['end']))
-            return out
-        saved.append((mod, attr, fn))
-        setattr(mod, attr, timed)
-    return saved
-
-
-def dcn_events(model, events, backward: bool):
-    """CUDA events around each DCN's forward, listed under
-    ``events['dcn']``, and with ``backward`` from the gradient of its output
-    to that of its input, under ``events['dcn_backward']``."""
-    def timed(mod):
-        pair = {}
-
-        def pre(_mod, _args):
-            record(pair, 'start')
-
-        def post(_mod, args, out):
-            record(pair, 'end')
-            events.setdefault('dcn', []).append((pair['start'], pair['end']))
-            if not (backward and out.requires_grad
-                    and args[0].requires_grad):
-                return
-            grad = {}
-
-            def out_grad(_g):
-                record(grad, 'start')
-
-            def in_grad(_g):
-                record(grad, 'end')
-                events.setdefault('dcn_backward', []).append(
-                    (grad['start'], grad['end']))
-            out.register_hook(out_grad)
-            args[0].register_hook(in_grad)
-        return [mod.register_forward_pre_hook(pre),
-                mod.register_forward_hook(post)]
-
-    return [h for mod in model.modules() if isinstance(mod, DeformConv2d)
-            for h in timed(mod)]
+def host_ms(records, iters: int) -> dict:
+    """Host ms an iteration by span name of a ``recording()`` list: the
+    sum of each span's intervals (a span's holds those inside it)."""
+    out = collections.Counter()
+    for name, _, _, t0, t1 in records:
+        out[name] += (t1 - t0) / 1e6 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def make_run(preset_name: str, train: bool, batch_size: int, dtype: str,
@@ -305,74 +238,25 @@ def main(argv=None):
     out_path = args.out or ('work_dirs/profile_train.json' if args.train
                             else 'work_dirs/profile_forward.json')
 
-    preset = get_preset(args.preset)
-    indoor = preset.model.head_kind == 'indoor'
-    model, optimizer, run = make_run(args.preset, args.train, batch_size,
-                                     args.dtype)
-    events = {}
-    handles = []
-    run()                                       # build kernels, warm up
-    torch.cuda.synchronize()
-
-    handles += stage_events(model, events)
-    if args.train:
-        handles += step_events(model, optimizer, events)
-    pieces = loss_spans(preset.model) if args.train and indoor else ()
-    saved = span_events(events, pieces)
-    sums = [name for name, _, _ in pieces]
-    if any(preset.model.stage_with_dcn):
-        handles += dcn_events(model, events, args.train)
-        sums += ['dcn', 'dcn_backward'] if args.train else ['dcn']
-    spans = {k: [] for k in ('backbone', 'fpn', 'backprojection', 'neck_3d',
-                             'head', 'total')}
-    spans.update({k: [] for k in (
-        ('forward', 'targets_loss', 'backward', 'optimizer') if args.train
-        else ('decode_nms',))})
-    spans.update({name: [] for name in sums})
-    try:
-        walls = []
-        torch.cuda.reset_peak_memory_stats()
+    _, _, run = make_run(args.preset, args.train, batch_size, args.dtype)
+    with recording() as cold:
+        run()                                   # build kernels, warm up
+        torch.cuda.synchronize()
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recorded_walls = []
+    with recording() as records:
         for _ in range(ITERS):
             t0 = time.perf_counter()
-            for name in sums:
-                events[name] = []
-            record(events, ('total', 'start'))
             run()
-            record(events, ('total', 'end'))
             torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-
-            e = events
-            pairs = [
-                ('backbone', e['backbone', 'start'], e['backbone', 'end']),
-                ('fpn', e['neck', 'start'], e['neck', 'end']),
-                ('backprojection', e['neck', 'end'], e['neck_3d', 'start']),
-                ('neck_3d', e['neck_3d', 'start'], e['neck_3d', 'end']),
-                ('head', e['bbox_head', 'start'], e['bbox_head', 'end']),
-                ('total', e['total', 'start'], e['total', 'end'])]
-            if args.train:
-                pairs += [
-                    ('forward', e['forward', 'start'], e['forward', 'end']),
-                    ('targets_loss', e['forward', 'end'],
-                     e['backward', 'start']),
-                    ('backward', e['backward', 'start'],
-                     e['optimizer', 'start']),
-                    ('optimizer', e['optimizer', 'start'],
-                     e['optimizer', 'end'])]
-            else:
-                pairs.append(('decode_nms', e['bbox_head', 'end'],
-                              e['total', 'end']))
-            for span, a, b in pairs:
-                spans[span].append(a.elapsed_time(b))
-            for name in sums:
-                spans[name].append(sum(a.elapsed_time(b) for a, b in e[name]))
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    finally:
-        # the hooks and the wrapped loss functions go, also on an error
-        for h in handles:
-            h.remove()
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+            recorded_walls.append((time.perf_counter() - t0) * 1e3)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -382,8 +266,13 @@ def main(argv=None):
             run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device rows, less the annotations (the optimizer's step range) that
-    # span kernels already counted
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        events = analyze_trace.load_events(path)
+        stages, syncs = span_ms(events, ITERS), span_syncs(events)
+    # device rows, less the annotations (the port's spans) that span
+    # kernels already counted
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
                and not ev.is_user_annotation]
@@ -402,8 +291,10 @@ def main(argv=None):
         card=smi, preset=args.preset,
         mode='train' if args.train else 'forward',
         batch=batch_size, dtype=args.dtype, iters=ITERS,
-        stage_ms={k: sorted(v)[len(v) // 2] for k, v in spans.items()},
+        stage_ms=stages, sync_calls=syncs,
+        host_ms=host_ms(records, ITERS), cold_ms=host_ms(cold, 1),
         wall_ms_median=wall, scenes_per_s=batch_size * 1e3 / wall,
+        recorded_wall_ms_median=sorted(recorded_walls)[ITERS // 2],
         profiled_device_busy_share=device_ms / prof_wall_ms,
         top_device_kernels=top, own_kernels=own, peak_memory_gb=peak_gb)
     if args.train:

@@ -166,8 +166,9 @@ Phases, each failing the run on its own error:
                 eager forward, the b=8 call traced for host syncs; the baked
                 program through tools/export.py --verify; the untruncated
                 NMS (pre_nms_k=0) of imvoxelnet_sunrgbd on a b=8 forward's
-                head outputs: the clip's pairwise entry once and the scan
-                once for all samples and classes, equal to the plain path
+                head outputs: the clip's exact-NMS entry once, the rank
+                gather and the scan once each for all samples and classes
+                (each against its plain version), equal to the plain path
                 sample by sample, no host sync, its peak memory and time
                 against the truncated decode; use_rotate_nms=False at
                 imvoxelnet_kitti b=8 (the scan alone) equal to the plain
@@ -230,7 +231,8 @@ Phases, each failing the run on its own error:
                 nuScenes' block0, forward and dx, beside this run's phase 2
                 and 9 rows), bench_iou_kernel (B2's pairwise entry at
                 N=256/1,000/3,000 bit for bit with its plain version, and
-                the exact NMS at 3,000 candidates with its launches),
+                the exact NMS at 8 x 3,000 candidates with its launches
+                and each launch's time),
                 bench_scatter (B1's backward against index_add_) and
                 bench_loader; last the FLOP count (tools/flops.py, its
                 counted 3D neck equal to the analytic inventory), a
@@ -1027,6 +1029,7 @@ PLAIN = [(bp, 'backproject_batch', bp.backproject_batch_plain),
          (nms_ops, 'normal_nms_presorted',
           nms_ops.normal_nms_presorted_plain),
          (nms_ops, 'nms_in_rank_order', nms_ops.nms_in_rank_order_plain),
+         (nms_ops, 'rotated_nms_bev', nms_ops.rotated_nms_bev_plain),
          (necks3d, 'conv3x3x3', conv3z.conv3x3x3_plain)]
 
 
@@ -1146,7 +1149,8 @@ def run_slice():
         'b=8 bfloat16', model16, cfg16, kitti_batch(8, 'cuda', seed=SEED + 1))
 
     want = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
-            'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
+            'rect_clip': 1, 'rect_clip_grad': 0, 'nms_over': 0,
+            'nms_rank': 0, 'nms_scan': 1}
     for name, c in counts.items():
         assert_launches(name, c, want)
     log(f'launch counts per forward: {json.dumps(counts)}')
@@ -1429,7 +1433,8 @@ def run_train():
         raise AssertionError(f'b={b} train: non-finite loss {losses}')
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
     want = {'backproject': 1, 'backproject_grad': 1, 'conv3x3x3': 4,
-            'rect_clip': 0, 'rect_clip_grad': 0, 'nms_scan': 0}
+            'rect_clip': 0, 'rect_clip_grad': 0, 'nms_over': 0,
+            'nms_rank': 0, 'nms_scan': 0}
     if per_step != want:
         raise AssertionError(f'b={b} train: launches per step {per_step} '
                              f'!= {want}')
@@ -1462,7 +1467,8 @@ def run_train():
 INDOOR_PRESETS = ('imvoxelnet_sunrgbd', 'imvoxelnet_sunrgbd_fast',
                   'imvoxelnet_perspective_sunrgbd_fast')
 INDOOR_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 0,
-                   'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
+                   'rect_clip': 1, 'rect_clip_grad': 0, 'nms_over': 0,
+                   'nms_rank': 0, 'nms_scan': 1}
 
 
 @contextlib.contextmanager
@@ -1578,7 +1584,7 @@ def run_indoor():
 INDOOR_TRAIN_PRESETS = ('imvoxelnet_sunrgbd', 'imvoxelnet_sunrgbd_fast')
 INDOOR_TRAIN_LAUNCHES = {'backproject': 1, 'backproject_grad': 1,
                          'conv3x3x3': 0, 'rect_clip': 1, 'rect_clip_grad': 1,
-                         'nms_scan': 0}
+                         'nms_over': 0, 'nms_rank': 0, 'nms_scan': 0}
 # the other SUN RGB-D presets that train: one b=4 bfloat16 step each
 INDOOR_TRAIN_OTHERS = ('imvoxelnet_sunrgbd_top27',
                        'imvoxelnet_perspective_sunrgbd',
@@ -1977,10 +1983,12 @@ def run_scannet():
 
 NUSCENES = 'imvoxelnet_nuscenes'
 NUSCENES_LAUNCHES = {'backproject': 1, 'backproject_grad': 0, 'conv3x3x3': 2,
-                     'rect_clip': 1, 'rect_clip_grad': 0, 'nms_scan': 1}
+                     'rect_clip': 1, 'rect_clip_grad': 0, 'nms_over': 0,
+                     'nms_rank': 0, 'nms_scan': 1}
 NUSCENES_TRAIN_LAUNCHES = {'backproject': 1, 'backproject_grad': 1,
                            'conv3x3x3': 4, 'rect_clip': 0,
-                           'rect_clip_grad': 0, 'nms_scan': 0}
+                           'rect_clip_grad': 0, 'nms_over': 0,
+                           'nms_rank': 0, 'nms_scan': 0}
 NUSCENES_BLOCK0 = (312, 312, 12)
 NUSCENES_MUST_LEARN = ('backbone.layer2.0.conv1.weight',
                        'backbone.layer3.0.conv2.weight',
@@ -2055,7 +2063,7 @@ def nuscenes_kernel_rows(rng):
 # nuScenes necks, the clip's NMS-mask entry where the NMS is rotated
 # (ScanNet's is axis-aligned) and the scan once
 _BATCH = dict(backproject=1, backproject_grad=0, rect_clip=1,
-              rect_clip_grad=0, nms_scan=1)
+              rect_clip_grad=0, nms_over=0, nms_rank=0, nms_scan=1)
 EVAL_BATCH_LAUNCHES = {
     'kitti': dict(_BATCH, conv3x3x3=2),
     'sunrgbd': dict(_BATCH, conv3x3x3=0),
@@ -2600,7 +2608,8 @@ def run_eval():
 # a KITTI training step: B1, its backward, B3 forward twice and dx twice
 TRAIN_STEP_LAUNCHES = {
     'kitti': dict(backproject=1, backproject_grad=1, conv3x3x3=4,
-                  rect_clip=0, rect_clip_grad=0, nms_scan=0),
+                  rect_clip=0, rect_clip_grad=0, nms_over=0, nms_rank=0,
+                  nms_scan=0),
     'sunrgbd': dict(INDOOR_TRAIN_LAUNCHES),
     'scannet': dict(SCANNET_TRAIN_LAUNCHES),
 }
@@ -3122,12 +3131,14 @@ EXPORT_OPS = {'imvx.backproject.default': 1, 'imvx.conv3x3x3.default': 2,
               'imvx.nms_mask.default': 1, 'imvx.nms_scan.default': 1}
 EXPORT_LAUNCHES = EVAL_BATCH_LAUNCHES['kitti']
 EXPORT_REPS = 5
-# the exact NMS: the clip's pairwise entry once for all samples, the scan
-# once for all samples and classes
+# the exact NMS: the clip's exact-NMS entry once for all samples, the rank
+# gather and the scan once each for all samples and classes
 EXACT_LAUNCHES = dict(backproject=0, backproject_grad=0, conv3x3x3=0,
-                      rect_clip=1, rect_clip_grad=0, nms_scan=1)
-NORMAL_NMS_LAUNCHES = dict(EXACT_LAUNCHES, rect_clip=0)
-GIOU_LAUNCHES = dict(EXACT_LAUNCHES, rect_clip_grad=1, nms_scan=0)
+                      rect_clip=0, rect_clip_grad=0, nms_over=1, nms_rank=1,
+                      nms_scan=1)
+NORMAL_NMS_LAUNCHES = dict(EXACT_LAUNCHES, nms_over=0, nms_rank=0)
+GIOU_LAUNCHES = dict(EXACT_LAUNCHES, rect_clip=1, rect_clip_grad=1,
+                     nms_over=0, nms_rank=0, nms_scan=0)
 GIOU_PAIRS = 934400
 FOLD_TOL = 1e-4
 
@@ -3339,14 +3350,16 @@ def cat_results(results):
 
 
 @contextlib.contextmanager
-def pairwise_probe(seen):
-    """Record the corners that reach the clip's pairwise entry."""
-    wrapped = clip_kernel.rect_intersection_area_pairwise
+def entry_probe(name, seen):
+    """Record copies of the arguments that reach the clip wrapper ``name``,
+    a tuple a call in ``seen``."""
+    wrapped = getattr(clip_kernel, name)
 
-    def probe(c1, c2):
-        seen.append((c1.clone(), c2.clone()))
-        return wrapped(c1, c2)
-    with swapped((clip_kernel, 'rect_intersection_area_pairwise', probe)):
+    def probe(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args))
+        return wrapped(*args)
+    with swapped((clip_kernel, name, probe)):
         yield
 
 
@@ -3370,29 +3383,59 @@ def scan_row(mask, valid, label, launches):
     return row
 
 
-def exact_pairwise_row(c1, c2, launches):
-    """A ``kernels`` row of the clip's pairwise entry on the exact NMS's
-    ``(B, N, 4, 2)`` corners, one launch for all samples; the plain version
-    runs sample by sample (one sample's 9 M pairs at a time)."""
-    got = clip_kernel.rect_intersection_area_pairwise(c1, c2)
-    for i in range(c1.shape[0]):
-        assert_same_bits(
-            f'rect_clip pairwise, exact NMS, sample {i}', got[i:i + 1],
-            iou_ops.rect_intersection_area_pairwise_plain(c1[i:i + 1],
-                                                          c2[i:i + 1]))
-    g, n, m = got.shape
+def exact_over_row(corners, areas, thr, launches):
+    """A ``kernels`` row of the clip's exact-NMS entry on the exact NMS's
+    ``(B, N, 4, 2)`` corners, one launch for all samples, with the pairwise
+    entry's time on the same corners beside it; the plain version runs
+    sample by sample (one sample's 9 M pairs at a time).  The bound counts
+    the clip of the pairs whose boxes overlap, which is what the bits need:
+    the entry clips those and the near pairs that it cannot rule out."""
+    got = clip_kernel.nms_over_bits(corners, areas, thr)
+    overlapping = 0
+    for i in range(corners.shape[0]):
+        c, a = corners[i:i + 1], areas[i:i + 1]
+        inter = iou_ops.rect_intersection_area_pairwise_plain(c, c)
+        overlapping += int((inter > 0).sum())
+        if not torch.equal(got[i:i + 1], iou_ops.pack_mask(
+                iou_ops.iou_from_overlaps(inter, a, a) > thr)):
+            raise AssertionError(f'nms_over, exact NMS, sample {i}: bits '
+                                 f'differ from the plain version')
+        del inter
+    s, n = areas.shape
 
     def plain():
-        for i in range(g):
-            iou_ops.rect_intersection_area_pairwise_plain(c1[i:i + 1],
-                                                          c2[i:i + 1])
+        for i in range(s):
+            iou_ops.nms_over_bits_plain(corners[i:i + 1], areas[i:i + 1],
+                                        thr)
     row = clip_row(
-        'rect_clip', CLIP_REPLACES, f'pairwise, exact NMS of '
-        f'{EXACT_PRESET} b={g}, G={g} N=M={n}, {g * n * m} pairs float32',
-        time_ms(lambda: clip_kernel.rect_intersection_area_pairwise(c1, c2),
-                5), time_ms(plain, 1),
-        nbytes(c1, c2, got), g * n * m * CLIP_FLOPS,
-        plain_note='the plain clip one sample at a time')
+        'nms_over', CLIP_REPLACES, f'exact-NMS entry, exact NMS of '
+        f'{EXACT_PRESET} b={s}, S={s} N={n}, {s * n * n} ordered pairs, '
+        f'{overlapping} overlapping',
+        time_ms(lambda: clip_kernel.nms_over_bits(corners, areas, thr), 5),
+        time_ms(plain, 1), nbytes(corners, areas, got),
+        overlapping * CLIP_FLOPS,
+        plain_note='the plain clip one sample at a time',
+        overlapping_share=overlapping / (s * n * n),
+        pairwise_ms=time_ms(
+            lambda: clip_kernel.rect_intersection_area_pairwise(corners,
+                                                                corners), 5))
+    row['launches'] = launches
+    return row
+
+
+def exact_rank_row(over, order, src, launches):
+    """A ``kernels`` row of the rank gather on the exact NMS's bits and
+    rankings (``G`` groups of ``N``), against its plain version."""
+    got = clip_kernel.nms_rank_mask(over, order, src)
+    assert_same_bits('nms_rank, exact NMS', got,
+                     nms_ops.nms_rank_mask_plain(over, order, src))
+    g, n = order.shape
+    row = clip_row(
+        'nms_rank', 'none: the JAX package gathers the IoU in XLA',
+        f'rank gather, exact NMS of {EXACT_PRESET}, G={g} N={n}',
+        time_ms(lambda: clip_kernel.nms_rank_mask(over, order, src), 20),
+        time_ms(lambda: nms_ops.nms_rank_mask_plain(over, order, src), 1),
+        nbytes(over, order, src, got), 0)
     row['launches'] = launches
     return row
 
@@ -3424,8 +3467,9 @@ def run_exact_nms(root):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    pairs, scans = [], []
-    with pairwise_probe(pairs), scan_probe(scans):
+    overs, ranks, scans = [], [], []
+    with entry_probe('nms_over_bits', overs), \
+            entry_probe('nms_rank_mask', ranks), scan_probe(scans):
         torch.cuda.set_sync_debug_mode('error')
         try:
             res = decode(exact)
@@ -3459,21 +3503,23 @@ def run_exact_nms(root):
     differ = ((res['valid'] != trunc['valid']) | (res['valid'] & (
         (res['labels'] != trunc['labels'])
         | (res['boxes'] != trunc['boxes']).any(-1))))
-    n_cand = pairs[0][0].shape[1]
+    n_cand = overs[0][0].shape[1]
     out = dict(
         candidates=n_cand, classes=cfg.indoor_head.n_classes,
         detections=int(res['valid'].sum()),
         detections_truncated=int(trunc['valid'].sum()),
         rows_differing_from_truncated=int(differ.sum()),
         equal_to_plain_path=True, launches=counts,
-        peak_memory_gb=peak_gb, rank_chunk_bools=nms_ops._RANK_CHUNK,
+        peak_memory_gb=peak_gb, nms_over=counts['nms_over'],
+        nms_rank=counts['nms_rank'],
         decode_ms=time_ms(lambda: decode(exact), 3),
         truncated_decode_ms=time_ms(lambda: decode(cfg.indoor_head), 5),
         host_sync=sync, sync_free=True)
     if not out['detections']:
         raise AssertionError('exact nms: no detection')
     log(f'exact nms: {json.dumps(out)}')
-    rows = [exact_pairwise_row(*pairs[0], counts['rect_clip']),
+    rows = [exact_over_row(*overs[0], counts['nms_over']),
+            exact_rank_row(*ranks[0], counts['nms_rank']),
             scan_row(*scans[0], f'exact NMS of {EXACT_PRESET} b=8',
                      counts['nms_scan'])]
     return out, rows
@@ -3730,7 +3776,8 @@ MULTIHOST_RUNS = {
     'scannet_50_views_2_ranks': (
         ['--preset', 'imvoxelnet_scannet', '--world', '2', '--views', '50'],
         dict(backproject=1, backproject_grad=0, rect_clip=0,
-             rect_clip_grad=0, nms_scan=0, conv3x3x3=0)),
+             rect_clip_grad=0, nms_over=0, nms_rank=0, nms_scan=0,
+             conv3x3x3=0)),
 }
 CLI_RANK = r"""
 import json, sys
@@ -4054,9 +4101,10 @@ BENCH_LAUNCHES = {'fwd': EVAL_BATCH_LAUNCHES['kitti'],
 BENCH_ITERS = 10
 TRACED_ITERS = 5
 # the decodes of the truncation study: the NMS-mask entry and the scan;
-# the exact one B2's pairwise entry and the scan
-TRUNCATION_LAUNCHES = dict(backproject=0, backproject_grad=0, rect_clip=1,
-                           rect_clip_grad=0, nms_scan=1, conv3x3x3=0)
+# the exact one B2's exact-NMS entry, the rank gather and the scan
+TRUNCATION_LAUNCHES = {
+    'truncated': dict(EXACT_LAUNCHES, rect_clip=1, nms_over=0, nms_rank=0),
+    'exact': EXACT_LAUNCHES}
 B3_KERNEL = 'conv_wgmma'
 NECK_SOURCE = 'imvoxelnet_tpu_torch/models/necks3d.py'
 
@@ -4281,7 +4329,8 @@ def run_phase14(refs, train_log, untimed=None):
         study = tool_line('eval_nms_truncation', outs['truncation'][0])
         for decode in ('truncated', 'exact'):
             assert_launches(f'eval_nms_truncation {decode}',
-                            study['launches'][decode], TRUNCATION_LAUNCHES)
+                            study['launches'][decode],
+                            TRUNCATION_LAUNCHES[decode])
         out['truncation'] = study
         log(f'eval_nms_truncation: {json.dumps(study)}')
 
@@ -4572,8 +4621,8 @@ def smoke():
     # (the KITTI serving rows also carry their launches in phase 10's
     # tools/test.py run over 4 batches of 8 frames, the pairwise rows the
     # protocol's launches in the tool's run on their split, all asserted);
-    # phase 12's rows (the pairwise entry and the scan of the exact NMS at
-    # imvoxelnet_sunrgbd b=8, the scan of the axis-aligned BEV NMS at
+    # phase 12's rows (the exact-NMS entry, the rank gather and the scan of
+    # the exact NMS at imvoxelnet_sunrgbd b=8, the scan of the axis-aligned BEV NMS at
     # imvoxelnet_kitti b=8, the paired entry and its backward under
     # giou_3d_loss) with the launches of the run that gave their inputs
     for r in serving:

@@ -49,6 +49,8 @@ SIGNATURES = {
         'imvx_rect_clip_grad': [_P, _P, _P, _P, _P, _P, _L, _P],
         'imvx_rect_clip_pairwise': [_P, _P, _P, _I, _I, _I, _P],
         'imvx_nms_mask': [_P, _P, _F, _P, _I, _I, _P],
+        'imvx_nms_over': [_P, _P, _F, _P, _I, _I, _P],
+        'imvx_nms_rank': [_P, _P, _P, _P, _I, _I, _P],
         'imvx_nms_scan': [_P, _P, _P, _I, _I, _P]},
     'conv3x3x3': {
         'imvx_conv3x3x3': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},

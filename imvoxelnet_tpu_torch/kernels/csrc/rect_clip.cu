@@ -7,15 +7,20 @@
 // compacting the emitted vertices after every edge, then take the area by
 // the shoelace formula.
 //
-// One __device__ clip (clip_area) serves three entry points:
+// One __device__ clip (clip_area) serves four entry points:
 //   imvx_rect_clip           paired:   (n,4,2) x (n,4,2)     -> (n,)
 //   imvx_rect_clip_pairwise  pairwise: (G,N,4,2) x (G,M,4,2) -> (G,N,M)
 //   imvx_nms_mask            pairwise on one box set, with the IoU, the
 //                            threshold and i < j fused, one bit per pair
+//   imvx_nms_over            pairwise on one box set, the IoU and the
+//                            threshold fused, one bit per ordered pair, the
+//                            pairs that cannot overlap not clipped
 // imvx_rect_clip_grad is the paired entry's backward (the vector-Jacobian
 // product of the clip, for the IoU-3D training loss) in two passes: a light
 // one over every pair that writes zeros and lists the pairs with an area
 // gradient, then the clip and its reverse sweep over those alone.
+// imvx_nms_rank gathers imvx_nms_over's bits into each group's rank order
+// (the exact NMS: one box set a sample serves every class).
 // imvx_nms_scan walks a mask in rank order (the greedy NMS itself; the JAX package runs
 // that step as a lax.while_loop fixpoint, not as a kernel).
 //
@@ -642,6 +647,347 @@ nms_mask_kernel(const float* __restrict__ corners,
   if (threadIdx.x == 0) mask[(g * n + i) * gridDim.x + blockIdx.x] = word;
 }
 
+// ------------------------------------------------- exact NMS: over-threshold
+//
+// Bit b % 32 of word (s, a, b / 32) says that boxes a and b of sample s
+// overlap above the threshold: inter(a, b) / max(area_a + area_b - inter,
+// 1e-8) > thr, inter(a, b) being box a clipped by box b's edges, for every
+// ordered pair (both triangles: the rank gather below reads either, and the
+// clip is not symmetric bit for bit).  The bits equal those of
+// ops/iou.py:rotated_iou_bev(bev, bev) > thr, the clamp propagating NaN as
+// PyTorch's does.
+//
+// Bound on an H100: operations, the clip's.  The pairs whose clip cannot
+// leave anything are known before clipping: where the two boxes lie apart
+// by more than a margin, every vertex the clip computes lies within
+// rounding of the true polygon, so the last edge emits nothing and the clip
+// returns exactly 0.  Such a pair takes inter = 0 without a clip.  Apart
+// means: the circles around the boxes' corners are, or the corners of one
+// box project beyond the other's along the normal of its edge 0 or 1 (a
+// separating axis).  The argument needs box b's edges to bound it: its
+// corners must turn one way at angles of 30-150 degrees (|cross| >= |e1|
+// |e2| / 2) with edges longer than the margin, and both boxes' corners must
+// be finite; every other pair is clipped.  The margin, 2^-10 of the boxes'
+// extent (|centre| + radius), is some 300 times the rounding error that
+// the clip's 4 stages can gather (about 50 ulp of the extent).
+//
+// A block owns 32 rows by 128 columns (4 words a row).  It stages the rows'
+// corners and the columns' edges (make_edges once per column, for 32 rows),
+// each box's circle, axes and area in shared memory.  Pass 1: a warp takes
+// 32 columns of one row, writes the far pairs' bits by a ballot and appends
+// the near pairs to a list in shared memory.  Pass 2: all threads clip the
+// listed pairs, full warps whatever the near pairs' pattern, and OR their
+// bits into the tile's words.  The words go out at the end.
+constexpr int kOverRows = 32;
+constexpr int kOverCols = 128;
+constexpr int kOverWords = kOverCols / 32;
+constexpr int kOverThreads = 256;
+constexpr float kFarMargin = 1.f / 1024.f;
+
+// What pass 1 knows of a box: its circle (centre, radius, extent), the
+// normals of its edges 0 and 1 with their lengths and the extent of its
+// corners along each, and whether the far test may take it.
+struct Facts {
+  float cx, cy, r, ext;
+  float ux[2], uy[2], lo[2], hi[2], len[2];
+  bool ok;
+};
+
+// The same, one array per field, for the columns (lane j reads word j).
+struct ColFacts {
+  float cx[kOverCols], cy[kOverCols], r[kOverCols], ext[kOverCols];
+  float ux[2][kOverCols], uy[2][kOverCols], lo[2][kOverCols],
+      hi[2][kOverCols], len[2][kOverCols];
+  bool ok[kOverCols];
+};
+
+struct OverTile {
+  float rows[kOverRows][8];
+  Facts row_facts[kOverRows];
+  float row_area[kOverRows];
+  float edge[20][kOverCols];                     // ax, ay, abx, aby, sign
+  ColFacts col;
+  float col_area[kOverCols];
+  uint32_t bits[kOverRows][kOverWords];
+  uint16_t near[kOverRows * kOverCols];          // row << 7 | column
+  int n_near;
+};
+
+__device__ __forceinline__ void box_facts(const float (&x)[4],
+                                          const float (&y)[4], Facts& f) {
+  f.cx = fmul(fadd(fadd(fadd(x[0], x[1]), x[2]), x[3]), 0.25f);
+  f.cy = fmul(fadd(fadd(fadd(y[0], y[1]), y[2]), y[3]), 0.25f);
+  float r2 = 0.f;
+  bool finite = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float dx = fsub(x[k], f.cx), dy = fsub(y[k], f.cy);
+    r2 = fmaxf(r2, fadd(fmul(dx, dx), fmul(dy, dy)));
+    finite = finite && isfinite(x[k]) && isfinite(y[k]);
+  }
+  f.r = sqrtf(r2);
+  f.ext = fadd(fmaxf(fabsf(f.cx), fabsf(f.cy)), f.r);
+  f.ok = finite;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    f.ux[e] = fsub(y[e], y[e + 1]);
+    f.uy[e] = fsub(x[e + 1], x[e]);
+    f.len[e] = sqrtf(fadd(fmul(f.ux[e], f.ux[e]), fmul(f.uy[e], f.uy[e])));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float p = fadd(fmul(f.ux[e], x[k]), fmul(f.uy[e], y[k]));
+      f.lo[e] = k == 0 ? p : fminf(f.lo[e], p);
+      f.hi[e] = k == 0 ? p : fmaxf(f.hi[e], p);
+    }
+  }
+}
+
+// Whether box b's edges bound it well enough for the far test (above).
+__device__ __forceinline__ bool edges_bound(const Edges& ed, float extent) {
+  const float lim = fmul(kFarMargin, fadd(extent, 1.f));
+  bool ok = true;
+  float turn = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int ne = (e + 1) % 4;
+    const float l0 = fadd(fmul(ed.abx[e], ed.abx[e]),
+                          fmul(ed.aby[e], ed.aby[e]));
+    const float l1 = fadd(fmul(ed.abx[ne], ed.abx[ne]),
+                          fmul(ed.aby[ne], ed.aby[ne]));
+    const float cross = fsub(fmul(ed.abx[e], ed.aby[ne]),
+                             fmul(ed.aby[e], ed.abx[ne]));
+    turn = e == 0 ? cross : turn;
+    ok = ok && l0 > fmul(lim, lim) && fmul(cross, turn) > 0.f &&
+         fmul(cross, cross) >= fmul(0.25f, fmul(l0, l1));
+  }
+  return ok;
+}
+
+// Whether corners (x, y) project beyond [lo, hi] along the normal (ux, uy)
+// of length len by more than marg.
+__device__ __forceinline__ bool beyond(float ux, float uy, float lo, float hi,
+                                       float len, const float (&x)[4],
+                                       const float (&y)[4], float marg) {
+  float mn = 0.f, mx = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float p = fadd(fmul(ux, x[k]), fmul(uy, y[k]));
+    mn = k == 0 ? p : fminf(mn, p);
+    mx = k == 0 ? p : fmaxf(mx, p);
+  }
+  return fmaxf(fsub(mn, hi), fsub(lo, mx)) > fmul(marg, len);
+}
+
+// inter / max(a1 + a2 - inter, 1e-8) > thr, a NaN union kept (torch.clamp)
+__device__ __forceinline__ bool over_thr(float inter, float a1, float a2,
+                                         float thr) {
+  const float uni = fsub(fadd(a1, a2), inter);
+  return __fdiv_rn(inter, uni != uni ? uni : fmaxf(uni, 1e-8f)) > thr;
+}
+
+// grid (ceil(N / 128), ceil(N / 32), S), block (256)
+__global__ void __launch_bounds__(kOverThreads)
+nms_over_kernel(const float* __restrict__ corners,
+                const float* __restrict__ box_area, float thr,
+                uint32_t* __restrict__ over, int n, int n_words) {
+  __shared__ OverTile t;
+  const long long s = blockIdx.z;
+  const int i0 = blockIdx.y * kOverRows, j0 = blockIdx.x * kOverCols;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  corners += s * n * 8;
+  box_area += s * n;
+  if (tid < kOverCols) {
+    const int j = j0 + tid;
+    float bx[4], by[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      bx[k] = j < n ? corners[(long long)j * 8 + 2 * k] : 0.f;
+      by[k] = j < n ? corners[(long long)j * 8 + 2 * k + 1] : 0.f;
+    }
+    Edges ed;
+    make_edges(bx, by, ed);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t.edge[e][tid] = ed.ax[e];
+      t.edge[4 + e][tid] = ed.ay[e];
+      t.edge[8 + e][tid] = ed.abx[e];
+      t.edge[12 + e][tid] = ed.aby[e];
+      t.edge[16 + e][tid] = ed.sign[e];
+    }
+    Facts f;
+    box_facts(bx, by, f);
+    t.col.cx[tid] = f.cx;
+    t.col.cy[tid] = f.cy;
+    t.col.r[tid] = f.r;
+    t.col.ext[tid] = f.ext;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      t.col.ux[e][tid] = f.ux[e];
+      t.col.uy[e][tid] = f.uy[e];
+      t.col.lo[e][tid] = f.lo[e];
+      t.col.hi[e][tid] = f.hi[e];
+      t.col.len[e][tid] = f.len[e];
+    }
+    t.col.ok[tid] = f.ok && edges_bound(ed, f.ext);
+    t.col_area[tid] = j < n ? box_area[j] : 0.f;
+  } else if (tid < kOverCols + kOverRows) {
+    const int r = tid - kOverCols, i = i0 + r;
+    float px[4], py[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      px[k] = i < n ? corners[(long long)i * 8 + 2 * k] : 0.f;
+      py[k] = i < n ? corners[(long long)i * 8 + 2 * k + 1] : 0.f;
+      t.rows[r][2 * k] = px[k];
+      t.rows[r][2 * k + 1] = py[k];
+    }
+    box_facts(px, py, t.row_facts[r]);
+    t.row_area[r] = i < n ? box_area[i] : 0.f;
+  }
+  if (tid == 0) t.n_near = 0;
+  __syncthreads();
+
+  // pass 1: the far pairs' bits, the near pairs listed
+  for (int u = warp; u < kOverRows * kOverWords; u += kOverThreads / 32) {
+    const int r = u / kOverWords, q = u % kOverWords;
+    const int c = q * 32 + lane;
+    const bool pair = i0 + r < n && j0 + c < n;
+    const Facts& a = t.row_facts[r];
+    const bool ok = a.ok && t.col.ok[c];
+    const float marg = fmul(kFarMargin, fadd(fadd(a.ext, t.col.ext[c]), 1.f));
+    const float dx = fsub(a.cx, t.col.cx[c]), dy = fsub(a.cy, t.col.cy[c]);
+    const float reach = fadd(fadd(a.r, t.col.r[c]), marg);
+    bool far = ok && fadd(fmul(dx, dx), fmul(dy, dy)) > fmul(reach, reach);
+    if (__any_sync(kFull, pair && ok && !far)) {
+      float px[4], py[4], bx[4], by[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        px[k] = t.rows[r][2 * k];
+        py[k] = t.rows[r][2 * k + 1];
+        bx[k] = t.edge[k][c];
+        by[k] = t.edge[4 + k][c];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        far = far || (ok && (beyond(a.ux[e], a.uy[e], a.lo[e], a.hi[e],
+                                    a.len[e], bx, by, marg) ||
+                             beyond(t.col.ux[e][c], t.col.uy[e][c],
+                                    t.col.lo[e][c], t.col.hi[e][c],
+                                    t.col.len[e][c], px, py, marg)));
+    }
+    const bool near = pair && !far;
+    const unsigned word = __ballot_sync(
+        kFull, pair && far && over_thr(0.f, t.row_area[r], t.col_area[c], thr));
+    const unsigned listed = __ballot_sync(kFull, near);
+    int first = 0;
+    if (lane == 0) {
+      t.bits[r][q] = word;
+      if (listed) first = atomicAdd(&t.n_near, __popc(listed));
+    }
+    first = __shfl_sync(kFull, first, 0);
+    if (near)
+      t.near[first + __popc(listed & ((1u << lane) - 1u))] =
+          (uint16_t)(r << 7 | c);
+  }
+  __syncthreads();
+
+  // pass 2: the listed pairs clipped
+  const int n_near = t.n_near;
+  for (int f = tid; f < n_near; f += kOverThreads) {
+    const int r = t.near[f] >> 7, c = t.near[f] & (kOverCols - 1);
+    float px[4], py[4];
+    Edges ed;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      px[k] = t.rows[r][2 * k];
+      py[k] = t.rows[r][2 * k + 1];
+      ed.ax[k] = t.edge[k][c];
+      ed.ay[k] = t.edge[4 + k][c];
+      ed.abx[k] = t.edge[8 + k][c];
+      ed.aby[k] = t.edge[12 + k][c];
+      ed.sign[k] = t.edge[16 + k][c];
+    }
+    if (over_thr(clip_area(px, py, ed), t.row_area[r], t.col_area[c], thr))
+      atomicOr(&t.bits[r][c >> 5], 1u << (c & 31));
+  }
+  __syncthreads();
+
+  if (tid < kOverRows * kOverWords) {
+    const int r = tid / kOverWords, q = tid % kOverWords;
+    const int i = i0 + r, w = blockIdx.x * kOverWords + q;
+    if (i < n && w < n_words)
+      over[(s * n + i) * n_words + w] = t.bits[r][q];
+  }
+}
+
+// ------------------------------------------------- exact NMS: rank gather
+//
+// Bit j % 32 of word (g, i, j / 32) says that the group's candidate of rank
+// i, if kept, suppresses that of rank j: i < j and bit order[j] of row
+// order[i] of the group's over-threshold matrix src[g].  A block owns a
+// group and 32 rows: it holds the group's order and the 32 source rows
+// (W words each, read coalesced) in shared memory.  A warp takes 4 rows by
+// 32 words: for each word, a lane reads its column's rank from shared
+// memory once and its bit from each of the 4 rows, a ballot makes the
+// word, and lane k keeps word k, so each row's 32 words go out as one
+// 128-byte store.  Words wholly on or below the diagonal are 0 without a
+// lookup.  Bound on an H100: bytes, 4 B a word written (the scan reads
+// them) against W words a row read from L2.
+constexpr int kRankRows = 32;
+constexpr int kRankRowsPerWarp = 4;
+constexpr int kRankThreads = 256;
+
+// grid (ceil(N / 32), G), block (256), dynamic shared memory
+// (N + 32 * W) words
+__global__ void __launch_bounds__(kRankThreads)
+nms_rank_kernel(const uint32_t* __restrict__ over,
+                const long long* __restrict__ order,
+                const long long* __restrict__ src,
+                uint32_t* __restrict__ mask, int n, int n_words) {
+  extern __shared__ uint32_t shared_words[];
+  int* rank = reinterpret_cast<int*>(shared_words);           // (N,)
+  uint32_t* rows = shared_words + n;                            // (32, W)
+  const long long g = blockIdx.y;
+  const int i0 = blockIdx.x * kRankRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  order += g * n;
+  for (int j = tid; j < n; j += kRankThreads) rank[j] = (int)order[j];
+  __syncthreads();
+  over += src[g] * n * n_words;
+  for (int f = tid; f < kRankRows * n_words; f += kRankThreads) {
+    const int r = f / n_words, i = i0 + r;
+    rows[f] = i < n ? over[(long long)rank[i] * n_words + f % n_words] : 0u;
+  }
+  __syncthreads();
+
+  const int n_chunks = (n_words + 31) / 32;
+  const int n_units = kRankRows / kRankRowsPerWarp * n_chunks;
+  for (int u = warp; u < n_units; u += kRankThreads / 32) {
+    const int r0 = u / n_chunks * kRankRowsPerWarp, w0 = u % n_chunks * 32;
+    uint32_t mine[kRankRowsPerWarp] = {};
+    for (int k = 0; k < 32 && w0 + k < n_words; ++k) {
+      const int w = w0 + k;
+      // a word wholly on or below the first row's diagonal is so for all 4
+      if (w * 32 + 31 <= i0 + r0) continue;
+      const int j = w * 32 + lane;
+      const int o = j < n ? rank[j] : 0;
+#pragma unroll
+      for (int q = 0; q < kRankRowsPerWarp; ++q) {
+        const int i = i0 + r0 + q;
+        const bool bit = j < n && i < j &&
+                         (rows[(r0 + q) * n_words + (o >> 5)] >> (o & 31)) & 1u;
+        const unsigned word = __ballot_sync(kFull, bit);
+        mine[q] = lane == k ? word : mine[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRankRowsPerWarp; ++q) {
+      const int i = i0 + r0 + q;
+      if (i < n && w0 + lane < n_words)
+        mask[(g * n + i) * n_words + w0 + lane] = mine[q];
+    }
+  }
+}
+
 // ------------------------------------------------------------ greedy scan
 
 // One warp per group walks the rows of its mask in rank order; a row that
@@ -778,6 +1124,45 @@ extern "C" int imvx_nms_mask(const void* corners, const void* box_areas,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(corners), static_cast<const float*>(box_areas),
       thr, static_cast<uint32_t*>(mask), n);
+  return (int)cudaGetLastError();
+}
+
+// corners: (S, N, 4, 2), box_areas: (S, N) float32; over: (S, N, ceil(N/32))
+// 32-bit words.
+extern "C" int imvx_nms_over(const void* corners, const void* box_areas,
+                             float thr, void* over, int s, int n,
+                             void* stream) {
+  if (s <= 0 || n <= 0) return 0;
+  const int n_words = (n + 31) / 32;
+  const dim3 grid((n + kOverCols - 1) / kOverCols,
+                  (n + kOverRows - 1) / kOverRows, s);
+  nms_over_kernel<<<grid, kOverThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(corners), static_cast<const float*>(box_areas),
+      thr, static_cast<uint32_t*>(over), n, n_words);
+  return (int)cudaGetLastError();
+}
+
+// over: (S, N, ceil(N/32)) words; order: (G, N) int64, each row a
+// permutation of 0..N-1; src: (G,) int64 in 0..S-1; mask: (G, N, ceil(N/32))
+// words.
+extern "C" int imvx_nms_rank(const void* over, const void* order,
+                             const void* src, void* mask, int g, int n,
+                             void* stream) {
+  if (g <= 0 || n <= 0) return 0;
+  const int n_words = (n + 31) / 32;
+  const size_t shared = (size_t)(n + kRankRows * n_words) * sizeof(uint32_t);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n + kRankRows - 1) / kRankRows, g);
+  nms_rank_kernel<<<grid, kRankThreads, shared,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(over), static_cast<const long long*>(order),
+      static_cast<const long long*>(src), static_cast<uint32_t*>(mask), n,
+      n_words);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,12 @@
 Replaces ``imvoxelnet_tpu/ops/iou_pallas.py:rect_intersection_area_pallas``.
 One clip serves three entry points, which share the ``launches`` count:
 paired areas, pairwise areas of two box sets per group, and the pairwise NMS
-dominance mask (IoU, threshold and rank order fused, one bit per pair).
-``nms_scan`` walks such a mask greedily; it counts in ``scan_launches``.
+dominance mask (IoU, threshold and rank order fused, one bit per pair).  A
+fourth, ``nms_over_bits`` (counted in ``over_launches``), writes the exact
+NMS's over-threshold bits of every ordered pair of a sample's boxes, and
+``nms_rank_mask`` (``rank_launches``) gathers them into a dominance mask
+per group in its rank order.  ``nms_scan`` walks such a mask greedily; it
+counts in ``scan_launches``.
 The paired entry has a backward, ``rect_intersection_area_grad`` (the
 vector-Jacobian product of the clip: a zero pass over every pair, then a
 sweep over the pairs with an area gradient), counted in ``grad_launches``,
@@ -12,7 +16,8 @@ one a call; ``ops/iou.py:RectClipFunction`` joins the two.
 
 Plain versions: ``ops/iou.py`` (``rect_intersection_area_plain``, whose
 autograd is the backward's, ``rect_intersection_area_pairwise_plain``,
-``nms_dominance_mask_plain``) and ``ops/nms.py`` (``nms_scan_plain``).
+``nms_dominance_mask_plain``, ``nms_over_bits_plain``) and ``ops/nms.py``
+(``nms_rank_mask_plain``, ``nms_scan_plain``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from ._checks import require, same_device, stream_of
 launches = 0
 scan_launches = 0
 grad_launches = 0
+over_launches = 0
+rank_launches = 0
 
 _MAX_GRID_YZ = 65535
 # the scan keeps 33 words per 32 candidates in 48 KB of shared memory
@@ -147,6 +154,19 @@ def rect_intersection_area_pairwise(corners1, corners2):
     return areas
 
 
+def _box_sets(corners, box_areas):
+    """Check ``(G, N, 4, 2)`` corners and their ``(G, N)`` areas; returns
+    ``(G, N)``."""
+    _corners(corners, 'corners', 4)
+    require(box_areas, 'box_areas', (torch.float32,), 2)
+    same_device(corners, box_areas)
+    g, n = corners.shape[:2]
+    if box_areas.shape != (g, n):
+        raise ValueError(f'box_areas must be {(g, n)}, got '
+                         f'{tuple(box_areas.shape)}')
+    return g, n
+
+
 def nms_dominance_mask(corners, box_areas, iou_thr: float):
     """Which box would suppress which, one bit per pair.
 
@@ -158,19 +178,76 @@ def nms_dominance_mask(corners, box_areas, iou_thr: float):
       is set iff ``i < j`` and ``inter / max(a_i + a_j - inter, 1e-8) >
       iou_thr``.
     """
-    _corners(corners, 'corners', 4)
-    require(box_areas, 'box_areas', (torch.float32,), 2)
-    same_device(corners, box_areas)
-    g, n = corners.shape[:2]
-    if box_areas.shape != (g, n):
-        raise ValueError(f'box_areas must be {(g, n)}, got '
-                         f'{tuple(box_areas.shape)}')
+    g, n = _box_sets(corners, box_areas)
     _grid_fits(g, n)
     mask = torch.empty((g, n, mask_words(n)), dtype=torch.int32,
                        device=corners.device)
     if mask.numel():
         _launch('imvx_nms_mask', corners.data_ptr(), box_areas.data_ptr(),
                 float(iou_thr), mask.data_ptr(), g, n, stream_of(corners))
+    return mask
+
+
+def nms_over_bits(corners, box_areas, iou_thr: float):
+    """Which boxes of a sample overlap above the threshold, one bit per
+    ordered pair.
+
+    Args:
+      corners: ``(S, N, 4, 2)`` float32 BEV corners.
+      box_areas: ``(S, N)`` float32 ``w * h`` of the same boxes.
+    Returns:
+      ``(S, N, ceil(N / 32))`` int32: bit ``b % 32`` of word ``[s, a, b // 32]``
+      is set iff ``inter(a, b) / max(a_a + a_b - inter(a, b), 1e-8) >
+      iou_thr``, ``inter(a, b)`` being box ``a`` clipped by box ``b``.
+    """
+    global over_launches
+    s, n = _box_sets(corners, box_areas)
+    if s > _MAX_GRID_YZ or (n + 31) // 32 > _MAX_GRID_YZ:
+        raise ValueError(f'{s} samples of {n} boxes exceed the launch grid')
+    over = torch.empty((s, n, mask_words(n)), dtype=torch.int32,
+                       device=corners.device)
+    if over.numel():
+        build.check(build.kernel('rect_clip', 'imvx_nms_over')(
+            corners.data_ptr(), box_areas.data_ptr(), float(iou_thr),
+            over.data_ptr(), s, n, stream_of(corners)), 'imvx_nms_over')
+        over_launches += 1
+    return over
+
+
+def nms_rank_mask(over, order, src):
+    """The dominance mask of each group in its rank order, from the
+    over-threshold bits of :func:`nms_over_bits`.
+
+    Args:
+      over: ``(S, N, ceil(N / 32))`` int32, in the candidates' own order.
+      order: ``(G, N)`` int64, each row a permutation of ``0..N-1``: the
+        group's candidates by rank.
+      src: ``(G,)`` int64 in ``0..S-1``: the matrix of each group.
+    Returns:
+      ``(G, N, ceil(N / 32))`` int32: bit ``j % 32`` of word ``[g, i, j // 32]``
+      is set iff ``i < j`` and bit ``order[g, j]`` of row ``order[g, i]`` of
+      ``over[src[g]]`` is.  The indices are not checked on the device.
+    """
+    global rank_launches
+    require(over, 'over', (torch.int32,), 3)
+    require(order, 'order', (torch.int64,), 2)
+    require(src, 'src', (torch.int64,), 1)
+    same_device(over, order, src)
+    g, n = order.shape
+    if over.shape[1:] != (n, mask_words(n)) or src.shape != (g,):
+        raise ValueError(f'over (S, {n}, {mask_words(n)}) and src ({g},) '
+                         f'expected, got {tuple(over.shape)}, '
+                         f'{tuple(src.shape)}')
+    if n > _MAX_SCAN_N or g > _MAX_GRID_YZ:
+        raise ValueError(f'{g} groups of {n} candidates exceed the gather '
+                         f'(at most {_MAX_SCAN_N} candidates)')
+    mask = torch.empty((g, n, mask_words(n)), dtype=torch.int32,
+                       device=over.device)
+    if mask.numel():
+        build.check(build.kernel('rect_clip', 'imvx_nms_rank')(
+            over.data_ptr(), order.data_ptr(), src.data_ptr(),
+            mask.data_ptr(), g, n, stream_of(over)), 'imvx_nms_rank')
+        rank_launches += 1
     return mask
 
 
@@ -223,6 +300,16 @@ nms_mask_op = torch.library.custom_op(
                        iou_thr),
     mutates_args=(), device_types='cuda',
     schema='(Tensor corners, Tensor box_areas, float iou_thr) -> Tensor')
+nms_over_op = torch.library.custom_op(
+    'imvx::nms_over', lambda corners, box_areas, iou_thr:
+    nms_over_bits(corners.contiguous(), box_areas.contiguous(), iou_thr),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor corners, Tensor box_areas, float iou_thr) -> Tensor')
+nms_rank_op = torch.library.custom_op(
+    'imvx::nms_rank', lambda over, order, src: nms_rank_mask(
+        over.contiguous(), order.contiguous(), src.contiguous()),
+    mutates_args=(), device_types='cuda',
+    schema='(Tensor over, Tensor order, Tensor src) -> Tensor')
 nms_scan_op = torch.library.custom_op(
     'imvx::nms_scan', lambda mask, valid: nms_scan(mask.contiguous(),
                                                    valid.contiguous()),
@@ -240,6 +327,17 @@ def _(corners1, corners2):
 def _(corners, box_areas, iou_thr):
     g, n = corners.shape[:2]
     return corners.new_empty((g, n, mask_words(n)), dtype=torch.int32)
+
+
+@nms_over_op.register_fake
+def _(corners, box_areas, iou_thr):
+    s, n = corners.shape[:2]
+    return corners.new_empty((s, n, mask_words(n)), dtype=torch.int32)
+
+
+@nms_rank_op.register_fake
+def _(over, order, src):
+    return over.new_empty((order.shape[0],) + tuple(over.shape[1:]))
 
 
 @nms_scan_op.register_fake

@@ -13,8 +13,8 @@ JAX package's ``custom_vjp`` runs its Pallas clip forward and the vjp of its
 jnp clip backward.  ``rotated_overlaps_bev`` / ``rotated_iou_bev`` take the
 pairwise entry, which reads each box once and makes no broadcast copy.  CPU
 tensors take the plain versions, and autograd differentiates them.  The
-plain version of the kernel's fused NMS entry and the packing of its mask
-words are here too.
+plain versions of the kernel's two NMS entries and the packing of their
+mask words are here too.
 """
 
 from __future__ import annotations
@@ -329,6 +329,15 @@ def unpack_mask(words, n: int):
     lanes = torch.arange(32, device=words.device)
     bits = (words.long()[..., None] >> lanes) & 1
     return bits.reshape(words.shape[:-1] + (-1,))[..., :n].bool()
+
+
+def nms_over_bits_plain(corners, box_areas, iou_thr: float):
+    """Plain version of the kernel's exact-NMS entry
+    (``kernels/rect_clip.py:nms_over_bits``): which boxes overlap above the
+    threshold, every ordered pair, from ``(S, N, 4, 2)`` corners and their
+    ``(S, N)`` areas, packed to ``(S, N, ceil(N / 32))`` int32."""
+    inter = rect_intersection_area_pairwise_plain(corners, corners)
+    return pack_mask(iou_from_overlaps(inter, box_areas, box_areas) > iou_thr)
 
 
 def nms_dominance_mask_plain(corners, box_areas, iou_thr: float):

@@ -19,11 +19,14 @@ operators ``torch.ops.imvx.nms_mask`` and ``nms_scan``: the dominance mask,
 then the greedy scan over it; without rotation a plain
 axis-aligned mask and the scan), that of ``aligned_3d_nms`` a plain-PyTorch
 dominance mask and one scan launch for all samples, and that of
-``multiclass_nms_3d_exact``, ``rotated_nms_bev`` and ``normal_nms_bev`` the
-pairwise IoU (one launch of the clip's pairwise entry for all samples, or
-the plain axis-aligned IoU), its bits gathered into each class's rank order
-and packed, and one scan launch for all samples and classes; nothing in any
-of them reads a value back to the host.  ``greedy_nms_from_iou_batched``,
+``multiclass_nms_3d_exact``, ``rotated_nms_bev``, ``normal_nms_bev`` and
+``greedy_nms_from_iou`` three: each box set's over-threshold bits, every
+ordered pair (one launch of the clip's exact-NMS entry for all samples,
+``nms_over``, straight from the rotated boxes; or the IoU matrix a caller
+holds, thresholded and packed), one launch of the rank gather
+(``nms_rank``) into every group's rank order and one scan launch for all
+samples and classes; nothing in any of them reads a value back to the
+host.  ``greedy_nms_from_iou_batched``,
 whose fixpoint loop asks the device every iteration whether it is done, is
 their plain version.
 """
@@ -38,10 +41,6 @@ from . import boxes as box_ops
 from . import iou as iou_ops
 
 _NEG = -1e10
-# bool entries of the gathered dominance bits that ``ranked_dominance_mask``
-# holds at once (a chunk of groups, 256 MB of bools): the exact NMS of
-# 8 samples x 10 classes x 3,000 candidates gathers 720 M
-_RANK_CHUNK = 1 << 28
 
 
 def top_k(x, k: int):
@@ -111,33 +110,39 @@ def nms_in_rank_order_plain(iou, order, valid_sorted, iou_thr: float):
         valid_sorted, iou_thr, presorted=True)
 
 
-def ranked_dominance_mask(iou, order, iou_thr: float):
-    """Which candidate would suppress which, in each group's rank order,
-    one bit per pair: IoU matrices ``(..., N, N)`` in the candidates' own
-    order (leading dims broadcast against those of ``order (..., N)``: one
-    matrix serves every class) -> ``(G, N, ceil(N / 32))`` int32 over the
-    ``G`` broadcast groups, bit ``j % 32`` of word ``[g, i, j // 32]`` set
-    iff ``i < j`` and ``iou[order[i], order[j]] > iou_thr``.  The bits are
-    gathered into rank order and packed in chunks of groups
-    (``_RANK_CHUNK`` bools at a time)."""
+def nms_rank_mask_plain(over, order, src):
+    """Plain version of the rank gather (``kernels/rect_clip.py:
+    nms_rank_mask``): over-threshold bits ``(S, N, W)`` in the candidates'
+    own order, each group's ranking ``order (G, N)`` and matrix ``src
+    (G,)`` -> ``(G, N, W)`` int32, bit ``j % 32`` of word ``[g, i, j // 32]``
+    set iff ``i < j`` and ``over[src[g]]`` has bit ``(order[g, i],
+    order[g, j])``."""
     n = order.shape[-1]
-    lead = torch.broadcast_shapes(iou.shape[:-2], order.shape[:-1])
-    over = (iou > iou_thr).reshape(-1, n, n)
-    # the matrix of each group
-    src = torch.arange(over.shape[0], device=iou.device).reshape(
-        iou.shape[:-2]).expand(lead).reshape(-1)
-    order = order.expand(lead + (n,)).reshape(-1, n)
-    idx = torch.arange(n, device=iou.device)
-    upper = idx[:, None] < idx[None, :]
-    step = max(1, _RANK_CHUNK // (n * n))
-    masks = []
-    for g0 in range(0, order.shape[0], step):
-        o = order[g0:g0 + step]
-        rows = torch.take_along_dim(over.index_select(0, src[g0:g0 + step]),
-                                    o[:, :, None], dim=1)
-        dominates = torch.take_along_dim(rows, o[:, None, :], dim=2)
-        masks.append(iou_ops.pack_mask(dominates & upper))
-    return torch.cat(masks)
+    bits = iou_ops.unpack_mask(over, n)[src]
+    ranked = torch.take_along_dim(
+        torch.take_along_dim(bits, order[:, :, None], dim=1),
+        order[:, None, :], dim=2)
+    idx = torch.arange(n, device=over.device)
+    return iou_ops.pack_mask(ranked & (idx[:, None] < idx[None, :]))
+
+
+def ranked_nms_scan(over, order, valid_sorted):
+    """The card's greedy NMS in rank order, from over-threshold bits
+    ``(..., N, W)`` in the candidates' own order (``iou > thr`` packed, one
+    matrix per leading index; those dims broadcast against ``order (...,
+    N)``'s): one launch of the rank gather, then one of the scan, for every
+    group; nothing is read back to the host.  Returns keep in rank order,
+    with the broadcast leading dims."""
+    n, w = over.shape[-2:]
+    lead = torch.broadcast_shapes(over.shape[:-2], order.shape[:-1])
+    src = torch.arange(over.shape[:-2].numel(), device=over.device).reshape(
+        over.shape[:-2]).expand(lead).reshape(-1)
+    mask = clip_kernel.nms_rank_op(over.reshape(-1, n, w),
+                                   order.expand(lead + (n,)).reshape(-1, n),
+                                   src)
+    keep = clip_kernel.nms_scan_op(
+        mask, valid_sorted.expand(lead + (n,)).reshape(-1, n))
+    return keep.reshape(lead + (n,))
 
 
 def nms_in_rank_order(iou, order, valid_sorted, iou_thr: float):
@@ -148,16 +153,24 @@ def nms_in_rank_order(iou, order, valid_sorted, iou_thr: float):
     suppresses those ranked below it with ``iou > iou_thr``.  Returns keep
     in rank order, with the broadcast leading dims.
 
-    On CUDA tensors: :func:`ranked_dominance_mask`, then one scan launch
-    over every group; nothing is read back to the host."""
+    On CUDA tensors each matrix's bits are packed once, then
+    :func:`ranked_nms_scan`."""
     if not iou.is_cuda:
         return nms_in_rank_order_plain(iou, order, valid_sorted, iou_thr)
-    n = order.shape[-1]
-    lead = torch.broadcast_shapes(iou.shape[:-2], order.shape[:-1])
-    keep = clip_kernel.nms_scan_op(
-        ranked_dominance_mask(iou, order, iou_thr),
-        valid_sorted.expand(lead + (n,)).reshape(-1, n).contiguous())
-    return keep.reshape(lead + (n,))
+    return ranked_nms_scan(iou_ops.pack_mask(iou > iou_thr), order,
+                           valid_sorted)
+
+
+def _greedy(scores, valid, keep_in_rank_order):
+    """Rank by descending score with equal scores highest index first (the
+    JAX package's reversed stable ``argsort``), take
+    ``keep_in_rank_order(order, valid_sorted)`` and return it in the input
+    order."""
+    masked = torch.where(valid, scores, torch.full_like(scores, _NEG))
+    order = torch.argsort(masked, dim=-1, stable=True).flip(-1)
+    keep = keep_in_rank_order(order,
+                              torch.take_along_dim(valid, order, dim=-1))
+    return torch.empty_like(keep).scatter_(-1, order, keep)
 
 
 def greedy_nms_from_iou(iou, scores, valid, iou_thr: float):
@@ -166,21 +179,34 @@ def greedy_nms_from_iou(iou, scores, valid, iou_thr: float):
     by descending score with equal scores highest index first (the JAX
     package's reversed stable ``argsort``); returns keep ``(..., N)`` bool
     in the input order.  Suppression is the strict ``iou > iou_thr``."""
-    masked = torch.where(valid, scores, torch.full_like(scores, _NEG))
-    order = torch.argsort(masked, dim=-1, stable=True).flip(-1)
-    keep = nms_in_rank_order(iou, order,
-                             torch.take_along_dim(valid, order, dim=-1),
-                             iou_thr)
-    return torch.empty_like(keep).scatter_(-1, order, keep)
+    return _greedy(scores, valid, lambda order, valid_sorted:
+                   nms_in_rank_order(iou, order, valid_sorted, iou_thr))
+
+
+def rotated_nms_bev_plain(boxes_xywhr, scores, valid, iou_thr: float):
+    """Plain version of :func:`rotated_nms_bev`: the pairwise rotated IoU,
+    then :func:`greedy_nms_from_iou`."""
+    iou = iou_ops.rotated_iou_bev(boxes_xywhr, boxes_xywhr)
+    return greedy_nms_from_iou(iou, scores, valid, iou_thr)
 
 
 def rotated_nms_bev(boxes_xywhr, scores, valid, iou_thr: float):
-    """Rotated BEV NMS (``nms_gpu``) of ``(..., N, 5)`` boxes with ``(...,
-    N)`` scores and bool ``valid`` -> keep ``(..., N)``: the pairwise IoU
-    (on CUDA one launch of the clip's pairwise entry), then
-    :func:`greedy_nms_from_iou`."""
-    iou = iou_ops.rotated_iou_bev(boxes_xywhr, boxes_xywhr)
-    return greedy_nms_from_iou(iou, scores, valid, iou_thr)
+    """Rotated BEV NMS (``nms_gpu``) of ``(..., N, 5)`` boxes (leading dims
+    broadcast against those of ``scores`` and bool ``valid (..., N)``) ->
+    keep ``(..., N)``, ranked as :func:`greedy_nms_from_iou` ranks.  On
+    CUDA tensors the IoU is never written: the clip's exact-NMS entry makes
+    each box set's over-threshold bits from its float32 corners and ``w *
+    h`` areas, then :func:`ranked_nms_scan`."""
+    if not boxes_xywhr.is_cuda:
+        return rotated_nms_bev_plain(boxes_xywhr, scores, valid, iou_thr)
+    n = boxes_xywhr.shape[-2]
+    boxes = boxes_xywhr.float().reshape(-1, n, 5)
+    over = clip_kernel.nms_over_op(
+        box_ops.bev_corners(boxes).contiguous(),
+        (boxes[..., 2] * boxes[..., 3]).contiguous(), iou_thr)
+    over = over.reshape(boxes_xywhr.shape[:-2] + over.shape[1:])
+    return _greedy(scores, valid, lambda order, valid_sorted:
+                   ranked_nms_scan(over, order, valid_sorted))
 
 
 def xywhr_to_xyxy(boxes_xywhr):
@@ -416,10 +442,13 @@ def multiclass_nms_3d_exact(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
     path).
 
     The candidates' boxes are the same for every class, so one ``(N, N)``
-    IoU a sample (rotated, or axis-aligned with ``use_rotate_nms=False``)
-    serves every class: each class ranks its valid candidates above
-    ``score_thr`` (equal scores highest index first) and runs the greedy
-    pass over it (:func:`greedy_nms_from_iou`); the ``max_num`` best kept
+    relation a sample (rotated, or axis-aligned with
+    ``use_rotate_nms=False``) serves every class: each class ranks its
+    valid candidates above ``score_thr`` (equal scores highest index first)
+    and runs the greedy pass over it (:func:`rotated_nms_bev`,
+    :func:`normal_nms_bev`; on CUDA tensors the sample's over-threshold
+    bits, one gather into every class's rank order and one scan); the
+    ``max_num`` best kept
     (class, candidate) pairs over all classes (ties lowest flat index
     ``class * N + candidate`` first) are the output.  Arguments and outputs
     as :func:`multiclass_nms_3d`'s, with an optional leading batch dim.
@@ -435,14 +464,10 @@ def multiclass_nms_3d_exact(mlvl_bboxes, mlvl_bboxes_for_nms, mlvl_scores,
     b, n, n_classes = mlvl_scores.shape
     if mlvl_dir_scores is None:
         mlvl_dir_scores = mlvl_scores.new_zeros((b, n))
-    if use_rotate_nms:
-        iou = iou_ops.rotated_iou_bev(mlvl_bboxes_for_nms, mlvl_bboxes_for_nms)
-    else:
-        xyxy = xywhr_to_xyxy(mlvl_bboxes_for_nms)
-        iou = iou_ops.bbox_overlaps_2d(xyxy, xyxy)
     scores_t = mlvl_scores.transpose(1, 2)                       # (B, C, N)
     cls_valid = mlvl_valid[:, None, :] & (scores_t > score_thr)
-    keeps = greedy_nms_from_iou(iou[:, None], scores_t, cls_valid, iou_thr)
+    nms = rotated_nms_bev if use_rotate_nms else normal_nms_bev
+    keeps = nms(mlvl_bboxes_for_nms[:, None], scores_t, cls_valid, iou_thr)
     kept = torch.where(keeps, scores_t, torch.full_like(scores_t, _NEG))
     k_out = min(max_num, n_classes * n)
     top_scores, top_flat = top_k(kept.reshape(b, -1), k_out)

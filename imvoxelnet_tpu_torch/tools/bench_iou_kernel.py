@@ -12,11 +12,18 @@ rectangles (centres within 40 m, sides 0.5-5 m, any yaw; the JAX tool's)
 and, up to ``--plain-max`` (the plain clip over 9 M pairs takes seconds),
 ``ops/iou.py:rect_intersection_area_pairwise_plain`` on the same corners,
 with the largest gap between the two and whether they agree bit for bit.
-``--nms`` times ``ops/nms.py:multiclass_nms_3d_exact`` end to end instead:
-3,000 candidates of 10 classes, ``score_thr`` 0 (every candidate in every
-class), with the kernel launches of one call (B2's pairwise entry once, the
-scan once).  The JAX tool's ``--tile`` and ``--skip-xla`` select among its
-Pallas variants and have no counterpart: B2 has one pairwise entry.
+``--nms`` times ``ops/nms.py:multiclass_nms_3d_exact`` instead, at the
+SUN RGB-D cell's size: 8 samples of 3,000 candidates in a 6.4 m room
+(furniture-sized boxes, sides 0.3-2.5 m), 10 classes, ``score_thr`` 0
+(every candidate in every class), end to end with the kernel launches of
+one call (B2's exact-NMS entry once, the rank gather once, the scan once),
+and each launch alone: B2's exact-NMS entry over the 8 x 3,000^2 ordered
+pairs beside its pairwise entry on the same corners (and both again on
+boxes packed into 0.5 m, where no pair is far enough apart to skip its
+clip), the rank gather of the 80 groups (8 samples x 10 classes) and the
+scan.  The JAX tool's ``--tile``
+and ``--skip-xla`` select among its Pallas variants and have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -65,29 +72,64 @@ def bench_pairwise(n, iters, plain_max, rng):
     return row
 
 
-def bench_nms(iters, rng, n=3000, n_cls=10):
-    base = rects(rng, n)
-    boxes = torch.cat([base[:, :2], torch.zeros_like(base[:, :1]),
-                       base[:, 2:4], torch.ones_like(base[:, :1]),
-                       base[:, 4:5]], dim=1)
-    bev = torch.cat([boxes[:, 0:2], boxes[:, 3:5], boxes[:, 6:7]], dim=1)
-    scores = torch.tensor(rng.uniform(0, 1, (n, n_cls)), dtype=torch.float32,
-                          device='cuda')
-    valid = torch.ones(n, dtype=torch.bool, device='cuda')
+def room_rects(rng, b, n):
+    """``(b, n, 5)`` furniture-sized BEV boxes in a 6.4 m room."""
+    return torch.tensor(np.concatenate([
+        rng.uniform(0, 6.4, (b, n, 2)), rng.uniform(0.3, 2.5, (b, n, 2)),
+        rng.uniform(-np.pi, np.pi, (b, n, 1))], -1), dtype=torch.float32,
+        device='cuda')
+
+
+def bench_nms(iters, rng, b=8, n=3000, n_cls=10, iou_thr=0.25):
+    bev = room_rects(rng, b, n)
+    boxes = torch.cat([bev[..., :2], torch.zeros_like(bev[..., :1]),
+                       bev[..., 2:4], torch.ones_like(bev[..., :1]),
+                       bev[..., 4:5]], dim=-1)
+    scores = torch.tensor(rng.uniform(0, 1, (b, n, n_cls)),
+                          dtype=torch.float32, device='cuda')
+    valid = torch.ones((b, n), dtype=torch.bool, device='cuda')
 
     def run():
         return nms_ops.multiclass_nms_3d_exact(
             boxes, bev, scores, valid, score_thr=0.0, max_num=1000,
-            iou_thr=0.25)
+            iou_thr=iou_thr)
     run()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    return dict(candidates=n, classes=n_cls, ms=microbench.cuda_ms(
-        run, iters), launches=launches, kept=int(out['valid'].sum()),
-        top_score=float(out['scores'][0]))
+    corners = box_ops.bev_corners(bev).contiguous()
+    areas = (bev[..., 2] * bev[..., 3]).contiguous()
+    over = clip_kernel.nms_over_bits(corners, areas, iou_thr)
+    order = torch.argsort(scores.transpose(1, 2), dim=-1, stable=True).flip(
+        -1).reshape(b * n_cls, n).contiguous()
+    src = torch.arange(b, device='cuda').repeat_interleave(n_cls)
+    mask = clip_kernel.nms_rank_mask(over, order, src)
+    valid_sorted = torch.ones((b * n_cls, n), dtype=torch.bool,
+                              device='cuda')
+    dense = corners - bev[..., None, :2] + bev[..., None, :2] / 12.8
+    return dict(
+        samples=b, candidates=n, classes=n_cls, ms=microbench.cuda_ms(
+            run, iters), launches=launches, kept=int(out['valid'].sum()),
+        top_score=float(out['scores'][0, 0]),
+        nms_over_ms=microbench.cuda_ms(
+            lambda: clip_kernel.nms_over_bits(corners, areas, iou_thr),
+            iters),
+        pairwise_ms=microbench.cuda_ms(
+            lambda: clip_kernel.rect_intersection_area_pairwise(corners,
+                                                                corners),
+            iters),
+        dense_nms_over_ms=microbench.cuda_ms(
+            lambda: clip_kernel.nms_over_bits(dense, areas, iou_thr), iters),
+        dense_pairwise_ms=microbench.cuda_ms(
+            lambda: clip_kernel.rect_intersection_area_pairwise(dense,
+                                                                dense),
+            iters),
+        nms_rank_ms=microbench.cuda_ms(
+            lambda: clip_kernel.nms_rank_mask(over, order, src), iters),
+        nms_scan_ms=microbench.cuda_ms(
+            lambda: clip_kernel.nms_scan(mask, valid_sorted), iters))
 
 
 def main(argv=None):
@@ -98,8 +140,9 @@ def main(argv=None):
     parser.add_argument('--plain-max', type=int, default=1000,
                         help='the largest N the plain clip runs at')
     parser.add_argument('--nms', action='store_true',
-                        help='time multiclass_nms_3d_exact end to end '
-                             '(3,000 candidates, score_thr 0) instead')
+                        help='time multiclass_nms_3d_exact and its '
+                             'launches (8 x 3,000 candidates, score_thr 0) '
+                             'instead')
     args = parser.parse_args(argv)
     microbench.require_cuda('bench_iou_kernel')
     rng = np.random.RandomState(0)
@@ -107,9 +150,15 @@ def main(argv=None):
     print(out['card'])
     if args.nms:
         out['nms'] = res = bench_nms(args.iters, rng)
-        print(f'exact NMS {res["candidates"]} candidates x {res["classes"]} '
-              f'classes: {res["ms"]:.3f} ms, {res["kept"]} kept, launches '
-              f'{json.dumps(res["launches"])}')
+        print(f'exact NMS {res["samples"]} x {res["candidates"]} '
+              f'candidates x {res["classes"]} classes: {res["ms"]:.3f} ms, '
+              f'{res["kept"]} kept, launches {json.dumps(res["launches"])}; '
+              f'B2 exact-NMS entry {res["nms_over_ms"]:.4f} ms (pairwise '
+              f'entry {res["pairwise_ms"]:.4f} ms; boxes within 0.5 m '
+              f'{res["dense_nms_over_ms"]:.4f} / '
+              f'{res["dense_pairwise_ms"]:.4f} ms), rank gather '
+              f'{res["nms_rank_ms"]:.4f} ms, scan {res["nms_scan_ms"]:.4f} '
+              f'ms')
     else:
         out['pairwise'] = []
         for n in (int(s) for s in args.sizes.split(',')):

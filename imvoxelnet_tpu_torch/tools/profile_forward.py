@@ -84,7 +84,8 @@ ITERS = 5
 OWN_KERNELS = ('backproject', 'grad_count', 'grad_scan', 'grad_fill',
                'grad_sum', 'conv_wgmma', 'split3', 'rect_clip_kernel',
                'rect_clip_grad_zero_kernel', 'rect_clip_grad_sweep_kernel',
-               'pairwise_area_kernel', 'nms_mask_kernel', 'nms_scan_kernel')
+               'pairwise_area_kernel', 'nms_mask_kernel', 'nms_over_kernel',
+               'nms_rank_kernel', 'nms_scan_kernel')
 SEED = 0
 
 

@@ -556,6 +556,121 @@ def test_nms_kernels_match_plain_at_the_indoor_shapes(cuda, g):
     assert 0 < int(keep.sum()) < int(valid.sum())
 
 
+def _room_boxes(rng, s, n):
+    """``(s, n, 5)`` BEV boxes of furniture size in a 6.4 m room, where the
+    SUN RGB-D decode's candidates lie: near pairs and far ones."""
+    return torch.tensor(np.concatenate([
+        rng.uniform(0, 6.4, (s, n, 2)), rng.uniform(0.3, 2.5, (s, n, 2)),
+        rng.uniform(-np.pi, np.pi, (s, n, 1))], -1).astype(np.float32))
+
+
+def _edge_corners(rng, s, n):
+    """``(s, n, 4, 2)`` corners that try the exact-NMS entry's skip of far
+    pairs: squares just beyond and just within the skip's reach of box 0
+    (corner to corner and edge to edge), parallel slats whose circles
+    overlap, touching and just within and beyond the margin along their
+    normals, boxes spread over 200 m and at
+    1e5 m, slivers, zero width, zero size, reversed winding, a crossed
+    quad, NaN and inf; the rest of the rows random room boxes."""
+    boxes = _room_boxes(rng, s, n)
+    r2 = float(np.sqrt(2.0))
+    special = [[0, 0, 2, 2, 0]]
+    for d in (2.0, 2.0 + 1e-4, 2 * r2, 2 * r2 + 4e-3, 2 * r2 + 6e-3,
+              2 * r2 + 8e-3, 2 * r2 + 0.05, 3.5):
+        special += [[d, 0, 2, 2, 0], [d, 0, 2, 2, np.pi / 4]]
+    special += [[10, 10, 4, 0.2, 0]]          # slats: circles overlap
+    for d in (0.0, 0.01, 0.04):
+        special += [[10, 10.2 + d, 4, 0.2, 0], [10.2 + d, 10, 4, 0.2, 0]]
+    special += [[100, -100, 3, 1, 0.5], [1e5, 1e5, 2, 2, 0.1],
+                [1e5 + 1, 1e5, 2, 2, 0.2], [1, 1, 2, 1e-6, 0.3],
+                [1, 1, 0, 2, 0], [1, 1, 0, 0, 0], [50, 50, 1e-6, 1e-6, 0]]
+    m = len(special)
+    boxes[:, :m] = torch.tensor(special, dtype=torch.float32)
+    corners = box_ops.bev_corners(boxes)
+    corners[:, m] = corners[:, m].flip(-2)                  # reversed winding
+    corners[:, m + 1] = corners[:, 3][:, [0, 2, 1, 3]]      # crossed
+    corners[:, m + 2, 1, 0] = float('nan')
+    corners[:, m + 3, 2, 1] = float('inf')
+    corners[:, m + 4] = corners[:, 0] * 1e-3
+    return corners
+
+
+@pytest.mark.parametrize('case,s,n', [('room', 1, 3000), ('room', 3, 257),
+                                      ('edge', 2, 96)])
+def test_nms_over_bits_equal_the_plain_version(cuda, case, s, n):
+    """B2's exact-NMS entry bit for bit against its plain version (the
+    packed ``iou > thr`` of the plain clip): at the exact NMS's 3,000
+    candidates, at a ragged width, and on the corners that try its skip of
+    far pairs; at a threshold equal to one pair's IoU, at 0 and below 0
+    (where every pair with an IoU is over).  The room boxes' bits also
+    equal those of the pairwise entry's ``rotated_iou_bev``."""
+    rng = np.random.RandomState(11)
+    if case == 'room':
+        boxes = _room_boxes(rng, s, n).to(cuda)
+        corners = box_ops.bev_corners(boxes).contiguous()
+        areas = (boxes[..., 2] * boxes[..., 3]).contiguous()
+    else:
+        corners = _edge_corners(rng, s, n).to(cuda).contiguous()
+        side = corners[..., 1, :] - corners[..., 0, :]
+        other = corners[..., 2, :] - corners[..., 1, :]
+        areas = (side.norm(dim=-1) * other.norm(dim=-1)).contiguous()
+    iou = iou_ops.iou_from_overlaps(
+        iou_ops.rect_intersection_area_pairwise_plain(corners, corners),
+        areas, areas)
+    at = float(iou[(iou > 0.1) & (iou < 0.5)][0])
+    for thr in (at, 0.0, -0.25):
+        over = clip_kernel.nms_over_bits(corners, areas, thr)
+        assert over.shape == (s, n, (n + 31) // 32)
+        assert torch.equal(over, iou_ops.pack_mask(iou > thr)), thr
+    assert bool((iou == at).any())
+    assert 0 < float((iou > 0).float().mean()) < 0.9
+    if case == 'room':
+        card = iou_ops.rotated_iou_bev(boxes, boxes)
+        assert torch.equal(iou_ops.pack_mask(card > at),
+                           clip_kernel.nms_over_bits(corners, areas, at))
+
+
+@pytest.mark.parametrize('g,s,n', [(80, 8, 3000), (6, 2, 33), (5, 5, 40),
+                                   (2, 1, 11000)])
+def test_nms_rank_mask_equals_the_plain_version(cuda, g, s, n):
+    """The rank gather bit for bit against its plain version, on random
+    bits (beyond N too) and rankings, groups sharing matrices: the exact
+    NMS's 80 groups of 3,000, ragged widths, and 11,000 candidates, whose
+    88 KB of shared memory take the opt-in above 48 KB."""
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    w = (n + 31) // 32
+    over = torch.randint(-2 ** 31, 2 ** 31 - 1, (s, n, w), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    order = torch.argsort(torch.rand((g, n), generator=gen, device=cuda),
+                          dim=-1)
+    src = torch.randint(0, s, (g,), generator=gen, device=cuda)
+    mask = clip_kernel.nms_rank_mask(over, order, src)
+    assert mask.shape == (g, n, w)
+    assert torch.equal(mask, nms_ops.nms_rank_mask_plain(over, order, src))
+    assert int((mask != 0).sum()) > 0
+
+
+def test_rank_gather_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    args = [torch.zeros((2, 5, 1), dtype=torch.int32, device=cuda),
+            torch.arange(5, device=cuda)[None].expand(3, 5).contiguous(),
+            torch.zeros(3, dtype=torch.int64, device=cuda)]
+    clip_kernel.nms_rank_mask(*args)              # well-formed: runs
+    before = kernels.launch_counts()
+    for i, arg in enumerate(args):
+        def spoiled(t):
+            return args[:i] + [t] + args[i + 1:]
+        with pytest.raises(ValueError, match='CUDA tensor'):
+            clip_kernel.nms_rank_mask(*spoiled(arg.cpu()))
+        with pytest.raises(TypeError):
+            clip_kernel.nms_rank_mask(*spoiled(arg.to(torch.float32)))
+        with pytest.raises(ValueError):
+            clip_kernel.nms_rank_mask(*spoiled(arg[..., :-1]))
+        with pytest.raises(ValueError, match='contiguous'):
+            clip_kernel.nms_rank_mask(*spoiled(
+                arg.repeat_interleave(2, dim=-1)[..., ::2]))
+    assert kernels.launch_counts() == before
+
+
 def test_indoor_decode_never_waits_for_the_device(cuda, monkeypatch):
     """The SUN RGB-D decode + NMS under ``set_sync_debug_mode('error')``:
     one mask and one scan launch for all samples and classes, and the plain
@@ -709,10 +824,16 @@ def test_wrappers_count_launches(cuda):
         c[None], torch.zeros((1, 4), device=cuda), 0.5)
     assert kernels.launch_counts() == {'backproject': 0,
                                        'backproject_grad': 0, 'rect_clip': 3,
-                                       'rect_clip_grad': 0, 'nms_scan': 0,
+                                       'rect_clip_grad': 0, 'nms_over': 0,
+                                       'nms_rank': 0, 'nms_scan': 0,
                                        'conv3x3x3': 0}
     clip_kernel.nms_scan(mask, torch.ones((1, 4), dtype=torch.bool,
                                           device=cuda))
+    over = clip_kernel.nms_over_bits(c[None], torch.zeros((1, 4),
+                                                          device=cuda), 0.5)
+    clip_kernel.nms_rank_mask(
+        over, torch.arange(4, device=cuda)[None].expand(3, 4).contiguous(),
+        torch.zeros(3, dtype=torch.int64, device=cuda))
     points, proj, hw = _bp_geometry(cuda, 1, 1, 6, 8)
     bp_kernel.backproject_batch_grad(
         torch.zeros((points.shape[1], 1, 4), device=cuda), points, proj, hw,
@@ -721,7 +842,8 @@ def test_wrappers_count_launches(cuda):
                                                               device=cuda))
     assert kernels.launch_counts() == {'backproject': 0,
                                        'backproject_grad': 1, 'rect_clip': 3,
-                                       'rect_clip_grad': 1, 'nms_scan': 1,
+                                       'rect_clip_grad': 1, 'nms_over': 1,
+                                       'nms_rank': 1, 'nms_scan': 1,
                                        'conv3x3x3': 0}
 
 
@@ -761,10 +883,13 @@ def _clip_calls(dev):
         'scan': (clip_kernel.nms_scan,
                  [torch.zeros((2, 5, 1), dtype=torch.int32, device=dev),
                   torch.ones((2, 5), dtype=torch.bool, device=dev)]),
+        'over': (lambda corners, areas: clip_kernel.nms_over_bits(
+            corners, areas, 0.5), [c, torch.zeros((2, 5), device=dev)]),
     }
 
 
-@pytest.mark.parametrize('name', ['paired', 'pairwise', 'mask', 'scan'])
+@pytest.mark.parametrize('name', ['paired', 'pairwise', 'mask', 'scan',
+                                  'over'])
 def test_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda, name):
     fn, args = _clip_calls(cuda)[name]
     fn(*args)                                     # well-formed: runs
@@ -1283,7 +1408,8 @@ def test_train_tool_runs_two_steps_on_the_card(cuda, kitti_train_split,
     assert summary['steps_per_epoch'] == 2 and summary['step'] == 2
     assert counts == dict(backproject=2 + 1, backproject_grad=2,
                           conv3x3x3=2 * 4 + 2, rect_clip=1,
-                          rect_clip_grad=0, nms_scan=1)
+                          rect_clip_grad=0, nms_over=0, nms_rank=0,
+                          nms_scan=1)
     assert all(np.isfinite(line['loss']) for line in summary['train'])
     assert len(summary['val']) == 1 and os.path.exists(summary['latest'])
 
@@ -1333,16 +1459,15 @@ def _tied_candidates(dev, b, n, n_classes, seed=0):
 
 
 @pytest.mark.parametrize('use_rotate_nms', [True, False])
-@pytest.mark.parametrize('b,n,chunk', [(2, 300, None), (3, 97, 97 * 97)])
+@pytest.mark.parametrize('b,n', [(2, 300), (3, 97)])
 def test_exact_nms_never_waits_and_equals_the_plain_path(
-        cuda, b, n, chunk, use_rotate_nms, monkeypatch):
-    """``multiclass_nms_3d_exact`` on the card: one pairwise clip launch
-    (rotated) for all samples, the rank gather + packing (in chunks of one
-    group when ``chunk`` says so) and one scan for all samples and classes,
-    under ``set_sync_debug_mode('error')``, equal to the plain path (the
-    fixpoint on the plain IoU) with exact score ties."""
-    if chunk:
-        monkeypatch.setattr(nms_ops, '_RANK_CHUNK', chunk)
+        cuda, b, n, use_rotate_nms, monkeypatch):
+    """``multiclass_nms_3d_exact`` on the card: the over-threshold bits of
+    all samples (one launch of the clip's exact-NMS entry when rotated, the
+    packed plain IoU otherwise), one rank gather and one scan for all
+    samples and classes, under ``set_sync_debug_mode('error')``, equal to
+    the plain path (the fixpoint on the plain IoU) with exact score
+    ties."""
     boxes, bev, scores = _tied_candidates(cuda, b, n, 4)
     valid = torch.ones((b, n), dtype=torch.bool, device=cuda)
     valid[:, ::7] = False
@@ -1356,10 +1481,13 @@ def test_exact_nms_never_waits_and_equals_the_plain_path(
     finally:
         torch.cuda.set_sync_debug_mode('default')
     counts = kernels.launch_counts()
-    assert counts['nms_scan'] == 1
-    assert counts['rect_clip'] == int(use_rotate_nms)
+    assert counts['nms_over'] == int(use_rotate_nms)
+    assert counts['nms_rank'] == counts['nms_scan'] == 1
+    assert counts['rect_clip'] == 0
     monkeypatch.setattr(nms_ops, 'nms_in_rank_order',
                         nms_ops.nms_in_rank_order_plain)
+    monkeypatch.setattr(nms_ops, 'rotated_nms_bev',
+                        nms_ops.rotated_nms_bev_plain)
     monkeypatch.setattr(iou_ops, 'rect_intersection_area_pairwise',
                         iou_ops.rect_intersection_area_pairwise_plain)
     ref = nms_ops.multiclass_nms_3d_exact(boxes, bev, scores, valid, **kw)
@@ -1475,6 +1603,6 @@ def test_serving_export_round_trip_on_the_card(cuda, tmp_path):
         torch.cuda.synchronize()
         assert counts == kernels.launch_counts() == dict(
             backproject=1, backproject_grad=0, conv3x3x3=0, rect_clip=1,
-            rect_clip_grad=0, nms_scan=1)
+            rect_clip_grad=0, nms_over=0, nms_rank=0, nms_scan=1)
         for key, val in want.items():
             assert torch.equal(got[key], val), key

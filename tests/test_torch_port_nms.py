@@ -334,11 +334,18 @@ def test_rotated_nms_presorted_matches_jax_rotated_nms_bev():
                                            torch.zeros(2, 3), 0.5),
     lambda: clip_kernel.nms_scan(torch.zeros(2, 3, 1, dtype=torch.int32),
                                  torch.ones(2, 3, dtype=torch.bool)),
-], ids=['pairwise', 'nms_mask', 'nms_scan'])
+    lambda: clip_kernel.nms_over_bits(torch.zeros(2, 3, 4, 2),
+                                      torch.zeros(2, 3), 0.5),
+    lambda: clip_kernel.nms_rank_mask(
+        torch.zeros(2, 3, 1, dtype=torch.int32),
+        torch.zeros(4, 3, dtype=torch.int64),
+        torch.zeros(4, dtype=torch.int64)),
+], ids=['pairwise', 'nms_mask', 'nms_scan', 'nms_over', 'nms_rank'])
 def test_clip_wrappers_refuse_cpu_tensors(call):
     before = kernels.launch_counts()
     assert set(before) == {'backproject', 'backproject_grad', 'rect_clip',
-                           'rect_clip_grad', 'nms_scan', 'conv3x3x3'}
+                           'rect_clip_grad', 'nms_over', 'nms_rank',
+                           'nms_scan', 'conv3x3x3'}
     with pytest.raises(ValueError, match='CUDA tensor'):
         call()
     assert kernels.launch_counts() == before

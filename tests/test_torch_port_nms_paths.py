@@ -3,8 +3,9 @@ the CPU: ``rotated_nms_bev``, ``normal_nms_bev`` and
 ``multiclass_nms_3d_exact`` (rotated and axis-aligned) on boxes with
 deliberate score ties, the heads' decode with ``pre_nms_k=0`` and
 ``use_rotate_nms=False``, and ``giou_3d_loss`` with its gradients.  Also the
-rank gather + packing that feeds the scan kernel on the card, emulated here
-with the scan's plain version.
+card's route of the exact NMS (over-threshold bits, their gather into each
+group's rank order, the scan), emulated here with the kernels' plain
+versions.
 """
 
 import dataclasses
@@ -22,7 +23,10 @@ from imvoxelnet_tpu.ops import losses as jax_losses
 from imvoxelnet_tpu.ops import nms as jax_nms
 from imvoxelnet_tpu_torch.configs import presets
 from imvoxelnet_tpu_torch.models.heads import anchor3d_head as a3d
+from imvoxelnet_tpu_torch.kernels import rect_clip as clip_kernel
 from imvoxelnet_tpu_torch.models.heads import imvoxel_heads as ivh
+from imvoxelnet_tpu_torch.ops import boxes as box_ops
+from imvoxelnet_tpu_torch.ops import iou as iou_ops
 from imvoxelnet_tpu_torch.ops import losses as loss_ops
 from imvoxelnet_tpu_torch.ops import nms as nms_ops
 
@@ -118,26 +122,89 @@ def test_multiclass_nms_exact_matches_jax_with_ties(use_rotate_nms):
             assert torch.equal(both[key][i], val), key
 
 
-def test_rank_order_mask_and_scan_equal_the_fixpoint(monkeypatch):
-    """The card's route of ``nms_in_rank_order``: each group's IoU bits
-    gathered into its rank order and packed, in chunks of groups (forced
-    small here), then the scan (its plain version) over all groups; one
-    IoU matrix per sample serves all its classes."""
-    rng = np.random.RandomState(3)
-    iou = rng.uniform(size=(2, 1, 40, 40)).astype(np.float32)
-    iou = _t((iou + iou.transpose(0, 1, 3, 2)) / 2)
-    scores = _t(rng.randint(0, 6, (2, 3, 40)).astype(np.float32))
-    valid = _t(rng.uniform(size=(2, 3, 40)) > 0.2)
+def _ranking(rng, shape, n_levels=6):
+    """Scores on a grid (many exact ties), validity, and the rank order and
+    validity in it that :func:`nms_ops._greedy` makes of them."""
+    scores = _t(rng.randint(0, n_levels, shape).astype(np.float32))
+    valid = _t(rng.uniform(size=shape) > 0.2)
     order = torch.argsort(torch.where(valid, scores, -1e10), dim=-1,
                           stable=True).flip(-1)
-    valid_sorted = torch.take_along_dim(valid, order, dim=-1)
-    monkeypatch.setattr(nms_ops, '_RANK_CHUNK', 40 * 40 * 2)
-    mask = nms_ops.ranked_dominance_mask(iou, order, 0.6)
-    assert mask.shape == (6, 40, 2)
-    keep = nms_ops.nms_scan_plain(mask, valid_sorted.reshape(6, 40))
+    return valid, order, torch.take_along_dim(valid, order, dim=-1)
+
+
+def _packed_gather(iou, order, iou_thr):
+    """The rank-order dominance mask as the card's route built it before the
+    gather kernel: every group's thresholded IoU gathered into its rank
+    order, above the diagonal, packed."""
+    n = order.shape[-1]
+    over = (iou > iou_thr).expand(order.shape[:-1] + (n, n))
+    ranked = torch.take_along_dim(
+        torch.take_along_dim(over, order[..., :, None], dim=-2),
+        order[..., None, :], dim=-1)
+    idx = torch.arange(n)
+    return iou_ops.pack_mask(ranked & (idx[:, None] < idx[None, :])).reshape(
+        -1, n, (n + 31) // 32)
+
+
+@pytest.mark.parametrize('shared', [True, False],
+                         ids=['matrix_per_sample', 'matrix_per_group'])
+@pytest.mark.parametrize('n', [33, 40])
+def test_rank_order_mask_and_scan_equal_the_fixpoint(monkeypatch, n, shared):
+    """The card's route of ``nms_in_rank_order``: each IoU matrix's bits
+    thresholded and packed once, gathered into each group's rank order and
+    scanned over all groups (the gather and the scan by their plain
+    versions); one matrix per sample serving its 3 classes, or one per
+    group.  Exact score ties, and IoUs equal to the threshold."""
+    rng = np.random.RandomState(3)
+    iou = rng.uniform(size=(2, 1 if shared else 3, n, n)).astype(np.float32)
+    iou = (iou + iou.transpose(0, 1, 3, 2)) / 2
+    iou[rng.uniform(size=iou.shape) < 0.1] = 0.6
+    iou = _t(iou)
+    valid, order, valid_sorted = _ranking(rng, (2, 3, n))
+    monkeypatch.setattr(clip_kernel, 'nms_rank_op',
+                        nms_ops.nms_rank_mask_plain)
+    monkeypatch.setattr(clip_kernel, 'nms_scan_op', nms_ops.nms_scan_plain)
+    keep = nms_ops.ranked_nms_scan(iou_ops.pack_mask(iou > 0.6), order,
+                                   valid_sorted)
     want = nms_ops.nms_in_rank_order_plain(iou, order, valid_sorted, 0.6)
-    assert torch.equal(keep.reshape(2, 3, 40), want)
+    assert torch.equal(keep, want)
     assert 0 < int(want.sum()) < int(valid.sum())
+    assert bool((iou == 0.6).any())
+
+
+@pytest.mark.parametrize('shared', [True, False],
+                         ids=['matrix_per_sample', 'matrix_per_group'])
+@pytest.mark.parametrize('n', [33, 40])
+def test_exact_nms_entries_plain_equal_the_packed_gather(n, shared):
+    """The plain versions of the two exact-NMS kernels: the over-threshold
+    bits of rotated boxes equal the packed ``rotated_iou_bev > thr`` (the
+    threshold is one of the IoUs, and boxes 0 and 1 are identical), and
+    their gather into each group's rank order equals the packed gather of
+    the thresholded IoU.  Through the scan they give the fixpoint's keep."""
+    rng = np.random.RandomState(n)
+    groups = 1 if shared else 3
+    bev, _, _, _ = _candidates(n, n)
+    boxes = _t(np.stack([bev] + [_candidates(n + k, n)[0]
+                                  for k in (1, 2)]))[:, None].expand(
+        3, groups, n, 5).clone()
+    if not shared:
+        boxes[:, 1:, :, :2] += _t(rng.uniform(-0.3, 0.3, (3, 2, n, 2))
+                                  .astype(np.float32))
+    iou = iou_ops.rotated_iou_bev(boxes, boxes)
+    thr = float(iou[0, 0][(iou[0, 0] > 0.1) & (iou[0, 0] < 0.5)][0])
+    corners = box_ops.bev_corners(boxes).reshape(-1, n, 4, 2)
+    areas = (boxes[..., 2] * boxes[..., 3]).reshape(-1, n)
+    over = iou_ops.nms_over_bits_plain(corners, areas, thr)
+    assert torch.equal(over, iou_ops.pack_mask(iou > thr).reshape(over.shape))
+    valid, order, valid_sorted = _ranking(rng, (3, 3, n))
+    src = torch.arange(3 * groups).reshape(3, groups).expand(3, 3).reshape(-1)
+    mask = nms_ops.nms_rank_mask_plain(over, order.reshape(-1, n), src)
+    assert torch.equal(mask, _packed_gather(iou, order, thr))
+    keep = nms_ops.nms_scan_plain(mask, valid_sorted.reshape(-1, n))
+    want = nms_ops.nms_in_rank_order_plain(iou, order, valid_sorted, thr)
+    assert torch.equal(keep.reshape(3, 3, n), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+    assert bool((iou == thr).any())
 
 
 def test_indoor_decode_untruncated_matches_jax():

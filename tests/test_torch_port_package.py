@@ -357,9 +357,10 @@ def test_load_exported_in_a_fresh_interpreter_registers_the_kernels(
         program = export.load_exported({path!r}).module()
         assert torch.equal(program(torch.ones(3))['y'], torch.full((3,), 2.))
         names = [op for op in ('backproject', 'conv3x3x3',
-                               'rect_clip_pairwise', 'nms_mask', 'nms_scan')
+                               'rect_clip_pairwise', 'nms_mask', 'nms_over',
+                               'nms_rank', 'nms_scan')
                  if hasattr(torch.ops.imvx, op)]
-        assert len(names) == 5, names
+        assert len(names) == 7, names
         try:
             torch.ops.imvx.nms_scan(torch.zeros(1, 3, 1, dtype=torch.int32),
                                     torch.ones(1, 3, dtype=torch.bool))

@@ -25,7 +25,6 @@ import torch
 
 from portbench import check, faults, harness, spec, weights
 from portbench import traffic as traffic_lib
-from portbench.reference import detector as rd
 
 
 def control_numbers(cell, seed, device):
@@ -33,26 +32,28 @@ def control_numbers(cell, seed, device):
     sample as a run of the cell."""
     cfg_file, mix = cell.config, cell.traffic
     serve = mix['mode'] == 'serve'
-    ref_cfg = rd.config_from_dict(cfg_file['model'])
-    state = weights.make_state_dict(rd.ImVoxelNet, ref_cfg, seed, device,
-                                    serve)
+    ref = spec.reference(cfg_file)
+    ref_cfg = ref.config_from_dict(cfg_file['model'])
+    state = weights.make_state_dict(ref, ref_cfg, seed, device, serve)
     pool = traffic_lib.make_pool(cfg_file, mix, seed, device)
     if serve:
         keep = sorted(harness.sample(seed, mix['trace_iters'],
                                      mix['check_iters']))
         batches = [pool[i % len(pool)] for i in keep]
-        control = check.reference_model(ref_cfg, state, device, 'bfloat16')
-        items = check.control_serve_items(control, ref_cfg, batches)
+        control = check.reference_model(ref, ref_cfg, state, device,
+                                        'bfloat16')
+        items = check.control_serve_items(ref, ref_cfg, control, batches)
         del control
         return check.serve_numbers(
-            check.reference_model(ref_cfg, state, device),
-            check.reference_model(ref_cfg, state, device, 'bfloat16'),
-            ref_cfg, items)
+            ref, ref_cfg, check.reference_model(ref, ref_cfg, state, device),
+            check.reference_model(ref, ref_cfg, state, device, 'bfloat16'),
+            items)
     batches = [pool[i % len(pool)] for i in range(mix['check_steps'])]
-    got = check.reference_steps(ref_cfg, cfg_file, state, batches, device,
-                                'bfloat16', rounding=check.int8_round)
-    want = check.reference_steps(ref_cfg, cfg_file, state, batches, device)
-    want16 = check.reference_steps(ref_cfg, cfg_file, state, batches,
+    got = check.reference_steps(ref, ref_cfg, cfg_file, state, batches,
+                                device, 'bfloat16', rounding=check.int8_round)
+    want = check.reference_steps(ref, ref_cfg, cfg_file, state, batches,
+                                 device)
+    want16 = check.reference_steps(ref, ref_cfg, cfg_file, state, batches,
                                    device, 'bfloat16')
     detail = {}
     return dict(check.train_numbers(got, want, want16, detail),

@@ -40,14 +40,12 @@ int8's flushes the small gradients).
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
 
 import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
-
-from .reference import detector as rd
-from .reference import train as rt
 
 BOX_TOL, SCORE_TOL = 1e-3, 1e-5
 LEAF_FLOOR = 1e-3
@@ -122,11 +120,11 @@ class precise:
          torch.backends.cuda.matmul.allow_tf32) = self.saved
 
 
-def reference_model(cfg, state_dict, device, dtype='float32'):
-    """The reference of ``cfg`` at ``dtype`` holding a copy of
-    ``state_dict``."""
-    import dataclasses
-    model = rd.ImVoxelNet(dataclasses.replace(cfg, compute_dtype=dtype))
+def reference_model(reference, cfg, state_dict, device, dtype='float32'):
+    """The model of ``cfg`` of the ``reference`` module
+    (``spec.reference``) at ``dtype`` holding a copy of ``state_dict``."""
+    model = reference.ImVoxelNet(dataclasses.replace(cfg,
+                                                     compute_dtype=dtype))
     model.load_state_dict(state_dict)
     return model.to(device)
 
@@ -181,18 +179,20 @@ def _decode_mismatch(got: dict, want: dict) -> int:
     return int(bad.sum())
 
 
-def serve_numbers(reference, reference16, cfg, kept,
+def serve_numbers(reference, cfg, model, model16, kept,
                   block: int = 2) -> dict:
     """The serving numbers over ``kept``: dicts of ``batch``,
     ``head_outs``, ``valid`` (the program's, on the device) and ``dets``
-    (what reached the host).  ``reference16`` is the reference at the
-    program's precision, bfloat16 convs: ``head_gap_ratio`` holds the
-    program's gap against the one that precision gives by itself, output
-    by output.  The references run ``block`` rows at a time."""
+    (what reached the host).  ``model`` is the model of ``cfg`` of the
+    ``reference`` module, whose decode judges the program's;
+    ``model16`` is the same at the program's precision, bfloat16 convs:
+    ``head_gap_ratio`` holds the program's gap against the one that
+    precision gives by itself, output by output.  The models run
+    ``block`` rows at a time."""
     err, err16, ref_sq = None, None, None
     valid_mismatch = decode_mismatch = 0
-    reference.eval()
-    reference16.eval()
+    model.eval()
+    model16.eval()
     with precise(), torch.no_grad():
         for item in kept:
             batch = item['batch']
@@ -200,8 +200,8 @@ def serve_numbers(reference, reference16, cfg, kept,
             for r0 in range(0, b, block):
                 rows = slice(r0, min(b, r0 + block))
                 sub = {k: v[rows] for k, v in batch.items()}
-                r_outs, r_valid = reference(sub)
-                h_outs, _ = reference16(sub)
+                r_outs, r_valid = model(sub)
+                h_outs, _ = model16(sub)
                 p_kinds = _rows(item['head_outs'], rows)
                 r_kinds, h_kinds = _leaves(r_outs), _leaves(h_outs)
                 if err is None:
@@ -216,8 +216,9 @@ def serve_numbers(reference, reference16, cfg, kept,
                         ref_sq[i] += float((r ** 2).sum())
                 valid_mismatch += int(
                     (item['valid'][rows] != r_valid).sum())
-            want = rd.imvoxelnet_predict(cfg, item['head_outs'],
-                                         item['valid'], batch['origins'])
+            want = reference.imvoxelnet_predict(cfg, item['head_outs'],
+                                                item['valid'],
+                                                batch['origins'])
             decode_mismatch += _decode_mismatch(item['dets'], want)
     gaps = [(e / max(r, 1e-30)) ** 0.5 for e, r in zip(err, ref_sq)]
     gaps16 = [(e / max(r, 1e-30)) ** 0.5 for e, r in zip(err16, ref_sq)]
@@ -228,9 +229,10 @@ def serve_numbers(reference, reference16, cfg, kept,
                 decode_mismatch=decode_mismatch)
 
 
-def control_serve_items(control, cfg, batches, block: int = 2):
+def control_serve_items(reference, cfg, control, batches, block: int = 2):
     """``kept`` items of the control in the program's place: its forward
-    with float8 convolution operands and the reference's decode of its
+    (``control``, a model of ``cfg`` of the ``reference`` module) with
+    float8 convolution operands and the reference's decode of its
     outputs."""
     kept = []
     control.eval()
@@ -241,16 +243,17 @@ def control_serve_items(control, cfg, batches, block: int = 2):
             for r0 in range(0, b, block):
                 rows = slice(r0, min(b, r0 + block))
                 o, v = control({k: t[rows] for k, t in batch.items()})
+                if not outs:
+                    nested = [isinstance(k, (list, tuple)) for k in o]
                 outs.append(_leaves(o))
                 valids.append(v)
             head_outs = [[torch.cat([o[i][j] for o in outs])
                           for j in range(len(outs[0][i]))]
                          for i in range(len(outs[0]))]
-            head_outs = [k if cfg.head_kind == 'indoor' else k[0]
-                         for k in head_outs]
+            head_outs = [k if n else k[0] for k, n in zip(head_outs, nested)]
             valid = torch.cat(valids)
-            dets = rd.imvoxelnet_predict(cfg, head_outs, valid,
-                                         batch['origins'])
+            dets = reference.imvoxelnet_predict(cfg, head_outs, valid,
+                                                batch['origins'])
             kept.append(dict(batch=batch, head_outs=head_outs, valid=valid,
                              dets={k: v.cpu() for k, v in dets.items()}))
     return kept
@@ -277,21 +280,22 @@ def moving(state_dict: dict) -> dict:
             if v.is_floating_point()}
 
 
-def reference_steps(cfg, config, state_dict, batches, device,
+def reference_steps(reference, cfg, config, state_dict, batches, device,
                     dtype: str = 'float32', rounding=None) -> dict:
-    """The reference's first steps on ``batches`` at ``dtype`` convs
+    """The first steps on ``batches`` of the model of ``cfg`` of the
+    ``reference`` module, with its optimizer and step, at ``dtype`` convs
     (``rounding``: the control, every convolution's operands rounded both
     ways, :class:`LowPrecisionConvs`): ``losses`` (a list
     of ``{term: value}``), ``grads`` (first-step gradient norms by name)
     and ``changes`` (norms of the change of every parameter and statistic
     after the steps)."""
-    model = reference_model(cfg, state_dict, device, dtype)
+    model = reference_model(reference, cfg, state_dict, device, dtype)
     t = config['train']
-    optimizer, scheduler = rt.make_optimizer(
+    optimizer, scheduler = reference.make_optimizer(
         model, t['lr'], t['weight_decay'], t['backbone_lr_mult'],
         t['grad_clip_norm'], steps_per_epoch=t['steps_per_epoch'],
         lr_steps=tuple(t['lr_steps']))
-    step = rt.make_train_step(model, optimizer, scheduler)
+    step = reference.make_train_step(model, optimizer, scheduler)
     names = {p: n for n, p in model.named_parameters()}
     losses, grads = [], None
     outputs, remove = first_forward(model)

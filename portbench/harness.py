@@ -19,7 +19,9 @@ from forward hooks (``trace.py`` bills the device time to them).
 
 After the window closes and the peak memory is read, the reference checks
 a sample of what the window produced (``check.py``), against the limits of
-``limits/<workload>.json``.
+``limits/<workload>.json``.  The reference is the configuration's
+(``spec.reference``): its model gives the weights' names and scheme, the
+FLOP and B3 counts and the readings the check compares.
 """
 
 from __future__ import annotations
@@ -36,9 +38,8 @@ import time
 import numpy as np
 import torch
 
-from . import check, flops, rooflines, trace, weights
+from . import check, flops, rooflines, spec, trace, weights
 from . import traffic as traffic_lib
-from .reference import detector as rd
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'imvoxelnet_tpu')
 
@@ -212,13 +213,13 @@ def run(cell, seed: int, seconds: float, traced: bool, device='cuda',
     dev = Device(device)
     cfg_file, mix = cell.config, cell.traffic
     serve = mix['mode'] == 'serve'
-    ref_cfg = rd.config_from_dict(cfg_file['model'])
+    ref = spec.reference(cfg_file)
+    ref_cfg = ref.config_from_dict(cfg_file['model'])
     marks = [('start', t_start), ('imports', time.perf_counter())]
     program.build_kernels(device)
     dev.sync()
     marks.append(('kernels', time.perf_counter()))
-    state = weights.make_state_dict(rd.ImVoxelNet, ref_cfg, seed, device,
-                                    serve)
+    state = weights.make_state_dict(ref, ref_cfg, seed, device, serve)
     pool = traffic_lib.make_pool(cfg_file, mix, seed, device)
     model = program.build_model(cfg_file, state, device)
     dev.sync()
@@ -313,11 +314,12 @@ def run(cell, seed: int, seconds: float, traced: bool, device='cuda',
             shutil.rmtree(trace_dir, ignore_errors=True)
         shift = 0 if serve else mix['check_steps']
         batches = [pool[(i + shift) % n_pool] for i in range(window_iters)]
-        record['flops_per_iter'] = flops.counted(ref_cfg, pool[0], not serve)
+        record['flops_per_iter'] = flops.counted(ref, ref_cfg, pool[0],
+                                                 not serve)
         record['b1_bytes_per_iter'] = float(np.mean(
             [rooflines.b1_bytes(ref_cfg, bt, not serve) for bt in batches]))
-        record['b3_flops_per_iter'] = rooflines.b3_flops(ref_cfg, pool[0],
-                                                         not serve)
+        record['b3_flops_per_iter'] = rooflines.b3_flops(ref, ref_cfg,
+                                                         pool[0], not serve)
 
     # the check, after the window and the peak memory
     if serve:
@@ -328,17 +330,17 @@ def run(cell, seed: int, seconds: float, traced: bool, device='cuda',
         del out, model, launch, call
         dev.empty_cache()
         numbers = check.serve_numbers(
-            check.reference_model(ref_cfg, state, device),
-            check.reference_model(ref_cfg, state, device, 'bfloat16'),
-            ref_cfg, kept)
+            ref, ref_cfg, check.reference_model(ref, ref_cfg, state, device),
+            check.reference_model(ref, ref_cfg, state, device, 'bfloat16'),
+            kept)
     else:
         batches = [pool[i % n_pool] for i in range(mix['check_steps'])]
         del out, model, launch, step, optimizer
         dev.empty_cache()
-        want = check.reference_steps(ref_cfg, cfg_file, state, batches,
+        want = check.reference_steps(ref, ref_cfg, cfg_file, state, batches,
                                      device)
-        want16 = check.reference_steps(ref_cfg, cfg_file, state, batches,
-                                       device, 'bfloat16')
+        want16 = check.reference_steps(ref, ref_cfg, cfg_file, state,
+                                       batches, device, 'bfloat16')
         record['detail'] = {}
         numbers = check.train_numbers(record['program_steps'], want, want16,
                                       record['detail'])

@@ -9,6 +9,12 @@ imports nothing of the port.  Parameter names are the reference's mmdet
 ``state_dict`` keys, as the port's are, so one ``state_dict`` loads into
 both.
 
+The benchmark's default reference module (``spec.reference``): with the
+model, its decode and its loss, it hands out the training step of
+``train.py`` and its part of the weights' scheme (``init_overrides``).  A
+configuration that needs another model names a module of its own, which
+may build on this one.
+
 Batch layout:
   images      (B, V, H, W, 3)   normalized, padded
   intrinsics  (B, 3, 3)
@@ -37,6 +43,9 @@ from . import imvoxel_heads as ivh
 from . import necks3d
 from . import resnet as resnet_lib
 from .target_assign import AssignerConfig
+from .train import make_optimizer, make_train_step, param_label  # noqa: F401
+
+CLS_BIAS_INIT = -4.59511985013459   # -log((1 - 0.01) / 0.01)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +174,11 @@ class ImVoxelNet(nn.Module):
         head_outs = self.bbox_head(self.neck_3d(volume.to(self.dtype)))
         return head_outs, valid
 
+    def loss(self, head_outs, batch, valid=None):
+        """The training losses of this forward's outputs
+        (:func:`imvoxelnet_loss`)."""
+        return imvoxelnet_loss(self.cfg, head_outs, batch, valid)
+
 
 def imvoxelnet_predict(cfg: ImVoxelNetConfig, head_outs, valid=None,
                        origins=None):
@@ -187,3 +201,24 @@ def imvoxelnet_loss(cfg: ImVoxelNetConfig, head_outs, batch, valid=None):
     return ivh.indoor_head_loss(head_outs, valid, batch['origins'],
                                 batch['gt_boxes'], batch['gt_labels'],
                                 batch['gt_mask'], cfg.indoor_head)
+
+
+def init_overrides(model: ImVoxelNet, serve: bool) -> dict:
+    """The head's entries of the weights' scheme (``weights.py``), as
+    ``{name: ('normal', std) | ('fill', value)}``: normal(0.01) for the
+    anchor head's class and box convs and for every conv of the indoor
+    head; the class conv's bias at 0 serving (every score near 0.5, above
+    the score threshold, so that decode and NMS see full candidate sets, as
+    the port's ``tools/profile_forward.py:zero_cls_bias`` does) and at
+    ``-log(99)`` training."""
+    head = model.bbox_head
+    if isinstance(head, a3d.Anchor3DHead):
+        small, cls_conv = [head.conv_cls, head.conv_reg], head.conv_cls
+    else:
+        small = [m for m in head.modules() if isinstance(m, nn.Conv3d)]
+        cls_conv = head.cls_conv
+    names = {m: n for n, m in model.named_modules()}
+    plan = {names[m] + '.weight': ('normal', 0.01) for m in small}
+    plan[names[cls_conv] + '.bias'] = ('fill',
+                                       0.0 if serve else CLS_BIAS_INIT)
+    return plan

@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import torch
 
-from .detector import imvoxelnet_loss
-
 
 def param_label(name: str) -> str:
     """``'frozen'``, ``'backbone'`` or ``'rest'`` for a parameter of
@@ -86,7 +84,6 @@ def make_train_step(model, optimizer, scheduler):
     ``metrics`` holds the losses and their sum ``loss`` as device tensors.
     Every trainable parameter gets a zero gradient up front, so that one
     that does not reach the loss still decays."""
-    cfg = model.cfg
     for g in optimizer.param_groups:
         for p in g['params']:
             if p.grad is None:
@@ -96,7 +93,7 @@ def make_train_step(model, optimizer, scheduler):
         model.train()
         optimizer.zero_grad(set_to_none=False)
         head_outs, valid = model(batch)
-        losses = imvoxelnet_loss(cfg, head_outs, batch, valid)
+        losses = model.loss(head_outs, batch, valid)
         total = sum(losses.values())
         total.backward()
         optimizer.step()

@@ -7,10 +7,10 @@ cell's inputs: a frozen copy of the rules of ``PERF.md``'s kernel table.
   that some view sees, plus the same small inputs, and the feature
   gradient written.  Both are bytes-bound: their bound is bytes over
   ``peaks.PEAK_BYTES``.
-* B3, the KITTI neck's block0 3x3x3 convs: ``2 * 27 * Cin * Cout`` per
-  output voxel, over the bfloat16 tensor-core peak; a training step runs
-  the forward and the input gradient through it (the weight gradient is
-  cuDNN's).
+* B3, the 3x3x3 convs whose input meets the port's gate (a frozen copy:
+  :func:`takes_b3`): ``2 * 27 * Cin * Cout`` per output voxel, over the
+  bfloat16 tensor-core peak; a training step runs the forward and the
+  input gradient through it (the weight gradient is cuDNN's).
 
 The pixels come from the reference's projection
 (``reference/backproject.py:_view_indices``), not from the program.
@@ -19,8 +19,14 @@ The pixels come from the reference's projection
 from __future__ import annotations
 
 import torch
+from torch.fx.experimental import _config as fx_config
 
+from .flops import meta_batch
 from .reference import backproject as bp
+from .reference.necks3d import Conv3x3x3
+
+# the port's gate (``models/necks3d.py:Conv3x3x3.takes_kernel``)
+B3_CHANNELS, B3_NZ, B3_MIN_PLANE = 64, (6, 16), 16384
 
 
 def _sizes(cfg, batch):
@@ -51,14 +57,37 @@ def b1_bytes(cfg, batch, train: bool, elem: int = 2) -> float:
     return float(total)
 
 
-def b3_flops(cfg, batch, train: bool) -> float:
-    """Operations of the block0 convs B3 runs for one batch, 0 where the
-    neck takes no B3 (the port gates it to 64 -> 64 channels on a large,
-    shallow plane: the KITTI neck)."""
-    if cfg.neck.kind != 'kitti':
-        return 0.0
-    b = batch['images'].shape[0]
-    nx, ny, nz = cfg.n_voxels
-    c = cfg.neck.in_channels
-    per_conv = 2.0 * 27 * c * c * nx * ny * nz * b
-    return per_conv * (4 if train else 2)
+def takes_b3(conv, shape) -> bool:
+    """Whether the port sends ``conv`` on an input of ``shape`` ``(B, C,
+    nx, ny, nz)`` to B3: stride 1, padding 1, 64 to 64 channels, a
+    shallow z and a large plane."""
+    _, cin, nx, ny, nz = shape
+    return (tuple(conv.stride) == (1, 1, 1)
+            and tuple(conv.padding) == (1, 1, 1)
+            and cin == B3_CHANNELS and conv.weight.shape[0] == B3_CHANNELS
+            and B3_NZ[0] <= nz <= B3_NZ[1] and nx * ny >= B3_MIN_PLANE)
+
+
+def b3_flops(reference, cfg, batch, train: bool) -> float:
+    """Operations of the convs B3 runs for one batch: the model of ``cfg``
+    of the ``reference`` module walked on the meta device, each
+    :class:`Conv3x3x3` whose input meets the gate counted once a forward,
+    twice a training step (its input gradient); 0 where none does."""
+    with torch.device('meta'):
+        model = reference.ImVoxelNet(cfg)
+    gated = []
+
+    def record(conv, args):
+        shape = args[0].shape
+        if takes_b3(conv, shape):
+            b, cin, nx, ny, nz = shape
+            gated.append(2.0 * 27 * cin * conv.weight.shape[0]
+                         * nx * ny * nz * b)
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, Conv3x3x3)]
+    with torch.no_grad(), fx_config.patch(
+            meta_nonzero_assume_all_nonzero=True):
+        model.eval()(meta_batch(batch))
+    for h in hooks:
+        h.remove()
+    return float(sum(gated)) * (2 if train else 1)

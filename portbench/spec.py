@@ -8,7 +8,12 @@ mix or a metric.
   correctness check compares, with the readings they were set from;
 * ``portbench/metrics/<metric>.py``: a per-layer metric's reader, a
   function ``read(ctx)`` that returns the value or ``None`` where it finds
-  nothing to read.
+  nothing to read;
+* ``portbench/reference/<reference>.py``: the plain reference model of a
+  configuration, named by its file's ``"reference"`` (``detector`` where it
+  names none; :func:`reference` lists what the module provides);
+* ``portbench/scenes/<data.dataset>.py``: the cameras, ``ratio`` and ground
+  truth of a dataset's scenes (``scenes/__init__.py``).
 
 A cell reports its ``end_to_end`` metrics (those whose ``workloads`` list
 holds it, or every one without the key) and the ``per_layer`` metrics that
@@ -69,6 +74,25 @@ def find_cell(name: str, bench: dict, base: str = HERE) -> Cell:
         traffic=_json(os.path.join(base, 'traffic', w['traffic'] + '.json')),
         limits=_json(os.path.join(base, 'limits', name + '.json')),
         end_to_end=e2e, per_layer=layer)
+
+
+def reference(config: dict):
+    """The reference module of the configuration file ``config``:
+    ``reference/<config['reference']>.py``, ``detector`` where it names
+    none.  It provides ``config_from_dict(model)`` (the reference's config
+    of the file's ``model``), the model class ``ImVoxelNet(cfg)``
+    (``forward(batch) -> (head_outs, valid)``, ``loss(head_outs, batch,
+    valid)``), ``imvoxelnet_predict(cfg, head_outs, valid, origins)``,
+    ``param_label(name)``, ``make_optimizer`` and ``make_train_step`` (the
+    training check's), and ``init_overrides(model, serve)``, its entries of
+    the weights' scheme on top of the generic one (``weights.py``)."""
+    name = config.get('reference', 'detector')
+    return importlib.import_module(f'{__package__}.reference.{name}')
+
+
+def scenes(dataset: str):
+    """The scenes module of ``dataset``: ``scenes/<dataset>.py``."""
+    return importlib.import_module(f'{__package__}.scenes.{dataset}')
 
 
 def reader(metric_name: str, base: str = HERE):

@@ -14,6 +14,13 @@ from portbench import run as run_cli
 from portbench.tests.tiny import tiny_cell
 
 SEED = 2 ** 31 + 21
+BENCH = spec.load_benchmark()
+CELLS = [w['name'] for w in BENCH['workloads']]
+
+
+def _faults(workload):
+    serve = spec.find_cell(workload, BENCH).traffic['mode'] == 'serve'
+    return faults.SERVE if serve else faults.TRAIN
 
 
 def _cell(workload):
@@ -33,8 +40,7 @@ def _correct(cell, numbers):
     return out['correct']
 
 
-@pytest.mark.parametrize('workload', ['kitti-serve-b8', 'sunrgbd-serve-b8',
-                                      'kitti-train-b4', 'sunrgbd-train-b4'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_sound_run_is_correct(workload):
     cell = _cell(workload)
     record = harness.run(cell, SEED, 0.3, False, 'cpu')
@@ -44,8 +50,7 @@ def test_sound_run_is_correct(workload):
     assert not harness.forbidden_modules()
 
 
-@pytest.mark.parametrize('workload', ['kitti-serve-b8', 'sunrgbd-serve-b8',
-                                      'kitti-train-b4', 'sunrgbd-train-b4'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_control_is_not_correct(workload):
     cell = _cell(workload)
     numbers = calibrate.control_numbers(cell, SEED, 'cpu')
@@ -54,12 +59,10 @@ def test_control_is_not_correct(workload):
 
 
 @pytest.mark.parametrize('workload,fault', [
-    ('kitti-serve-b8', name) for name in faults.SERVE] + [
-    ('kitti-train-b4', name) for name in faults.TRAIN])
+    (workload, name) for workload in CELLS for name in _faults(workload)])
 def test_fault_is_not_correct(workload, fault):
     cell = _cell(workload)
-    table = faults.SERVE if 'serve' in workload else faults.TRAIN
-    with table[fault]():
+    with _faults(workload)[fault]():
         record = harness.run(cell, SEED, 0.3, False, 'cpu')
     out, lines = run_cli.result_line(cell, record, False, {})
     assert not out['correct'], lines
@@ -70,7 +73,7 @@ def test_cell_on_the_card():
     """One short run of the first cell on the card (skips without one)."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
-    cell = spec.find_cell('kitti-serve-b8', spec.load_benchmark())
+    cell = spec.find_cell(CELLS[0], BENCH)
     record = harness.run(cell, SEED, 2.0, False, 'cuda')
     out, lines = run_cli.result_line(cell, record, False, {})
     assert out['correct'], lines

@@ -29,18 +29,25 @@ def _sources(*parts):
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    files = (_sources() + _sources('reference') + _sources('metrics')
-             + _sources('tests'))
+    files = (_sources() + _sources('reference') + _sources('scenes')
+             + _sources('metrics') + _sources('tests')
+             + _sources('tests', 'new_config'))
     assert files
     for path in files:
         assert not set(_imports(path)) & FORBIDDEN, path
 
 
 def test_reference_imports_nothing_of_the_port():
-    for path in _sources('reference'):
+    """Every reference and scenes module, the new configuration's test
+    modules too: by their import lines, and loaded in a fresh process."""
+    files = (_sources('reference') + _sources('scenes')
+             + _sources('tests', 'new_config'))
+    for path in files:
         assert 'imvoxelnet_tpu_torch' not in set(_imports(path)), path
-    code = ('import sys, portbench.reference.detector, '
-            'portbench.reference.train; '
+    modules = [f'portbench.{sub}.{os.path.basename(p)[:-3]}'
+               for sub in ('reference', 'scenes') for p in _sources(sub)]
+    code = ('import importlib, sys\n'
+            f'for m in {modules!r}: importlib.import_module(m)\n'
             'sys.exit(sorted(m for m in sys.modules if m.split(".")[0] in '
             '("imvoxelnet_tpu_torch", "imvoxelnet_tpu", "jax")) != [])')
     subprocess.run([sys.executable, '-c', code], cwd=spec.ROOT, check=True)

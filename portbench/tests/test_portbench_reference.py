@@ -24,11 +24,11 @@ def test_tiny_kitti_test_preset_forward_and_decode():
     """The port's own ``tiny_kitti_test`` preset, its plain path."""
     preset = get_preset('tiny_kitti_test')
     cfg = rd.config_from_dict(dataclasses.asdict(preset.model))
-    state = weights.make_state_dict(rd.ImVoxelNet, cfg, 11, 'cpu', True)
+    state = weights.make_state_dict(rd, cfg, 11, 'cpu', True)
     config = dict(preset='tiny_kitti_test',
                   model=dataclasses.asdict(preset.model))
     port = program.build_model(config, state, 'cpu')
-    ref = check.reference_model(cfg, state, 'cpu').eval()
+    ref = check.reference_model(rd, cfg, state, 'cpu').eval()
     batch = traffic.make_pool(
         dict(data=dict(dataset='kitti', test_size=list(preset.data.test_size),
                        train_size=list(preset.data.train_size))),
@@ -50,15 +50,15 @@ def test_tiny_kitti_test_preset_forward_and_decode():
 def test_serving_cells_agree_in_float32(workload):
     cell = _float32(tiny_cell(workload))
     cfg = rd.config_from_dict(cell.config['model'])
-    state = weights.make_state_dict(rd.ImVoxelNet, cfg, 12, 'cpu', True)
+    state = weights.make_state_dict(rd, cfg, 12, 'cpu', True)
     pool = traffic.make_pool(cell.config, cell.traffic, 12, 'cpu')
     port = program.build_model(cell.config, state, 'cpu')
     dets, head_outs, valid = program.serve_call(port)(pool[0])
     kept = [dict(batch=pool[0], head_outs=head_outs, valid=valid,
                  dets={k: v.clone() for k, v in dets.items()})]
     numbers = check.serve_numbers(
-        check.reference_model(cfg, state, 'cpu'),
-        check.reference_model(cfg, state, 'cpu', 'bfloat16'), cfg, kept)
+        rd, cfg, check.reference_model(rd, cfg, state, 'cpu'),
+        check.reference_model(rd, cfg, state, 'cpu', 'bfloat16'), kept)
     assert int(dets['valid'].sum()) > 0
     assert numbers['head_gap'] < 1e-5
     assert numbers['valid_mismatch'] == 0
@@ -68,7 +68,7 @@ def test_serving_cells_agree_in_float32(workload):
 def test_training_steps_agree_in_float32():
     cell = _float32(tiny_cell('kitti-train-b4'))
     cfg = rd.config_from_dict(cell.config['model'])
-    state = weights.make_state_dict(rd.ImVoxelNet, cfg, 13, 'cpu', False)
+    state = weights.make_state_dict(rd, cfg, 13, 'cpu', False)
     pool = traffic.make_pool(cell.config, cell.traffic, 13, 'cpu')
     port = program.build_model(cell.config, state, 'cpu')
     step, optimizer = program.train_step(port, cell.config)
@@ -80,7 +80,8 @@ def test_training_steps_agree_in_float32():
             grads = check.norms(check.first_gradients(optimizer, names))
     got = dict(losses=losses, grads=grads, changes=check.change_norms(
         check.moving(state), check.moving(port.state_dict())))
-    want = check.reference_steps(cfg, cell.config, state, pool[:3], 'cpu')
+    want = check.reference_steps(rd, cfg, cell.config, state, pool[:3],
+                                 'cpu')
     numbers = check.train_numbers(got, want)
     assert numbers['loss_gap'] < 1e-4
     assert numbers['grad_gap'] < 1e-3

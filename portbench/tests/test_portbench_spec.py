@@ -51,6 +51,14 @@ def test_every_cell_resolves(bench, workload):
     for m in cell.end_to_end + cell.per_layer:
         assert callable(spec.reader(m['name']))
     assert set(cell.limits['numbers'])
+    ref = spec.reference(cell.config)
+    for name in ('config_from_dict', 'ImVoxelNet', 'imvoxelnet_predict',
+                 'param_label', 'make_optimizer', 'make_train_step'):
+        assert callable(getattr(ref, name)), name
+    scenes = spec.scenes(cell.config['data']['dataset'])
+    assert scenes.VIEWS >= 1
+    for name in ('cameras', 'ratio', 'ground_truth'):
+        assert callable(getattr(scenes, name)), name
 
 
 def test_config_files_are_their_configs(bench):

@@ -1,5 +1,8 @@
 """Tiny cells for the CPU tests: the benchmark's own configurations with
-the grid, images and batch cut so that a run takes seconds on the CPU."""
+the grid, images and batch cut so that a run takes seconds on the CPU.  A
+configuration file's ``"tiny"`` object gives its toy sizes (``model`` and
+``data`` entries, merged into the file's own); a file without one takes
+the rules of :func:`tiny_config` by its head."""
 
 from __future__ import annotations
 
@@ -17,11 +20,25 @@ def _json(*parts):
         return json.load(f)
 
 
+def _merge(into: dict, values: dict) -> None:
+    """``values`` into ``into``, nested objects entry by entry."""
+    for key, value in values.items():
+        if isinstance(value, dict) and isinstance(into.get(key), dict):
+            _merge(into[key], value)
+        else:
+            into[key] = copy.deepcopy(value)
+
+
 def tiny_config(name: str) -> dict:
     """``configs/<name>.json`` at toy sizes: a coarse grid over the same
     scene, small images, few candidates."""
     cfg = copy.deepcopy(_json('configs', name + '.json'))
     m, d = cfg['model'], cfg['data']
+    if 'tiny' in cfg:
+        tiny = cfg.pop('tiny')
+        _merge(m, tiny.get('model', {}))
+        _merge(d, tiny.get('data', {}))
+        return cfg
     m['backbone_stage_blocks'] = [1, 1, 1, 1]
     if m['head_kind'] == 'anchor3d':
         m['n_voxels'], m['voxel_size'] = [32, 40, 12], [0.8, 0.64, 0.32]
